@@ -1,0 +1,124 @@
+"""Build, load and count the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``. The
+library lands in ``build/kernels/`` at the repository root under a name
+that carries a hash of its source and flags, so an edited source is
+rebuilt and an unchanged one is built once. ``build_all`` starts one
+``nvcc`` per source at the same time.
+
+``LAUNCHES`` counts, per wrapper, the launches of its kernel. A wrapper
+adds one only where it launches; the plain CPU path adds nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("block_topk", "scatter_accum")
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+LAUNCHES = {"diff_topk_payload": 0, "scatter_accumulate": 0,
+            "block_scatter_accumulate": 0}
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
+    tag = h.hexdigest()
+    return BUILD_DIR / f"lib{name}-{tag[:12]}.so"
+
+
+def _start_build(name: str):
+    """Start ``nvcc`` for one source; None if the library exists."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           str(_CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, job) -> str:
+    if job is None:
+        return ""
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: a reader never sees a half-written .so
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Build every kernel source in parallel; returns nvcc's output
+    (registers, shared memory, spills) per source that was built."""
+    jobs = {name: _start_build(name) for name in SOURCES}
+    return {name: _finish_build(name, job) for name, job in jobs.items()}
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "block_topk": {
+        f"diff_topk_payload_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        for t in ("f32", "f64")},
+    "scatter_accum": {
+        **{f"scatter_accumulate_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+           for t in ("f32", "f64")},
+        **{f"block_scatter_accumulate_{t}": [_P, _P, _P, _I, _I, _I, _I,
+                                             _I, _P]
+           for t in ("f32", "f64")},
+    },
+}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        _finish_build(name, _start_build(name))
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream

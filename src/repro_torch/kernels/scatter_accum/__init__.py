@@ -1,0 +1,2 @@
+from .ops import block_scatter_accumulate, scatter_accumulate
+from .ref import block_scatter_accumulate_ref, scatter_accumulate_ref

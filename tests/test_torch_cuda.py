@@ -1,0 +1,92 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a
+card. Without one every test here skips; on the card run
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+This file imports neither JAX nor the JAX package, so it runs where only
+PyTorch is installed.
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels.block_topk import diff_topk_payload
+from repro_torch.kernels.scatter_accum import (
+    block_scatter_accumulate,
+    block_scatter_accumulate_ref,
+    scatter_accumulate,
+    scatter_accumulate_ref,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _sym(n, d, gen):
+    m = torch.randn((n, d, d), generator=gen, dtype=torch.float64)
+    return 0.5 * (m + m.transpose(1, 2))
+
+
+def _pairs(n, k, numel, gen):
+    idx = torch.randint(0, numel, (n, k), generator=gen)
+    idx[:, 3] = idx[:, 1]
+    idx[:, -5:] = -1
+    return (torch.randn((n, k), generator=gen, dtype=torch.float64),
+            idx.to(torch.int32))
+
+
+@pytest.mark.parametrize("k,block", [(8, 128), (16384, 128), (40, 16)])
+def test_diff_topk_payload_kernel_matches_plain(cuda, k, block):
+    gen = torch.Generator().manual_seed(0)
+    a, b = _sym(4, 300, gen), _sym(4, 300, gen)
+    a[:, :6, :6] = 9.0                          # a tie cluster
+    b[:, :6, :6] = 0.0
+    got = diff_topk_payload(a.to(cuda), b.to(cuda), k=k, block=block)
+    want = diff_topk_payload(a, b, k=k, block=block)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_scatter_accumulate_kernel_matches_plain(cuda, symmetric):
+    """Both add in stream order, so the sums agree bit for bit."""
+    gen = torch.Generator().manual_seed(1)
+    v, i = _pairs(6, 300, 300 * 300, gen)
+    init = torch.randn((300, 300), generator=gen, dtype=torch.float64)
+    for seed in (None, init):
+        got = scatter_accumulate(v.to(cuda), i.to(cuda), (300, 300),
+                                 symmetric=symmetric,
+                                 init=None if seed is None else seed.to(cuda))
+        want = scatter_accumulate_ref(v, i, (300, 300), symmetric=symmetric,
+                                      init=seed)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_block_scatter_accumulate_kernel_matches_plain(cuda):
+    gen = torch.Generator().manual_seed(2)
+    v, i = _pairs(4 * 9, 48, 128 * 128, gen)
+    v, i = v.reshape(4, 9, 48), i.reshape(4, 9, 48)
+    got = block_scatter_accumulate(v.to(cuda), i.to(cuda), (3, 3), 128)
+    want = block_scatter_accumulate_ref(v, i, (3, 3), 128)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_wrappers_count_launches_and_reject_bad_input(cuda):
+    reset_launches()
+    v, i = _pairs(2, 10, 100, torch.Generator().manual_seed(3))
+    scatter_accumulate(v.to(cuda), i.to(cuda), (10, 10))
+    assert LAUNCHES == {"diff_topk_payload": 0, "scatter_accumulate": 1,
+                        "block_scatter_accumulate": 0}
+    with pytest.raises(TypeError, match="int32"):
+        scatter_accumulate(v.to(cuda), i.to(cuda).long(), (10, 10))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        scatter_accumulate(v.to(cuda), i, (10, 10))
+    assert LAUNCHES["scatter_accumulate"] == 1
