@@ -1,27 +1,48 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Phases, each failing the run with a non-zero exit:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
      source, all started together);
-  3. hold every kernel to its plain PyTorch version on the card, in f64
-     and f32, at the shapes FedNL's main path gives it on w8a;
+  3. hold K1 (diff_topk_payload), K2/K3 (scatter_accumulate) and K4
+     (block_scatter_accumulate) to their plain PyTorch versions on the
+     card, in f64 and f32, at the shapes FedNL's path gives them on w8a;
   4. drive FedNL Options 1 and 2 on the w8a stand-in (n=142, m=350,
      d=300, f64) for Top-K (k=d), symmetric Top-K (k=d), Rank-R (1) and
      Block-Top-K (8), 20 rounds each, through ``FedNL.run``; assert the
      error bound and that every kernel of the path was launched; then
      hold the card to the CPU port on a1a-sized data;
-  5. time a FedNL round per compressor, and each kernel beside its bound,
-     its plain version and the nearest single PyTorch call;
-  6. print the kernel line, the card line, and last the device line.
+  5. drive the curvature-learning optimizer ``fednl_precond`` (k=2048 per
+     128 x 128 tile) over all 14 tensors of qwen2-0.5B (494,032,768
+     parameters, bf16, random from --seed) with 4 silos of Fisher
+     observations: 3 ``update`` steps, one ``refresh``, one
+     ``precondition``, then each silo's uplink payload of every tensor
+     through the optimizer's codec (``compressor.compress``). At step 0
+     H = 0, so K1(obs, 0) must equal K5(obs) bit for bit on every tile
+     (a check outside the counted runs). K1 and K4 must have launched in
+     the optimizer's calls and K5 in the codec's; H, l and the updates
+     must be finite; the card must equal the CPU port on the small
+     tensors; K1, K4 and the codec's K5 payloads are then held to their
+     plain versions on every tensor's inputs;
+  6. PowerSGD and dense block top-k: ``powersgd_rank_r`` (K8, r = 1, 2)
+     and ``block_topk`` (K6) on a w8a Hessian (300 x 300 f64) and on
+     ``layers.ffn.wg[0]`` (896 x 4864), against their plain versions;
+  7. FedNL lines 5-6 by ``hess_update`` (K7) on the w8a FedNL state
+     (142 Hessians), held to what ``FedNL.step`` computes and to its
+     plain version, and on the embed-sized H of phase 5;
+  8. time a FedNL round per compressor, the optimizer's refresh and
+     precondition, and each kernel beside its bound, its plain version
+     and the nearest single PyTorch call;
+  9. print the kernel line, the card line, and last the device line.
 It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -47,14 +68,20 @@ REFERENCE_ERR = {
     ("blocktopk", 2): 0.12608646649884878,
 }
 LEVELS = {"topk": 300, "topk-sym": 300, "rankr": 1, "blocktopk": 8}
+# the optimizer phase: qwen2-0.5B, 4 silos, Block-Top-K 2048 of 128^2
+SILOS, K_PER_BLOCK, BLOCK, STEPS = 4, 2048, 128, 3
 # H100 SXM peaks (NVIDIA data sheet, dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f64": 34e12, "f32": 67e12}
 
 
-def fail(msg: str) -> int:
-    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
-    return 1
+class SmokeFailure(Exception):
+    pass
+
+
+def require(ok: bool, msg: str) -> None:
+    if not ok:
+        raise SmokeFailure(msg)
 
 
 def time_cuda(fn, reps: int = 50, warmup: int = 3) -> float:
@@ -74,25 +101,65 @@ def time_cuda(fn, reps: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Device time (ms) per call of the CUDA kernel whose name contains
-    ``kernel``, from the profiler: ``time_cuda`` also counts the host's
-    launch overhead wherever that exceeds the kernel's run."""
+def host_ms(fn) -> tuple[float, object]:
+    """Host clock around one call that ends in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3, out
+
+
+def device_ms(fn, kernel: str, reps: int = 20, tries: int = 3) -> float:
+    """Device time (ms) per call of the CUDA kernels whose names contain
+    ``kernel``, from the profiler (``time_cuda`` also counts the host's
+    launch overhead wherever that exceeds the kernel's run). Each try is
+    a fresh profiler session over host and device activity; the run
+    fails when no try names such a kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in rows if kernel in e.key)
+        if total > 0:
+            return total / 1e3 / reps
+    raise SmokeFailure(f"the profiler saw no kernel named like {kernel!r} in "
+                       f"{tries} tries; device rows: "
+                       f"{[e.key[:80] for e in rows]}")
+
+
+def profile_window(fn) -> dict:
+    """One call under the profiler: wall ms, device busy ms, idle share
+    and the top device rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and kernel in e.key)
-    if total <= 0:
-        raise RuntimeError(f"the profiler saw no kernel named like {kernel!r}")
-    return total / 1e3 / reps
+        wall = (time.perf_counter() - t) * 1e3
+    ops = [(e.key, e.self_device_time_total / 1e3)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
+    busy = sum(ms for _, ms in ops)
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall),
+            "top_device_ms": [[name[:60], ms] for name, ms in ops[:6]]}
 
 
 def bound(nbytes: float, ops: dict) -> tuple[float, str]:
@@ -104,21 +171,19 @@ def bound(nbytes: float, ops: dict) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        return fail("PyTorch is not installed")
-    if not torch.cuda.is_available():
-        return fail("CUDA is not available")
-    src = Path(__file__).resolve().parent / "src"
-    if not (src / "repro_torch" / "csrc").is_dir():
-        return fail(f"the port's sources are not at {src}")
-    sys.path.insert(0, str(src))
-    import repro_torch.kernels as K
-    from repro_torch.core import FedNL, make_compressor
-    from repro_torch.data import make_problem, problem_from_data
-    from repro_torch.data.synthetic import make_libsvm_like
+def max_rel(got, want) -> float:
+    """max |got - want| / max |want|."""
+    import torch
+
+    scale = float(torch.max(torch.abs(want)))
+    return float(torch.max(torch.abs(got - want))) / max(scale, 1e-300)
+
+
+# -- phase 3: K1, K2/K3, K4 against their plain versions at w8a shapes --------
+
+
+def check_fednl_kernels(dev, err: dict) -> None:
+    import torch
     from repro_torch.kernels.block_topk import diff_topk_payload, diff_topk_payload_ref
     from repro_torch.kernels.scatter_accum import (
         block_scatter_accumulate,
@@ -127,33 +192,7 @@ def main() -> int:
         scatter_accumulate_ref,
     )
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-
-    # -- 1. the card --------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        return fail(f"nvidia-smi: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
-    print(f"# card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
-          flush=True)
-
-    # -- 2. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    logs = K.build_all()
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"# ptxas {name}: {line.strip()}")
-    print(f"# build: {time.perf_counter() - t0:.1f} s", flush=True)
-
-    # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
-    err = {"diff_topk_payload": 0.0, "scatter_accumulate": 0.0,
-           "block_scatter_accumulate": 0.0}
 
     def sym(n, d, dtype):
         m = torch.randn((n, d, d), generator=gen, device=dev, dtype=dtype)
@@ -166,14 +205,20 @@ def main() -> int:
         for k, block in ((8, 128), (128 * 128, 128), (40, 16)):
             got = diff_topk_payload(a, b, k=k, block=block)
             want = diff_topk_payload_ref(a, b, k=k, block=block)
-            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                return fail(f"diff_topk_payload payload differs ({dtype}, k={k})")
+            require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                    f"diff_topk_payload payload differs ({dtype}, k={k})")
             rel = float(torch.max(torch.abs(got[2] - want[2]) / want[2]))
-            if rel > (1e-12 if dtype == torch.float64 else 1e-5):
-                return fail(f"diff_topk_payload ||D||^2 off by {rel:.2e} rel")
+            require(rel <= (1e-12 if dtype == torch.float64 else 1e-5),
+                    f"diff_topk_payload ||D||^2 off by {rel:.2e} rel")
             if dtype == torch.float64:
                 e = float(torch.max(torch.abs(got[2] - want[2])))
                 err["diff_topk_payload"] = max(err["diff_topk_payload"], e)
+        # one b shared by every silo (stride 0) equals the stacked copy
+        got = diff_topk_payload(a, b[0], k=8)
+        want = diff_topk_payload(a, b[0].expand_as(a).contiguous(), k=8)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and torch.equal(got[2], want[2]),
+                f"diff_topk_payload with a shared b differs ({dtype})")
 
         def pairs(n, k, numel, symmetric):
             idx = torch.randint(0, numel, (n, k), generator=gen, device=dev)
@@ -192,8 +237,8 @@ def main() -> int:
             want = scatter_accumulate_ref(vals, idx, (300, 300),
                                           symmetric=symmetric)
             e = float(torch.max(torch.abs(got - want)))
-            if e > tol * max(1.0, float(torch.max(torch.abs(want)))):
-                return fail(f"scatter_accumulate off by {e:.2e} ({dtype})")
+            require(e <= tol * max(1.0, float(torch.max(torch.abs(want)))),
+                    f"scatter_accumulate off by {e:.2e} ({dtype})")
             if dtype == torch.float64:
                 err["scatter_accumulate"] = max(err["scatter_accumulate"], e)
             # a weight-0 silo changes nothing, bit for bit
@@ -205,13 +250,13 @@ def main() -> int:
                                     symmetric=symmetric)
             x1 = scatter_accumulate(vals, dropped, (300, 300),
                                     symmetric=symmetric)
-            if not torch.equal(x0, x1):
-                return fail("scatter_accumulate: a weight-0 silo changed the sum")
+            require(torch.equal(x0, x1),
+                    "scatter_accumulate: a weight-0 silo changed the sum")
         init = torch.randn((300, 300), generator=gen, device=dev, dtype=dtype)
         got = scatter_accumulate(vals, idx, (300, 300), init=init)
         want = scatter_accumulate_ref(vals, idx, (300, 300), init=init)
-        if float(torch.max(torch.abs(got - want))) > tol * 10:
-            return fail("scatter_accumulate with init differs")
+        require(float(torch.max(torch.abs(got - want))) <= tol * 10,
+                "scatter_accumulate with init differs")
         # the output-tiled regime of the TPU (d >= 1025 in f64)
         big = torch.randint(0, 1100 * 1100, (16, 4096), generator=gen,
                             device=dev).to(torch.int32)
@@ -219,8 +264,7 @@ def main() -> int:
         got = scatter_accumulate(bvals, big, (1100, 1100))
         want = scatter_accumulate_ref(bvals, big, (1100, 1100))
         e = float(torch.max(torch.abs(got - want)))
-        if e > tol * 10:
-            return fail(f"scatter_accumulate at d=1100 off by {e:.2e}")
+        require(e <= tol * 10, f"scatter_accumulate at d=1100 off by {e:.2e}")
         if dtype == torch.float64:
             err["scatter_accumulate"] = max(err["scatter_accumulate"], e)
 
@@ -232,19 +276,23 @@ def main() -> int:
         got = block_scatter_accumulate(bv, bi, (3, 3), 128)
         want = block_scatter_accumulate_ref(bv, bi, (3, 3), 128)
         e = float(torch.max(torch.abs(got - want)))
-        if e > tol * 10:
-            return fail(f"block_scatter_accumulate off by {e:.2e} ({dtype})")
+        require(e <= tol * 10, f"block_scatter_accumulate off by {e:.2e} ({dtype})")
         if dtype == torch.float64:
-            err["block_scatter_accumulate"] = max(err["block_scatter_accumulate"],
-                                                  e)
+            err["block_scatter_accumulate"] = max(
+                err["block_scatter_accumulate"], e)
     torch.cuda.synchronize()
-    print(f"# kernels match their plain versions (f64 and f32); max abs err "
-          f"in f64 {json.dumps(err)}", flush=True)
 
-    # -- 4. the main path: FedNL on w8a -------------------------------------
-    prob = make_problem("w8a", seed=0, device=dev)
+
+# -- phase 4: FedNL Algorithm 1 on w8a ------------------------------------------
+
+
+def fednl_w8a(dev, prob, x0, K) -> dict:
+    import torch
+    from repro_torch.core import FedNL, make_compressor
+    from repro_torch.data import problem_from_data
+    from repro_torch.data.synthetic import make_libsvm_like
+
     d, n = prob["d"], prob["n"]
-    x0 = torch.zeros(d, dtype=torch.float64, device=dev)
     err0 = float(torch.linalg.vector_norm(x0 - prob["xstar"]))
     K.reset_launches()
     finals = {}
@@ -258,21 +306,22 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     t_main = time.perf_counter() - t_main
-    print(f"# main path: 8 FedNL runs x {ROUNDS} rounds in {t_main:.1f} s; "
+    print(f"# FedNL path: 8 runs x {ROUNDS} rounds on w8a in {t_main:.1f} s; "
           f"launches {json.dumps(launches)}", flush=True)
     for (family, option), xs in finals.items():
-        if xs.shape != (ROUNDS + 1, d) or not bool(torch.isfinite(xs).all()):
-            return fail(f"{family} option {option}: non-finite or misshapen iterates")
+        require(xs.shape == (ROUNDS + 1, d) and bool(torch.isfinite(xs).all()),
+                f"{family} option {option}: non-finite or misshapen iterates")
         e = float(torch.linalg.vector_norm(xs[-1] - prob["xstar"]))
         limit = max(1e-9, 2 * REFERENCE_ERR[family, option] * err0
                     / REFERENCE_ERR0)
         print(f"# w8a {family} option {option}: ||x0-x*|| {err0:.6e} -> "
               f"||x{ROUNDS}-x*|| {e:.6e} (bound {limit:.6e})")
-        if not e < limit:
-            return fail(f"{family} option {option}: ||x-x*|| = {e:.3e} >= {limit}")
-    for name, count in launches.items():
-        if count == 0:
-            return fail(f"kernel {name} was not launched on the main path")
+        require(e < limit, f"{family} option {option}: ||x-x*|| = {e:.3e} "
+                f">= {limit}")
+    for name in ("diff_topk_payload", "scatter_accumulate",
+                 "block_scatter_accumulate"):
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the FedNL path")
 
     # the card against the CPU port (held to the JAX reference by the
     # tests) on a1a-sized data: iterates agree to 1e-8 absolute
@@ -289,11 +338,327 @@ def main() -> int:
                 z = torch.zeros(123, dtype=torch.float64, device=p["xstar"].device)
                 xs.append(alg.run(z, 16, 12)[1].cpu())
             gap = float(torch.max(torch.abs(xs[0] - xs[1])))
-            if gap > 1e-8:
-                return fail(f"a1a {family} option {option}: card vs CPU gap {gap:.2e}")
+            require(gap <= 1e-8, f"a1a {family} option {option}: card vs CPU "
+                    f"gap {gap:.2e}")
     print("# a1a: card iterates match the CPU port to 1e-8", flush=True)
+    return launches
 
-    # -- 5. timings -----------------------------------------------------------
+
+# -- phase 5: the curvature-learning optimizer at qwen2-0.5B width ---------------
+
+
+def _small(tree) -> dict:
+    """The small tensors of a qwen2 tree: the norms, the biases and wk."""
+    layer = tree["layers"][0]
+    return {"norm_f": tree["norm_f"],
+            "layers": [{"norm1": layer["norm1"], "norm2": layer["norm2"],
+                        "mixer": {key: layer["mixer"][key]
+                                  for key in ("bq", "bk", "bv", "wk")}}]}
+
+
+def precond_qwen2(dev, seed: int, K, err: dict) -> dict:
+    """Drive ``fednl_precond`` through 3 updates, a refresh and a
+    precondition over every qwen2-0.5B tensor; returns what later phases
+    time and report."""
+    import torch
+    from repro_torch.configs.qwen2_0_5b import param_shapes
+    from repro_torch.kernels.block_topk import (
+        block_topk_payload,
+        block_topk_payload_ref,
+        diff_topk_payload,
+        diff_topk_payload_ref,
+    )
+    from repro_torch.kernels.scatter_accum import (
+        block_scatter_accumulate,
+        block_scatter_accumulate_ref,
+    )
+    from repro_torch.second_order import FedNLPrecondOptimizer, fednl_precond
+    from repro_torch.second_order.fednl_precond import _shape2d
+    from repro_torch.tree import tree_leaves, tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = param_shapes()
+    params = tree_map(lambda s: torch.randn(s.shape, generator=gen, device=dev,
+                                            dtype=s.dtype).mul_(0.02), shapes)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    require(n_params == 494_032_768 and len(tree_leaves(params)) == 14,
+            f"qwen2-0.5b tree has {n_params} parameters")
+    opt = fednl_precond(lr=1e-3, k_per_block=K_PER_BLOCK, block=BLOCK)
+
+    def draw():
+        """Per-silo bf16 gradients -> (mean gradient, silo observations)."""
+        silo_grads = tree_map(
+            lambda p: torch.randn((SILOS,) + tuple(p.shape), generator=gen,
+                                  device=dev, dtype=torch.bfloat16).mul_(1e-2),
+            params)
+        grads = tree_map(lambda g: g.float().mean(dim=0).to(torch.bfloat16),
+                         silo_grads)
+        return grads, opt.observe(silo_grads)
+
+    torch.cuda.reset_peak_memory_stats()
+    state = opt.init(params)
+    first = draw()
+    # H = 0 at step 0: the fused diff payload of obs - 0 is the payload of
+    # obs. A check between two kernels, so it runs before the counts of
+    # the path are reset.
+    for o, h in zip(tree_leaves(first[1]), tree_leaves(state.h)):
+        o2 = o.reshape((SILOS,) + _shape2d(h.shape))
+        v1, i1, _ = diff_topk_payload(o2, h.reshape(o2.shape[1:]),
+                                      K_PER_BLOCK, BLOCK)
+        v5, i5 = block_topk_payload(o2, K_PER_BLOCK, BLOCK)
+        require(torch.equal(v1, v5) and torch.equal(i1, i5),
+                f"K1(obs, 0) != K5(obs) on a {tuple(h.shape)} tensor")
+    del v1, i1, v5, i5
+    record = []           # CPU copies of the small tensors, step by step
+    update_ms = []
+    K.reset_launches()
+    t_path = time.perf_counter()
+    for step in range(STEPS):
+        grads, obs = first if step == 0 else draw()
+        first = None
+        ms, (upd, state) = host_ms(lambda: opt.update(grads, state, params, obs))
+        update_ms.append(ms)
+        record.append((_small(grads), _small(obs), _small(upd)))
+    grads, obs = draw()
+    before = state
+    refresh_ms, state = host_ms(lambda: opt.refresh(before, obs))
+    precond_ms, (upd, state) = host_ms(
+        lambda: opt.precondition(grads, state, params))
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t_path
+    launches = dict(K.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"# optimizer path: {STEPS} updates + refresh + precondition over "
+          f"{n_params} qwen2-0.5b parameters, {SILOS} silos, in "
+          f"{t_path:.1f} s; launches {json.dumps(launches)}", flush=True)
+    for name in ("diff_topk_payload", "block_scatter_accumulate"):
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the optimizer path")
+    # each silo's uplink payload of the refresh's observations, through
+    # the optimizer's codec (BlockTopKThreshold.compress)
+    codec = FedNLPrecondOptimizer(k_per_block=K_PER_BLOCK,
+                                  block=BLOCK).compressor
+    K.reset_launches()
+    uplink = [codec.compress(o.reshape((SILOS,) + _shape2d(h.shape)))
+              for o, h in zip(tree_leaves(obs), tree_leaves(before.h))]
+    torch.cuda.synchronize()
+    uplink_launches = dict(K.LAUNCHES)
+    print(f"# optimizer uplink codec: launches {json.dumps(uplink_launches)}",
+          flush=True)
+    require(uplink_launches["block_topk_payload"] > 0,
+            "kernel block_topk_payload was not launched by the uplink codec")
+    for name, tree in (("H", state.h), ("l", state.l), ("mu", state.mu),
+                       ("update", upd)):
+        require(all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree)),
+                f"non-finite {name} after the optimizer path")
+    require(any(bool((h != 0).any()) for h in tree_leaves(state.h)),
+            "H learned nothing")
+    record.append((_small(grads), _small(obs), _small(upd)))
+
+    # the card against the CPU port on the small tensors
+    cpu = lambda t: t.cpu()                                   # noqa: E731
+    p_c = tree_map(cpu, _small(params))
+    s_c = opt.init(p_c)
+    differ = [0, 0]                  # update entries that differ, of all
+    for i, (g, o, u) in enumerate(record):
+        g_c, o_c = tree_map(cpu, g), tree_map(cpu, o)
+        if i < STEPS:
+            u_c, s_c = opt.update(g_c, s_c, p_c, o_c)
+        else:
+            s_c = opt.refresh(s_c, o_c)
+            u_c, s_c = opt.precondition(g_c, s_c, p_c)
+
+        def close_updates(a, b):
+            # bf16 updates: one bf16 rounding step apart, plus the f32
+            # gap of the momentum they round (the ridge's sums run in
+            # another order), norm-wise: an entry whose momentum cancels
+            # to near 0 carries the absolute error of its terms
+            a, b = a.cpu().float(), b.float()
+            gap = torch.abs(a - b)
+            scale = float(torch.max(torch.abs(b)))
+            over = gap > 2.0 ** -7 * torch.abs(b) + 1e-5 * scale
+            require(not bool(over.any()),
+                    f"card and CPU updates differ at step {i}: "
+                    f"{int(over.sum())} of {b.numel()} entries, worst gap "
+                    f"{float(gap.max()):.3e} of max |u| {scale:.3e}")
+            differ[0] += int((gap > 0).sum())
+            differ[1] += b.numel()
+        tree_map(close_updates, u, u_c)
+    gap = {"h": 0.0, "l": 0.0, "mu": 0.0}
+    for name in gap:
+        for a, b in zip(tree_leaves(_small(getattr(state, name))),
+                        tree_leaves(getattr(s_c, name))):
+            a = a.cpu()
+            if name == "h":
+                require(torch.equal(a, b), "card and CPU H differ")
+            gap[name] = max(gap[name], max_rel(a, b))
+    require(gap["l"] <= 1e-5 and gap["mu"] <= 1e-5,
+            f"card and CPU l/mu differ: {gap}")
+    print(f"# optimizer: card == CPU port on the small tensors (H bitwise, "
+          f"rel gaps {json.dumps(gap)}; {differ[0]} of {differ[1]} bf16 "
+          f"update entries differ)", flush=True)
+
+    # K1, K4 and the codec's K5 payloads against their plain versions on
+    # every tensor's inputs of the refresh (per silo for the plain
+    # versions, to bound memory)
+    rel_sq = 0.0
+    for o, h, pay in zip(tree_leaves(obs), tree_leaves(before.h), uplink):
+        shape2 = _shape2d(h.shape)
+        o2, h2 = o.reshape((SILOS,) + shape2), h.reshape(shape2)
+        v, i, sq = diff_topk_payload(o2, h2, K_PER_BLOCK, BLOCK)
+        v5, i5 = pay.values, pay.indices
+        for s in range(SILOS):
+            want = diff_topk_payload_ref(o2[s:s + 1], h2, K_PER_BLOCK, BLOCK)
+            require(torch.equal(v[s:s + 1], want[0])
+                    and torch.equal(i[s:s + 1], want[1]),
+                    f"diff_topk_payload differs from its plain version on a "
+                    f"{tuple(h.shape)} tensor")
+            rel = float(torch.abs(sq[s] - want[2][0]) / want[2][0])
+            require(rel <= 1e-5, f"diff_topk_payload ||D||^2 off by {rel:.2e}")
+            rel_sq = max(rel_sq, rel)
+            want5 = block_topk_payload_ref(o2[s:s + 1], K_PER_BLOCK, BLOCK,
+                                           bisect_all=True)
+            require(torch.equal(v5[s:s + 1], want5[0])
+                    and torch.equal(i5[s:s + 1], want5[1]),
+                    f"the uplink codec's payload differs from K5's plain "
+                    f"version on a {tuple(h.shape)} tensor")
+        # K4's plain version runs on the CPU: its index_add_ adds in
+        # stream order there, as the kernel does, and with atomics in no
+        # fixed order on the card (4 silos may hit one cell)
+        grid = tuple(-(-x // BLOCK) for x in shape2)
+        got = block_scatter_accumulate(v, i, grid, BLOCK)
+        want = block_scatter_accumulate_ref(v.cpu(), i.cpu(), grid, BLOCK)
+        require(torch.equal(got.cpu(), want), f"block_scatter_accumulate "
+                f"differs from its plain version on a {tuple(h.shape)} tensor")
+        del v, i, v5, i5, got, want
+    del uplink
+    err["block_topk_payload"] = 0.0
+    print(f"# optimizer: K1, K4, K5 match their plain versions on all 14 "
+          f"tensors (payloads and sums bitwise; ||D||^2 rel "
+          f"{rel_sq:.2e})", flush=True)
+
+    # where a refresh's device time goes (same inputs again), beside the
+    # least time of its two kernels: K1 reads every silo's observation
+    # and H once and writes the payloads and partials; K4 reads the
+    # payloads and writes the tiled dense sum
+    prof = profile_window(lambda: opt.refresh(before, obs))
+    n_tiles = sum(-(-_shape2d(h.shape)[0] // BLOCK)
+                  * -(-_shape2d(h.shape)[1] // BLOCK)
+                  for h in tree_leaves(state.h))
+    pairs = SILOS * n_tiles * K_PER_BLOCK
+    refresh_bound = {
+        "diff_topk_payload": bound(
+            (SILOS + 1) * n_params * 4 + pairs * 8 + SILOS * n_tiles * 4,
+            {"f32": 32 * SILOS * n_tiles * BLOCK * BLOCK}),
+        "block_scatter_accumulate": bound(
+            pairs * 8 + n_tiles * BLOCK * BLOCK * 4, {"f32": pairs})}
+    timings = {"update_ms": update_ms, "refresh_ms": refresh_ms,
+               "precondition_ms": precond_ms, "peak_memory_gb": peak_gb,
+               "tiles_per_silo": n_tiles, "refresh_bound_ms": refresh_bound,
+               "refresh_profile": prof}
+    print(json.dumps({"fednl_precond_qwen2": timings}), flush=True)
+    embed = {"obs": obs["embed"], "h": before.h["embed"],
+             "h_new": state.h["embed"]}
+    wg0 = params["layers"][0]["ffn"]["wg"][0].float()
+    return dict(launches=launches, uplink_launches=uplink_launches,
+                timings=timings, embed=embed, wg0=wg0)
+
+
+# -- phase 6: PowerSGD (K8) and dense block top-k (K6) ---------------------------
+
+
+def powersgd_and_dense_topk(dev, seed: int, mats: dict, K, err: dict) -> dict:
+    import torch
+    from repro_torch.kernels.block_topk import block_topk, block_topk_ref
+    from repro_torch.kernels.tiled_matmul import powersgd_rank_r, subspace_iteration_ref
+
+    K.reset_launches()
+    outs = {}
+    for name, (m, k) in mats.items():
+        outs[name] = [block_topk(m, k, BLOCK)]
+        for r in (1, 2):
+            outs[name].append(powersgd_rank_r(m, r, seed=seed))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f"# PowerSGD + dense top-k path: launches {json.dumps(launches)}",
+          flush=True)
+    for kname in ("block_topk", "tiled_matmul"):
+        require(launches[kname] > 0, f"kernel {kname} was not launched")
+    for name, (m, k) in mats.items():
+        dense = outs[name][0]
+        require(torch.equal(dense, block_topk_ref(m[None], k, BLOCK)[0]),
+                f"block_topk differs from its plain version on {name}")
+        for r, got in zip((1, 2), outs[name][1:]):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            q = torch.randn((m.shape[1], r), generator=g, dtype=torch.float32,
+                            device=dev)
+            want = subspace_iteration_ref(m, torch.linalg.qr(q)[0])
+            require(bool(torch.isfinite(got).all()), f"powersgd on {name}: nan")
+            rel = max_rel(got.float(), want.float())
+            require(rel <= 1e-5, f"powersgd_rank_r r={r} on {name} off by "
+                    f"{rel:.2e} of the largest entry")
+            err["tiled_matmul"] = max(err["tiled_matmul"], rel)
+    err["block_topk"] = 0.0
+    print("# K6 bitwise and K8's power iteration to 1e-5 (largest entry) "
+          "match their plain versions", flush=True)
+    return launches
+
+
+# -- phase 7: FedNL lines 5-6 by the fused Hessian update (K7) ------------------
+
+
+def hess_update_w8a(dev, prob, x0, embed: dict, K, err: dict) -> dict:
+    import torch
+    from repro_torch.core import FedNL, make_compressor
+    from repro_torch.kernels.hess_update import hess_update, hess_update_ref
+
+    n = prob["n"]
+    alg = FedNL(prob["grad"], prob["hess"], make_compressor("blocktopk", 8),
+                option=2, mu=MU)
+    state = alg.step(alg.init(x0, n))            # H_i differs from the Hessians
+    hesses = prob["hess"](state.x)
+    shape = tuple(hesses.shape[1:])
+    payloads, l_i = alg._uplink_diff_payloads(hesses, state.h_local)
+    s_i = alg._local_hessians(payloads, shape).contiguous()   # a cropped view
+    K.reset_launches()
+    out, l = hess_update(state.h_local, hesses, s_i, alg.alpha)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    require(launches["hess_update"] > 0, "hess_update was not launched")
+    nxt = alg.step(state)
+    require(torch.equal(out, nxt.h_local),
+            "hess_update's H_i + alpha S_i differs from FedNL.step's")
+    rel = float(torch.max(torch.abs(l.double() - l_i) / l_i))
+    require(rel <= 1e-6, f"hess_update's l_i off FedNL.step's by {rel:.2e}")
+    want = hess_update_ref(state.h_local, hesses, s_i, alg.alpha)
+    require(torch.equal(out, want[0]), "hess_update differs from its plain "
+            "version (w8a)")
+    rel = max(rel, float(torch.max(torch.abs(l - want[1]) / want[1])))
+    # the embed-sized H of the optimizer path: H, D = silo 0's
+    # observation, S = the learned increment
+    h, d = embed["h"], embed["obs"][0]
+    s = embed["h_new"] - h
+    got = hess_update(h, d, s, 1.0)
+    want = hess_update_ref(h, d, s, 1.0)
+    require(torch.equal(got[0], want[0]), "hess_update differs from its "
+            "plain version (embed)")
+    rel = max(rel, float(torch.abs(got[1] - want[1]) / want[1]))
+    require(rel <= 1e-6, f"hess_update l off by {rel:.2e}")
+    err["hess_update"] = rel
+    print(f"# K7: FedNL lines 5-6 on w8a equal FedNL.step's H_i bitwise and "
+          f"its l_i to {rel:.2e} rel; plain versions match", flush=True)
+    return dict(launches=launches, w8a=(state.h_local, hesses, s_i, alg.alpha),
+                embed=(h, d, s))
+
+
+# -- phase 8: timings ------------------------------------------------------------
+
+
+def fednl_round_times(prob, x0) -> tuple[dict, dict]:
+    import torch
+    from repro_torch.core import FedNL, make_compressor
+
+    n = prob["n"]
     round_ms = {}
     for family, level in LEVELS.items():
         for option in (1, 2):
@@ -302,45 +667,60 @@ def main() -> int:
             state = alg.init(x0, n)
             times = []
             for _ in range(8):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                state = alg.step(state)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t) * 1e3)
+                ms, state = host_ms(lambda: alg.step(state))
+                times.append(ms)
             round_ms[f"{family}/option{option}"] = statistics.median(times[2:])
-    print(json.dumps({"round_ms_median": round_ms, "card": card}), flush=True)
-
     # where a round's device time goes: 3 rounds per compressor under the
-    # profiler, the top operations by device time, and the device's busy
-    # share of the rounds' wall time
-    from torch.profiler import ProfilerActivity, profile
-
+    # profiler (the profiler slows the host, so wall times run higher)
     breakdown = {}
     for family, level in LEVELS.items():
         alg = FedNL(prob["grad"], prob["hess"], make_compressor(family, level),
                     option=2, mu=MU)
-        state = alg.step(alg.init(x0, n))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            for _ in range(3):
-                state = alg.step(state)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3 / 3
-        # device-side rows only (kernels, copies); operator rows repeat them
-        ops = [(e.key, e.self_device_time_total / 1e3 / 3)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        ops = sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
-        busy = sum(ms for _, ms in ops)
-        breakdown[f"{family}/option2"] = {
-            "wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall_ms),
-            "top_device_ms": [[name[:60], ms] for name, ms in ops[:6]]}
-    print(json.dumps({"round_profile": breakdown}), flush=True)
+        state = [alg.step(alg.init(x0, n))]
 
-    # main-path inputs: Hessians at x0 against Hessians at x*
+        def three():
+            for _ in range(3):
+                state[0] = alg.step(state[0])
+
+        prof = profile_window(three)
+        for key in ("wall_ms", "device_busy_ms"):
+            prof[key] /= 3
+        prof["top_device_ms"] = [[name, ms / 3]
+                                 for name, ms in prof["top_device_ms"]]
+        breakdown[f"{family}/option2"] = prof
+    return round_ms, breakdown
+
+
+def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
+    """One entry per kernel: launches per path (``paths``), times at the
+    inputs its path gives it (``inputs``), bound, plain and library times."""
+    import torch
+    from repro_torch.core import make_compressor
+    from repro_torch.kernels.block_topk import (
+        block_topk,
+        block_topk_payload,
+        block_topk_payload_ref,
+        block_topk_ref,
+        diff_topk_payload,
+        diff_topk_payload_ref,
+        to_tiles,
+    )
+    from repro_torch.kernels.hess_update import hess_update, hess_update_ref
+    from repro_torch.kernels.scatter_accum import (
+        block_scatter_accumulate,
+        block_scatter_accumulate_ref,
+        scatter_accumulate,
+        scatter_accumulate_ref,
+    )
+    from repro_torch.kernels.tiled_matmul import tiled_matmul, tiled_matmul_ref
+
+    def launches(name):
+        by = {path: counts[name] for path, counts in paths.items()
+              if counts.get(name)}
+        return sum(by.values()), by
+
+    d, n = prob["d"], prob["n"]
+    # FedNL's inputs on w8a: Hessians at x0 against Hessians at x*
     h_new = prob["hess"](x0)
     h_old = prob["hess"](prob["xstar"])
     topk = make_compressor("topk", 300).compress(h_new - h_old)
@@ -349,8 +729,9 @@ def main() -> int:
     grid = (-(-d // 128),) * 2
     kernels = []
 
-    # read a and b once; write k (value, index) pairs and one partial per
-    # tile; 32 f32 bisection compares per padded tile entry
+    # K1: read a and b once; write k (value, index) pairs and one partial
+    # per tile; 32 f32 bisection compares per padded tile entry
+    total, by = launches("diff_topk_payload")
     b_ms, b_by = bound(2 * n * d * d * 8 + n * nblk * (8 * (8 + 4) + 8),
                        {"f64": 3 * n * d * d, "f32": 32 * n * nblk * 128 * 128})
     mags = torch.abs(h_new - h_old).reshape(n, 1, d * d)
@@ -358,17 +739,20 @@ def main() -> int:
         name="diff_topk_payload", route="cuda",
         source="src/repro_torch/csrc/block_topk.cu",
         replaces="src/repro/kernels/block_topk/kernel.py:197",
-        launches=launches["diff_topk_payload"],
+        launches=total, launches_by_path=by,
         max_abs_err=err["diff_topk_payload"],
         ms=time_cuda(lambda: diff_topk_payload(h_new, h_old, k=8)),
         device_ms=device_ms(lambda: diff_topk_payload(h_new, h_old, k=8),
-                            "diff_topk_payload_kernel<double>"),
+                            "diff_topk_payload_kernel<double, false>"),
         plain_ms=time_cuda(lambda: diff_topk_payload_ref(h_new, h_old, k=8),
                            reps=10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape="w8a: (142, 300, 300) f64, k=8, block=128",
         nearest_call="torch.topk(|D|, 8) per matrix, D formed beforehand",
         nearest_call_ms=time_cuda(lambda: torch.topk(mags, 8, dim=-1))))
 
+    # K2 (K3): pairs in, the dense sum out
+    total, by = launches("scatter_accumulate")
     tv, ti = topk.values.contiguous(), topk.indices.contiguous()
     b_ms, b_by = bound(tv.numel() * 12 + d * d * 8, {"f64": tv.numel()})
     flat = torch.zeros(d * d, dtype=torch.float64, device=dev)
@@ -378,7 +762,7 @@ def main() -> int:
         source="src/repro_torch/csrc/scatter_accum.cu",
         replaces="src/repro/kernels/scatter_accum/kernel.py:135",
         also_replaces="src/repro/kernels/scatter_accum/kernel.py:219",
-        launches=launches["scatter_accumulate"],
+        launches=total, launches_by_path=by,
         max_abs_err=err["scatter_accumulate"],
         ms=time_cuda(lambda: scatter_accumulate(tv, ti, (d, d))),
         device_ms=device_ms(lambda: scatter_accumulate(tv, ti, (d, d)),
@@ -387,8 +771,11 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_cuda(lambda: flat.index_put_((ti64,), tv.reshape(-1),
                                                      accumulate=True)),
+        shape="w8a Top-K: 142 x 300 pairs into (300, 300) f64",
         library_call="index_put_(accumulate=True) into a flat (d*d) buffer"))
 
+    # K4
+    total, by = launches("block_scatter_accumulate")
     b_ms, b_by = bound(bvals.numel() * 12 + nblk * 128 * 128 * 8,
                        {"f64": bvals.numel()})
     tiles = torch.zeros(nblk * 128 * 128, dtype=torch.float64, device=dev)
@@ -398,7 +785,7 @@ def main() -> int:
         name="block_scatter_accumulate", route="cuda",
         source="src/repro_torch/csrc/scatter_accum.cu",
         replaces="src/repro/kernels/scatter_accum/kernel.py:282",
-        launches=launches["block_scatter_accumulate"],
+        launches=total, launches_by_path=by,
         max_abs_err=err["block_scatter_accumulate"],
         ms=time_cuda(lambda: block_scatter_accumulate(bvals, bidx, grid, 128)),
         device_ms=device_ms(lambda: block_scatter_accumulate(bvals, bidx, grid,
@@ -409,16 +796,206 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_cuda(lambda: tiles.index_put_((bflat,), bvals.reshape(-1),
                                                       accumulate=True)),
+        shape="w8a Block-Top-K: (142, 9, 8) pairs f64",
         library_call="index_put_(accumulate=True) into (tiles, block^2), "
                      "tile-major layout"))
+    del h_new, h_old, mags, flat, tiles
 
-    # -- 6. result lines ----------------------------------------------------
+    # K5 on the optimizer's largest input: embed, 4 silos of f32
+    # observations, k = 2048 of 128^2
+    x = inputs["embed"]["obs"]
+    total, by = launches("block_topk_payload")
+    ntile = x.shape[0] * (-(-x.shape[1] // BLOCK)) * (-(-x.shape[2] // BLOCK))
+    b_ms, b_by = bound(x.numel() * 4 + ntile * K_PER_BLOCK * 8,
+                       {"f32": 32 * ntile * BLOCK * BLOCK})
+    mag = torch.abs(to_tiles(x, BLOCK))
+    kernels.append(dict(
+        name="block_topk_payload", route="cuda",
+        source="src/repro_torch/csrc/block_topk.cu",
+        replaces="src/repro/kernels/block_topk/kernel.py:171",
+        launches=total, launches_by_path=by,
+        max_abs_err=err["block_topk_payload"],
+        ms=time_cuda(lambda: block_topk_payload(x, K_PER_BLOCK, BLOCK), reps=10),
+        device_ms=device_ms(lambda: block_topk_payload(x, K_PER_BLOCK, BLOCK),
+                            "block_topk_payload_kernel<float>", reps=5),
+        plain_ms=time_cuda(lambda: block_topk_payload_ref(x, K_PER_BLOCK,
+                                                          BLOCK),
+                           reps=2, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_cuda(lambda: torch.topk(mag, K_PER_BLOCK, dim=-1),
+                             reps=5, warmup=1),
+        shape="qwen2 embed obs: (4, 151936, 896) f32, k=2048, block=128",
+        library_call="torch.topk(|x| per tile, 2048) on a tiled copy"))
+    del mag
+
+    # K6 on layers.ffn.wg[0], k = 2048 of 128^2
+    wg0 = inputs["wg0"]
+    total, by = launches("block_topk")
+    ntile = (-(-wg0.shape[0] // BLOCK)) * (-(-wg0.shape[1] // BLOCK))
+    b_ms, b_by = bound(wg0.numel() * 8, {"f32": 32 * ntile * BLOCK * BLOCK})
+    wt = to_tiles(wg0[None], BLOCK)[0]
+    wmag = torch.abs(wt)
+
+    def topk_scatter():
+        _, i = torch.topk(wmag, K_PER_BLOCK, dim=-1)
+        return torch.zeros_like(wt).scatter_(1, i, torch.gather(wt, 1, i))
+
+    kernels.append(dict(
+        name="block_topk", route="cuda",
+        source="src/repro_torch/csrc/block_topk.cu",
+        replaces="src/repro/kernels/block_topk/kernel.py:57",
+        launches=total, launches_by_path=by, max_abs_err=err["block_topk"],
+        ms=time_cuda(lambda: block_topk(wg0, K_PER_BLOCK, BLOCK)),
+        device_ms=device_ms(lambda: block_topk(wg0, K_PER_BLOCK, BLOCK),
+                            "block_topk_dense_kernel<float>"),
+        plain_ms=time_cuda(lambda: block_topk_ref(wg0[None], K_PER_BLOCK,
+                                                  BLOCK), reps=5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_cuda(topk_scatter, reps=10),
+        shape="layers.ffn.wg[0]: (896, 4864) f32, k=2048, block=128",
+        library_call="torch.topk(|x| per tile, 2048) + scatter into zeros, "
+                     "on a tiled copy"))
+
+    # K7 on the embed-sized H (f32): three reads, one write
+    h, dd, s = inputs["hess_update"]["embed"]
+    total, by = launches("hess_update")
+    b_ms, b_by = bound(h.numel() * 16, {"f32": 5 * h.numel()})
+
+    def axpy_norm():
+        return torch.add(h, s, alpha=1.0), torch.linalg.vector_norm(
+            (h - dd).float())
+
+    kernels.append(dict(
+        name="hess_update", route="cuda",
+        source="src/repro_torch/csrc/hess_update.cu",
+        replaces="src/repro/kernels/hess_update/kernel.py:32",
+        launches=total, launches_by_path=by, max_abs_err=err["hess_update"],
+        max_abs_err_is="relative error of l (out is bitwise)",
+        ms=time_cuda(lambda: hess_update(h, dd, s, 1.0), reps=20),
+        device_ms=device_ms(lambda: hess_update(h, dd, s, 1.0),
+                            "hess_update_kernel<float>"),
+        plain_ms=time_cuda(lambda: hess_update_ref(h, dd, s, 1.0), reps=5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_cuda(axpy_norm, reps=20),
+        shape="qwen2 embed H: (151936, 896) f32",
+        library_call="torch.add(h, s, alpha) + "
+                     "torch.linalg.vector_norm((h - d).float())",
+        w8a_ms=time_cuda(lambda: hess_update(*inputs["hess_update"]["w8a"])),
+        w8a_shape="(142, 300, 300) f64"))
+
+    # K8: the power iteration's hot product on wg[0], M @ Q with r = 2
+    total, by = launches("tiled_matmul")
+    q = torch.linalg.qr(torch.randn((wg0.shape[1], 2), device=dev))[0]
+    mm, kk = wg0.shape
+    b_ms, b_by = bound((mm * kk + kk * 2 + mm * 2) * 4, {"f32": 2 * mm * kk * 2})
+    big_ms = time_cuda(lambda: tiled_matmul(wg0.T, wg0[:, :896]), reps=10)
+    big_bound, _ = bound((2 * kk * 896 + 896 * 896) * 4,
+                         {"f32": 2 * kk * 896 * 896})
+    kernels.append(dict(
+        name="tiled_matmul", route="cuda",
+        source="src/repro_torch/csrc/tiled_matmul.cu",
+        replaces="src/repro/kernels/tiled_matmul/kernel.py:31",
+        launches=total, launches_by_path=by, max_abs_err=err["tiled_matmul"],
+        max_abs_err_is="max |error| / max |entry| of powersgd_rank_r",
+        ms=time_cuda(lambda: tiled_matmul(wg0, q)),
+        device_ms=device_ms(lambda: tiled_matmul(wg0, q), "tiled_matmul_kernel"),
+        plain_ms=time_cuda(lambda: tiled_matmul_ref(wg0, q)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_cuda(lambda: torch.matmul(wg0, q)),
+        shape="wg[0] @ Q: (896, 4864) x (4864, 2) f32",
+        library_call="torch.matmul f32, TF32 off",
+        square_ms=big_ms, square_bound_ms=big_bound,
+        square_library_ms=time_cuda(lambda: torch.matmul(wg0.T, wg0[:, :896]),
+                                    reps=10),
+        square_shape="wg[0]^T @ wg[0][:, :896]: (4864, 896) x (896, 896)"))
+    return kernels
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the optimizer phase's weights and "
+                             "gradients")
+    args = parser.parse_args()
+    try:
+        import torch
+    except ImportError:
+        return fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        return fail("CUDA is not available")
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "csrc").is_dir():
+        return fail(f"the port's sources are not at {src}")
+    sys.path.insert(0, str(src))
+    import repro_torch.kernels as K
+    from repro_torch.data import make_problem
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # -- 1. the card --------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        return fail(f"nvidia-smi: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"# card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+
+    try:
+        # -- 2. build -------------------------------------------------------
+        t0 = time.perf_counter()
+        logs = K.build_all()
+        for name, log in logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"# ptxas {name}: {line.strip()}")
+        print(f"# build: {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # -- 3-7. kernels and paths -----------------------------------------
+        err = {name: 0.0 for name in K.LAUNCHES}
+        t0 = time.perf_counter()
+        check_fednl_kernels(dev, err)
+        print(f"# K1, K2/K3, K4 match their plain versions (f64 and f32) "
+              f"in {time.perf_counter() - t0:.1f} s; max abs err in f64 "
+              f"{json.dumps(err)}", flush=True)
+        prob = make_problem("w8a", seed=0, device=dev)
+        x0 = torch.zeros(prob["d"], dtype=torch.float64, device=dev)
+        paths = {"fednl_w8a": fednl_w8a(dev, prob, x0, K)}
+        pre = precond_qwen2(dev, args.seed, K, err)
+        paths["fednl_precond_qwen2"] = pre["launches"]
+        paths["fednl_precond_qwen2_uplink"] = pre["uplink_launches"]
+        w8a_h = prob["hess"](x0)[0].contiguous()
+        paths["powersgd_and_dense_topk"] = powersgd_and_dense_topk(
+            dev, args.seed, {"w8a hessian": (w8a_h, 8),
+                             "layers.ffn.wg[0]": (pre["wg0"], K_PER_BLOCK)},
+            K, err)
+        hu = hess_update_w8a(dev, prob, x0, pre["embed"], K, err)
+        paths["hess_update_w8a"] = hu["launches"]
+
+        # -- 8. timings -----------------------------------------------------
+        round_ms, breakdown = fednl_round_times(prob, x0)
+        print(json.dumps({"round_ms_median": round_ms, "card": card}), flush=True)
+        print(json.dumps({"round_profile": breakdown}), flush=True)
+        inputs = dict(embed=pre["embed"], wg0=pre["wg0"], hess_update=hu)
+        kernels = kernel_line(dev, prob, x0, paths, inputs, err)
+    except SmokeFailure as exc:
+        return fail(str(exc))
+
+    # -- 9. result lines ----------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    return 1
 
 
 if __name__ == "__main__":

@@ -4,6 +4,7 @@ oracles and the Newton-step linear algebra."""
 from .compressors import (
     BlockSparsePayload,
     BlockTopK,
+    BlockTopKThreshold,
     Compressor,
     CompSpec,
     DensePayload,

@@ -24,7 +24,12 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..kernels.block_topk import diff_topk_payload, to_tiles
+from ..kernels.block_topk import (
+    block_topk_payload,
+    diff_topk_payload,
+    from_tiles,
+    to_tiles,
+)
 from ..kernels.scatter_accum import block_scatter_accumulate, scatter_accumulate
 
 FLOAT_BITS = 64  # the paper counts double-precision floats
@@ -263,16 +268,6 @@ class TopK(Compressor):
                         deterministic=True)
 
 
-def _from_tiles(tiles: torch.Tensor, shape, b: int) -> torch.Tensor:
-    """(n, tiles, b*b) -> (n, d0, d1), cropping the padding."""
-    d0, d1 = shape
-    g0, g1 = -(-d0 // b), -(-d1 // b)
-    n = tiles.shape[0]
-    out = (tiles.reshape(n, g0, g1, b, b).permute(0, 1, 3, 2, 4)
-           .reshape(n, g0 * b, g1 * b))
-    return out[:, :d0, :d1]
-
-
 @dataclasses.dataclass(frozen=True)
 class _BlockSparse(Compressor):
     """Decode and accounting of the block-local Top-K family: per tile,
@@ -289,7 +284,7 @@ class _BlockSparse(Compressor):
         n, nblk, k = payload.values.shape
         tiles = _scatter_flat(payload.values.reshape(n * nblk, k),
                               payload.indices.reshape(n * nblk, k), b * b)
-        return _from_tiles(tiles.reshape(n, nblk, b * b), shape, b)
+        return from_tiles(tiles.reshape(n, nblk, b * b), shape, b)
 
     def aggregate(self, payloads: BlockSparsePayload, shape,
                   weights=None) -> torch.Tensor:
@@ -334,6 +329,22 @@ class BlockTopK(_BlockSparse):
         idx = _topk_indices(torch.abs(tiles), self._k())
         return BlockSparsePayload(values=torch.gather(tiles, 2, idx),
                                   indices=idx.to(torch.int32),
+                                  universe=self.block * self.block)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTopKThreshold(_BlockSparse):
+    """Block-local Top-K by threshold bisection: per tile, 32 rounds of
+    an f32 bracket of the k-th |x|, then exactly k entries — every entry
+    above the bracket, then bracket ties in flat order — so Def 3.3
+    holds at delta = k_per_block / b^2 even inside a tie cluster.
+    ``compress`` is the ``block_topk_payload`` kernel, bracketing also
+    when k covers the tile, as the reference class does."""
+
+    def compress(self, m: torch.Tensor) -> BlockSparsePayload:
+        vals, idx = block_topk_payload(m, self._k(), self.block,
+                                       bisect_all=True)
+        return BlockSparsePayload(values=vals, indices=idx,
                                   universe=self.block * self.block)
 
 
@@ -443,6 +454,11 @@ def _make_topk_sym(level):
 @register_compressor("blocktopk")
 def _make_blocktopk(level):
     return BlockTopK(k_per_block=int(level))
+
+
+@register_compressor("blocktopk-threshold")
+def _make_blocktopk_threshold(level):
+    return BlockTopKThreshold(k_per_block=int(level))
 
 
 @register_compressor("identity", "none")

@@ -23,12 +23,13 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("block_topk", "scatter_accum")
+SOURCES = ("block_topk", "scatter_accum", "hess_update", "tiled_matmul")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 LAUNCHES = {"diff_topk_payload": 0, "scatter_accumulate": 0,
-            "block_scatter_accumulate": 0}
+            "block_scatter_accumulate": 0, "block_topk_payload": 0,
+            "block_topk": 0, "hess_update": 0, "tiled_matmul": 0}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -87,10 +88,18 @@ def build_all() -> dict[str, str]:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {
     "block_topk": {
-        f"diff_topk_payload_{t}": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-        for t in ("f32", "f64")},
+        **{f"diff_topk_payload_{t}": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _P]
+           for t in ("f32", "f64")},
+        **{f"block_topk_payload_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+           for t in ("f32", "f64")},
+        **{f"block_topk_{t}": [_P, _P, _I, _I, _I, _I, _I, _P]
+           for t in ("f32", "f64")},
+    },
     "scatter_accum": {
         **{f"scatter_accumulate_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
            for t in ("f32", "f64")},
@@ -98,6 +107,11 @@ _SIGNATURES = {
                                              _I, _P]
            for t in ("f32", "f64")},
     },
+    "hess_update": {
+        f"hess_update_{t}": [_P, _P, _P, _D, _P, _P, _I, _I, _I, _I, _P]
+        for t in ("f32", "f64")},
+    "tiled_matmul": {
+        "tiled_matmul_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P]},
 }
 
 

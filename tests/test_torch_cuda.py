@@ -11,12 +11,23 @@ import pytest
 import torch
 
 from repro_torch.kernels import LAUNCHES, reset_launches
-from repro_torch.kernels.block_topk import diff_topk_payload
+from repro_torch.kernels.block_topk import (
+    block_topk,
+    block_topk_payload,
+    diff_topk_payload,
+)
+from repro_torch.kernels.hess_update import hess_update, hess_update_ref
 from repro_torch.kernels.scatter_accum import (
     block_scatter_accumulate,
     block_scatter_accumulate_ref,
     scatter_accumulate,
     scatter_accumulate_ref,
+)
+from repro_torch.kernels.tiled_matmul import (
+    subspace_iteration,
+    subspace_iteration_ref,
+    tiled_matmul,
+    tiled_matmul_ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -84,9 +95,79 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
     v, i = _pairs(2, 10, 100, torch.Generator().manual_seed(3))
     scatter_accumulate(v.to(cuda), i.to(cuda), (10, 10))
     assert LAUNCHES == {"diff_topk_payload": 0, "scatter_accumulate": 1,
-                        "block_scatter_accumulate": 0}
+                        "block_scatter_accumulate": 0,
+                        "block_topk_payload": 0, "block_topk": 0,
+                        "hess_update": 0, "tiled_matmul": 0}
     with pytest.raises(TypeError, match="int32"):
         scatter_accumulate(v.to(cuda), i.to(cuda).long(), (10, 10))
     with pytest.raises(ValueError, match="one CUDA device"):
         scatter_accumulate(v.to(cuda), i, (10, 10))
     assert LAUNCHES["scatter_accumulate"] == 1
+
+
+def test_diff_topk_payload_shared_b_matches_plain(cuda):
+    """One b for every silo (stride 0) equals the stacked copy."""
+    gen = torch.Generator().manual_seed(4)
+    a = torch.randn((4, 200, 300), generator=gen, dtype=torch.float32)
+    b = torch.randn((200, 300), generator=gen, dtype=torch.float32)
+    got = diff_topk_payload(a.to(cuda), b.to(cuda), k=100, block=64)
+    full = diff_topk_payload(a.to(cuda), b.expand(4, -1, -1).contiguous()
+                             .to(cuda), k=100, block=64)
+    want = diff_topk_payload(a, b, k=100, block=64)
+    for g, f, w in zip(got[:2], full[:2], want[:2]):
+        assert torch.equal(g.cpu(), w) and torch.equal(f.cpu(), w)
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("k,block,bisect_all", [
+    (8, 128, False), (16384, 128, False), (64, 8, True), (40, 16, False)])
+def test_block_topk_payload_kernel_matches_plain(cuda, k, block, bisect_all):
+    gen = torch.Generator().manual_seed(5)
+    x = _sym(3, 300, gen)
+    x[:, :6, :6] = 9.0                          # a tie cluster
+    x[:, 200:, :] = 0.0                         # tiles with few nonzeros
+    for t in (x, x.float()):
+        got = block_topk_payload(t.to(cuda), k, block, bisect_all=bisect_all)
+        want = block_topk_payload(t, k, block, bisect_all=bisect_all)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("k,block", [(8, 128), (16384, 128), (40, 16)])
+def test_block_topk_kernel_matches_plain(cuda, k, block):
+    gen = torch.Generator().manual_seed(6)
+    x = _sym(2, 300, gen)
+    x[:, :6, :6] = -9.0
+    for t in (x, x.float()):
+        assert torch.equal(block_topk(t.to(cuda), k, block).cpu(),
+                           block_topk(t, k, block))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_hess_update_kernel_matches_plain(cuda, dtype):
+    """H + alpha * S bit for bit (one fused multiply-add on both sides),
+    the f32 norm to 1e-6."""
+    gen = torch.Generator().manual_seed(7)
+    h, d, s = (torch.randn((5, 300, 123), generator=gen, dtype=dtype)
+               for _ in range(3))
+    got = hess_update(h.to(cuda), d.to(cuda), s.to(cuda), 0.37)
+    want = hess_update_ref(h, d, s, 0.37)
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-6, atol=0)
+
+
+def test_tiled_matmul_kernel_matches_plain(cuda):
+    """f32 products, f32 sums, no TF32: 1e-5 of the largest entry."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(8)
+    m = torch.randn((300, 500), generator=gen, dtype=torch.float64)
+    q = torch.linalg.qr(torch.randn((500, 2), generator=gen,
+                                    dtype=torch.float32))[0]
+    for a, b in ((m, m.T), (m.float(), q), (m.float().T, m[:, :7].float())):
+        got = tiled_matmul(a.to(cuda), b.to(cuda)).cpu()
+        want = tiled_matmul_ref(a.to(cuda), b.to(cuda)).cpu()
+        assert got.dtype == a.dtype
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    got = subspace_iteration(m.to(cuda), q.to(cuda)).cpu()
+    want = subspace_iteration_ref(m.to(cuda), q.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

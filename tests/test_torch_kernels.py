@@ -92,6 +92,24 @@ def test_diff_topk_payload_matches_pallas_kernel(case, k, block, dtype):
     np.testing.assert_allclose(sq.numpy(), want_sq, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_diff_topk_payload_shared_b_matches_pallas_kernel(dtype):
+    """One b shared by every silo, as the curvature learner diffs each
+    silo's observation against one H: the reference vmaps the kernel over
+    the silos with b fixed."""
+    a = stacked_diffs(3, 70, seed=9, symmetric=False).astype(dtype)
+    b = stacked_diffs(1, 70, seed=10, symmetric=False)[0].astype(dtype)
+    with jax.enable_x64(True):
+        want_v, want_i, want_sq = _jax_diff_topk(a, np.broadcast_to(b, a.shape),
+                                                 20, 32)
+    vals, idx, sq = diff_topk_payload(torch.from_numpy(a), torch.from_numpy(b),
+                                      k=20, block=32)
+    np.testing.assert_array_equal(idx.numpy(), want_i)
+    np.testing.assert_array_equal(vals.numpy(), want_v)
+    np.testing.assert_allclose(sq.numpy(), want_sq,
+                               rtol=1e-11 if dtype == np.float64 else 1e-5)
+
+
 def test_diff_topk_payload_keeps_ties_in_flat_order():
     """Inside the bracket, ties fill the remaining slots in flat order,
     and exactly k entries are kept."""
