@@ -34,9 +34,18 @@ Phases, each failing the run with a non-zero exit:
      (142 Hessians), held to what ``FedNL.step`` computes and to its
      plain version, and on the embed-sized H of phase 5;
   8. time a FedNL round per compressor, the optimizer's refresh and
-     precondition, and each kernel beside its bound, its plain version
+     precondition, and K1-K8 beside their bounds, their plain versions
      and the nearest single PyTorch call;
-  9. print the kernel line, the card line, and last the device line.
+  9. qwen2-0.5B serving at full width and depth (bf16, random weights
+     from --seed): K9 (flash_attention) against its plain version on all
+     14 heads at T=4,000 in bf16 and f32 and on heads 0 and 13 of layer
+     0's inputs at T=32,768; ``make_prefill`` at B=1, T=32,768 (K9 must
+     launch once per layer: 24), its host ms, peak memory and device
+     time by kernel group; K9's times as for K1-K8; decode == forward
+     at B=2, T=640 (the K9 branch) within a stated bf16 tolerance;
+     ``generate`` for batch 4, prompt 64, 32 greedy tokens, held to the
+     forward's argmax, and timed by the serving CLI in its own process;
+  10. print the kernel line, the card line, and last the device line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -44,6 +53,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -70,9 +81,18 @@ REFERENCE_ERR = {
 LEVELS = {"topk": 300, "topk-sym": 300, "rankr": 1, "blocktopk": 8}
 # the optimizer phase: qwen2-0.5B, 4 silos, Block-Top-K 2048 of 128^2
 SILOS, K_PER_BLOCK, BLOCK, STEPS = 4, 2048, 128, 3
+# the serving phase: qwen2-0.5B prefill at prefill_32k's sequence, one
+# sequence on one card; decode == forward at a length that takes K9
+PREFILL_T, CHECK_T, DECODE_B, DECODE_T = 32768, 4000, 2, 640
+GEN_B, GEN_PROMPT, GEN_N = 4, 64, 32
+# bf16 logits of decode and forward round at other places (decode's
+# scores and softmax weights are bf16, K9 keeps them in f32; the GEMMs
+# take other shapes): they must agree within 8 bf16 steps of the largest
+# logit, and their argmax at 80 % of the positions
+DECODE_TOL, ARGMAX_AGREE = 8 * 2.0 ** -7, 0.8
 # H100 SXM peaks (NVIDIA data sheet, dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f64": 34e12, "f32": 67e12}
+PEAK_FLOPS = {"f64": 34e12, "f32": 67e12, "bf16": 989e12}
 
 
 class SmokeFailure(Exception):
@@ -112,17 +132,22 @@ def host_ms(fn) -> tuple[float, object]:
     return (time.perf_counter() - t) * 1e3, out
 
 
-def device_ms(fn, kernel: str, reps: int = 20, tries: int = 3) -> float:
-    """Device time (ms) per call of the CUDA kernels whose names contain
-    ``kernel``, from the profiler (``time_cuda`` also counts the host's
-    launch overhead wherever that exceeds the kernel's run). Each try is
-    a fresh profiler session over host and device activity; the run
-    fails when no try names such a kernel."""
+def device_ms(fn, kernel: str, reps: int = 20, tries: int = 6) -> float:
+    """Device time (ms) per launch of the CUDA kernel whose name contains
+    ``kernel`` (each caller here launches it once per call), from the
+    profiler (``time_cuda`` also counts the host's launch overhead
+    wherever that exceeds the kernel's run). Late in a long run (after a
+    million launches, tools/decode_profile.py) a session may record only
+    some of the ``reps`` launches, or none: the time is averaged over the
+    launches recorded, and the tries go on until one session records
+    them all. Each try is a fresh profiler session over host and device
+    activity; the run fails when no try names such a kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    per_launch = None
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -131,17 +156,22 @@ def device_ms(fn, kernel: str, reps: int = 20, tries: int = 3) -> float:
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        total = sum(e.self_device_time_total for e in rows if kernel in e.key)
-        if total > 0:
-            return total / 1e3 / reps
+        seen = [e for e in rows if kernel in e.key]
+        count = sum(e.count for e in seen)
+        if count:
+            per_launch = sum(e.self_device_time_total for e in seen) / 1e3 / count
+            if count >= reps:
+                break
+    if per_launch is not None:
+        return per_launch
     raise SmokeFailure(f"the profiler saw no kernel named like {kernel!r} in "
                        f"{tries} tries; device rows: "
                        f"{[e.key[:80] for e in rows]}")
 
 
-def profile_window(fn) -> dict:
-    """One call under the profiler: wall ms, device busy ms, idle share
-    and the top device rows."""
+def profile_rows(fn) -> tuple[float, list]:
+    """One call under the profiler: its wall ms and the device rows
+    (kernel name, device ms), largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,7 +185,13 @@ def profile_window(fn) -> dict:
     ops = [(e.key, e.self_device_time_total / 1e3)
            for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    ops = sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
+    return wall, sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
+
+
+def profile_window(fn) -> dict:
+    """One call under the profiler: wall ms, device busy ms, idle share
+    and the top device rows."""
+    wall, ops = profile_rows(fn)
     busy = sum(ms for _, ms in ops)
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
@@ -692,8 +728,9 @@ def fednl_round_times(prob, x0) -> tuple[dict, dict]:
 
 
 def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
-    """One entry per kernel: launches per path (``paths``), times at the
-    inputs its path gives it (``inputs``), bound, plain and library times."""
+    """One entry per kernel of phases 3-7 (K1-K8): launches per path
+    (``paths``), times at the inputs its path gives it (``inputs``),
+    bound, plain and library times. K9's entry is made by phase 9."""
     import torch
     from repro_torch.core import make_compressor
     from repro_torch.kernels.block_topk import (
@@ -908,7 +945,283 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
         square_library_ms=time_cuda(lambda: torch.matmul(wg0.T, wg0[:, :896]),
                                     reps=10),
         square_shape="wg[0]^T @ wg[0][:, :896]: (4864, 896) x (896, 896)"))
+
     return kernels
+
+
+# -- phase 9: qwen2-0.5B serving, prefill through K9 -------------------------
+
+
+def bf16_step_gap(got, want) -> float:
+    """max |got - want| in units of the bf16 rounding step of |want|
+    (2^-7 |want|, floored at 1e-6 / 2^-7 for outputs near 0)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    step = torch.clamp(want.abs(), min=1e-6 / 2.0 ** -7) * 2.0 ** -7
+    return float(((got - want).abs() / step).max())
+
+
+def check_flash(q, k, v, heads, err: dict, what: str) -> None:
+    """K9 against its plain version on ``heads``, one head at a time
+    (the plain version's (T, T) scores of one head fit the card at any
+    T of the path): f32 to 2e-5, bf16 within one bf16 step."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+
+    out = flash_attention(q, k, v)
+    n_rep = q.shape[2] // k.shape[2]
+    for b in range(q.shape[0]):
+        for h in heads:
+            want = flash_attention_ref(q[b, :, h][None], k[b, :, h // n_rep][None],
+                                       v[b, :, h // n_rep][None])[0]
+            got = out[b, :, h]
+            e = float(torch.max(torch.abs(got.float() - want.float())))
+            if q.dtype == torch.float32:
+                require(e <= 2e-5, f"flash_attention off its plain version by "
+                        f"{e:.2e} ({what}, head {h})")
+                err["flash_attention"] = max(err["flash_attention"], e)
+            else:
+                steps = bf16_step_gap(got, want)
+                require(steps <= 1.0, f"flash_attention off its plain version "
+                        f"by {steps:.2f} bf16 steps ({what}, head {h})")
+            del want
+
+
+def serve_cli_times(seed: int) -> dict:
+    """Run the serving CLI (``python -m repro_torch.launch.serve``) on the
+    full model, batch 4, prompt 64, 32 greedy tokens, in a process of its
+    own; its host seconds for the prompt and the decode loop."""
+    src = Path(__file__).resolve().parent / "src"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "qwen2-0.5b", "--batch", str(GEN_B), "--prompt-len", str(GEN_PROMPT),
+           "--gen", str(GEN_N), "--greedy", "--seed", str(seed)]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(src)})
+    found = re.search(r"in ([0-9.]+)s; generated .* in ([0-9.]+)s", out.stdout)
+    require(out.returncode == 0 and found is not None,
+            f"the serving CLI failed: {out.stdout[-500:]} {out.stderr[-1500:]}")
+    prompt_s, decode_s = float(found.group(1)), float(found.group(2))
+    return {"cli_prompt_s": prompt_s, "cli_decode_s": decode_s,
+            "tokens_per_s": GEN_B * GEN_N / decode_s,
+            "decode_ms_per_token": decode_s * 1e3 / GEN_N,
+            "prompt_ms_per_token": prompt_s * 1e3 / GEN_PROMPT}
+
+
+def flash_kernel_entry(q, k, v, err: dict) -> dict:
+    """K9's kernel-line entry, launches aside, on layer 0's prefill inputs
+    (bf16): read q, k, v once and write out; 4 hd flops per (query,
+    key <= query) pair and head, at the bf16 tensor-core rate. Timed
+    before the decode loops: the profiler records few launches, or none,
+    after a million of them in one process (tools/decode_profile.py)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, t, h, hd = q.shape
+    n_rep = h // k.shape[2]
+    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                       {"bf16": 4 * b * h * hd * t * (t + 1) / 2})
+
+    def plain_all_heads():
+        for head in range(h):
+            flash_attention_ref(q[0, :, head][None], k[0, :, head // n_rep][None],
+                                v[0, :, head // n_rep][None])
+
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(n_rep, dim=2).transpose(1, 2) for x in (k, v))
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+
+    def sdpa():
+        with sdpa_kernel(fused):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:53",
+        max_abs_err=err["flash_attention"],
+        max_abs_err_is="f32, all 14 heads at T=4000 (bf16: within one bf16 "
+                       "step at T=4000 and T=32768)",
+        ms=time_cuda(lambda: flash_attention(q, k, v), reps=5, warmup=1),
+        device_ms=device_ms(lambda: flash_attention(q, k, v),
+                            "flash_attention_kernel", reps=3),
+        plain_ms=time_cuda(plain_all_heads, reps=1, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_cuda(sdpa, reps=20),
+        shape=f"qwen2 layer 0 prefill: q ({b}, {t}, {h}, {hd}), k and v "
+              f"({b}, {t}, {k.shape[2]}, {hd}) bf16, bq=bk=128",
+        plain_is="the plain version on all 14 heads, one head at a time",
+        tiles_ms={f"bq={bq},bk={bk}": time_cuda(
+            lambda: flash_attention(q, k, v, bq, bk), reps=2, warmup=1)
+            for bq in (64, 128) for bk in (64, 128)},
+        library_call="scaled_dot_product_attention(is_causal=True), fused "
+                     "backends only, KV heads expanded beforehand")
+
+
+def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
+    """qwen2-0.5B at full width and depth (bf16, random weights from
+    ``seed``): K9 against its plain version, ``make_prefill`` at
+    T = 32,768 through 24 K9 launches, decode == forward at T = 640, and
+    greedy ``generate``. Returns the counts per path and K9's entry of
+    the kernel line."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    from repro_torch.models.common import apply_norm, apply_rope
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init_params(gen)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    require(n_params == 494_032_768, f"qwen2-0.5b has {n_params} parameters")
+    h, kvh, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+
+    # 1. K9 against its plain version: all 14 heads at a ragged T in bf16
+    # and f32, then the first and last head of layer 0's prefill inputs
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((1, CHECK_T, n, hd), generator=g, device=dev)
+                   .to(dtype) for n in (h, kvh, kvh))
+        check_flash(q, k, v, range(h), err, f"T={CHECK_T} {dtype}")
+    tokens = torch.randint(0, cfg.vocab, (1, PREFILL_T), generator=gen,
+                           device=dev)
+    lp = tree_map(lambda a: a[0], params["layers"][0])
+    with torch.no_grad():
+        x = apply_norm(params["embed"][tokens], lp["norm1"], cfg.norm)
+        q, k, v = attn._qkv(lp["mixer"], x, cfg)
+        pos = torch.arange(PREFILL_T, device=dev)[None]
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    check_flash(q, k, v, (0, h - 1), err, f"layer 0 at T={PREFILL_T}")
+    flash_in = (q, k, v)
+    del x, pos, q, k, v
+    print(f"# K9 matches its plain version: {h} heads at T={CHECK_T} (f32 max "
+          f"abs err {err['flash_attention']:.2e}, bf16 within one step), "
+          f"heads 0 and {h - 1} of layer 0 at T={PREFILL_T} (bf16)", flush=True)
+
+    # 2. prefill: B=1, T=32,768, the whole model
+    prefill = make_prefill(model)
+    batch = {"tokens": tokens}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    K.reset_launches()
+    first_ms, logits = host_ms(lambda: prefill(params, batch))
+    prefill_launches = dict(K.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(prefill_launches["flash_attention"] == cfg.n_layers,
+            f"prefill launched K9 {prefill_launches['flash_attention']} times, "
+            f"not once per layer")
+    require(logits.shape == (1, PREFILL_T, cfg.vocab)
+            and logits.dtype == torch.bfloat16, "prefill logits misshapen")
+    require(all(bool(torch.isfinite(c).all()) for c in logits.split(2048, 1)),
+            "non-finite prefill logits")
+    del logits
+    prefill_ms = []
+    for _ in range(2):
+        ms, out = host_ms(lambda: prefill(params, batch))
+        del out
+        prefill_ms.append(ms)
+    wall, rows = profile_rows(lambda: prefill(params, batch))
+    busy = sum(ms for _, ms in rows)
+    groups = {"flash_attention (K9)": 0.0, "GEMM": 0.0, "other": 0.0}
+    for name, ms in rows:
+        if "flash_attention_kernel" in name:
+            groups["flash_attention (K9)"] += ms
+        elif any(w in name.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")):
+            groups["GEMM"] += ms
+        else:
+            groups["other"] += ms
+    xf = torch.randn((1, PREFILL_T, cfg.d_model), generator=g, device=dev
+                     ).to(torch.bfloat16)
+    with torch.no_grad():
+        logits_ms = time_cuda(lambda: model._logits(params, xf), reps=5)
+    del xf
+    prefill_rep = {
+        "shape": f"B=1, T={PREFILL_T}, bf16, {cfg.n_layers} layers", "first_ms": first_ms,
+        "ms": prefill_ms, "peak_memory_gb": peak_gb,
+        "held_before_gb": held_gb,
+        "launches": prefill_launches, "profile_wall_ms": wall,
+        "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall),
+        "device_ms_by_group": groups,
+        "k9_share_of_device": groups["flash_attention (K9)"] / busy,
+        "k9_device_ms_per_launch": groups["flash_attention (K9)"] / cfg.n_layers,
+        "logits_ms": logits_ms,
+        "top_device_ms": [[name[:70], ms] for name, ms in rows[:10]]}
+    print(json.dumps({"prefill_qwen2": prefill_rep}), flush=True)
+    entry = flash_kernel_entry(*flash_in, err)
+    del flash_in
+
+    # 3. decode == forward at full width, on the K9 branch
+    toks = torch.randint(0, cfg.vocab, (DECODE_B, DECODE_T), generator=gen,
+                         device=dev)
+    serve = make_serve_step(model)
+    K.reset_launches()
+    fwd = prefill(params, {"tokens": toks})
+    cache = model.init_cache(DECODE_B, DECODE_T, dev)
+    worst = torch.zeros((), device=dev)
+    agree = torch.zeros((), dtype=torch.int64, device=dev)
+    for p in range(DECODE_T):
+        lg, cache = serve(params, cache, toks[:, p:p + 1], p)
+        worst = torch.maximum(worst, (lg[:, 0].float() - fwd[:, p].float())
+                              .abs().max())
+        agree += (lg[:, 0].argmax(-1) == fwd[:, p].argmax(-1)).sum()
+    decode_launches = dict(K.LAUNCHES)
+    require(decode_launches["flash_attention"] == cfg.n_layers,
+            f"the T={DECODE_T} forward did not take the K9 branch in every layer")
+    scale = float(fwd.float().abs().max())
+    agree_share = int(agree) / (DECODE_B * DECODE_T)
+    decode_rep = {"shape": f"B={DECODE_B}, T={DECODE_T}", "max_abs_gap":
+                  float(worst), "max_abs_logit": scale,
+                  "gap_in_bf16_steps_of_max": float(worst) / (scale * 2.0 ** -7),
+                  "argmax_agreement": agree_share}
+    print(json.dumps({"decode_vs_forward_qwen2": decode_rep}), flush=True)
+    require(float(worst) <= DECODE_TOL * scale,
+            f"decode and forward logits differ by {float(worst):.3e} > "
+            f"{DECODE_TOL} x max |logit| {scale:.3e}")
+    require(agree_share >= ARGMAX_AGREE,
+            f"decode and forward argmax agree at {agree_share:.3f} of positions")
+    del fwd, cache, lg
+
+    # 4. generate: batch 4, prompt 64, 32 greedy tokens
+    K.reset_launches()
+    seqs = generate("qwen2-0.5b", smoke=False, batch=GEN_B,
+                    prompt_len=GEN_PROMPT, gen=GEN_N, seed=seed, greedy=True,
+                    device=dev, params=params)
+    gen_launches = dict(K.LAUNCHES)
+    require(seqs.shape == (GEN_B, GEN_PROMPT + GEN_N)
+            and int(seqs.min()) >= 0 and int(seqs.max()) < cfg.vocab,
+            "generate returned misshapen or out-of-range tokens")
+    # the greedy tokens against the teacher-forced forward's argmax
+    fwd = prefill(params, {"tokens": seqs[:, :-1]})
+    picked = fwd[:, GEN_PROMPT - 1:].argmax(-1)
+    gen_agree = float((picked == seqs[:, GEN_PROMPT:]).float().mean())
+    require(gen_agree >= ARGMAX_AGREE, f"generate's greedy tokens match the "
+            f"forward's argmax at {gen_agree:.3f} of positions")
+    del params, fwd
+    torch.cuda.empty_cache()
+    # the decode loop's speed as a user meets it: the serving CLI on the
+    # card, in a fresh process (this one holds profiler state and the
+    # earlier phases' tensors)
+    gen_rep = {"shape": f"batch {GEN_B}, prompt {GEN_PROMPT}, {GEN_N} greedy",
+               "greedy_vs_forward_argmax": gen_agree, **serve_cli_times(seed)}
+    print(json.dumps({"generate_qwen2": gen_rep}), flush=True)
+    paths = {"prefill_qwen2": prefill_launches,
+             "decode_vs_forward_qwen2": decode_launches,
+             "generate_qwen2": gen_launches}
+    by = {path: n["flash_attention"] for path, n in paths.items()
+          if n["flash_attention"]}
+    entry = {**{key: entry[key] for key in ("name", "route", "source",
+                                            "replaces")},
+             "launches": sum(by.values()), "launches_by_path": by, **entry}
+    return dict(paths=paths, kernel=entry)
 
 
 def main() -> int:
@@ -981,10 +1294,19 @@ def main() -> int:
         print(json.dumps({"round_profile": breakdown}), flush=True)
         inputs = dict(embed=pre["embed"], wg0=pre["wg0"], hess_update=hu)
         kernels = kernel_line(dev, prob, x0, paths, inputs, err)
+        del pre, hu, inputs
+
+        # -- 9. qwen2-0.5B serving --------------------------------------------
+        t0 = time.perf_counter()
+        sv = serve_qwen2(dev, args.seed, K, err)
+        paths.update(sv["paths"])
+        kernels.append(sv["kernel"])
+        print(f"# qwen2-0.5B serving phase in {time.perf_counter() - t0:.1f} s; "
+              f"launches {json.dumps(sv['paths'])}", flush=True)
     except SmokeFailure as exc:
         return fail(str(exc))
 
-    # -- 9. result lines ----------------------------------------------------
+    # -- 10. result lines ----------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

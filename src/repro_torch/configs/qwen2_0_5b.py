@@ -1,7 +1,7 @@
 """Qwen2-0.5B [arXiv:2407.10671].
 
 24 layers, d_model 896, 14 heads (GQA kv=2), d_ff 4864, vocab 151936;
-GQA with QKV bias, SwiGLU, RMSNorm, tied embeddings; bf16 weights.
+GQA with QKV bias, RoPE, SwiGLU, RMSNorm, tied embeddings; bf16 weights.
 """
 
 from __future__ import annotations
@@ -10,13 +10,18 @@ from . import ModelConfig, ParamShape
 
 CONFIG = ModelConfig(
     name="qwen2-0.5b",
+    family="dense",
     n_layers=24,
     d_model=896,
     n_heads=14,
     kv_heads=2,
     d_ff=4864,
     vocab=151936,
+    attn_type="gqa",
+    rope=True,
     qkv_bias=True,
+    mlp_type="swiglu",
+    norm="rmsnorm",
     tie_embeddings=True,
     source="[arXiv:2407.10671]",
 )
@@ -30,7 +35,7 @@ def param_shapes(cfg: ModelConfig = CONFIG) -> dict:
     q, kv = cfg.n_heads * cfg.hd, cfg.kv_heads * cfg.hd
 
     def p(*shape):
-        return ParamShape(tuple(shape), cfg.dtype)
+        return ParamShape(tuple(shape), cfg.tdtype)
 
     mixer = {"wq": p(n, d, q), "wk": p(n, d, kv), "wv": p(n, d, kv),
              "wo": p(n, q, d)}

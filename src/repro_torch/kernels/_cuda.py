@@ -23,13 +23,15 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("block_topk", "scatter_accum", "hess_update", "tiled_matmul")
+SOURCES = ("block_topk", "scatter_accum", "hess_update", "tiled_matmul",
+           "flash_attention")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 LAUNCHES = {"diff_topk_payload": 0, "scatter_accumulate": 0,
             "block_scatter_accumulate": 0, "block_topk_payload": 0,
-            "block_topk": 0, "hess_update": 0, "tiled_matmul": 0}
+            "block_topk": 0, "hess_update": 0, "tiled_matmul": 0,
+            "flash_attention": 0}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -112,6 +114,10 @@ _SIGNATURES = {
         for t in ("f32", "f64")},
     "tiled_matmul": {
         "tiled_matmul_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P]},
+    "flash_attention": {
+        f"flash_attention_{t}": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L,
+                                 _L, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+        for t in ("bf16", "f32")},
 }
 
 

@@ -1,0 +1,111 @@
+"""Shared building blocks: initializers, norms, RoPE, masks and the loss,
+the counterparts of ``src/repro/models/common.py``.
+
+The reference's sharding hooks have no counterpart yet: the port runs on
+one card, so ``shard_act`` would be the identity (ROADMAP Queue A
+item 10 brings the mesh). Initializers draw from an explicit
+``torch.Generator`` and put the weights on its device.
+"""
+
+from __future__ import annotations
+
+import math
+import torch
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
+               scale: float = 1.0) -> torch.Tensor:
+    std = scale / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device)
+    return (w * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, device=gen.device)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms: statistics in f32, cast back to the input's type, then the weight
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
+def norm_params(d: int, kind: str, dtype: torch.dtype, device) -> dict:
+    if kind == "rmsnorm":
+        return {"w": torch.ones((d,), dtype=dtype, device=device)}
+    return {"w": torch.ones((d,), dtype=dtype, device=device),
+            "b": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def apply_norm(x: torch.Tensor, p: dict, kind: str) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["w"])
+    return layernorm(x, p["w"], p["b"])
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    i = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (i / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., T, H, hd); positions: (..., T) int. Rotates the two
+    halves of each head in f32 and casts back to x's type."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (hd/2,)
+    angles = positions[..., None].float() * freqs              # (..., T, hd/2)
+    cos = torch.cos(angles)[..., None, :]                      # (..., T, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Masks
+# ---------------------------------------------------------------------------
+
+
+def causal_mask(t: int, device=None) -> torch.Tensor:
+    """(t, t) bool, True = attendable. Sliding windows wait for ROADMAP
+    Queue A item 12."""
+    i = torch.arange(t, device=device)[:, None]
+    j = torch.arange(t, device=device)[None, :]
+    return j <= i
+
+
+def decode_mask(cache_len: int, pos: int, device=None) -> torch.Tensor:
+    """(cache_len,) bool for one query at absolute position ``pos``."""
+    return torch.arange(cache_len, device=device) <= pos
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy; logits (..., V), targets (...) int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.mean(logz - gold)

@@ -16,6 +16,10 @@ from repro_torch.kernels.block_topk import (
     block_topk_payload,
     diff_topk_payload,
 )
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    gqa_flash_attention_ref,
+)
 from repro_torch.kernels.hess_update import hess_update, hess_update_ref
 from repro_torch.kernels.scatter_accum import (
     block_scatter_accumulate,
@@ -97,7 +101,8 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
     assert LAUNCHES == {"diff_topk_payload": 0, "scatter_accumulate": 1,
                         "block_scatter_accumulate": 0,
                         "block_topk_payload": 0, "block_topk": 0,
-                        "hess_update": 0, "tiled_matmul": 0}
+                        "hess_update": 0, "tiled_matmul": 0,
+                        "flash_attention": 0}
     with pytest.raises(TypeError, match="int32"):
         scatter_accumulate(v.to(cuda), i.to(cuda).long(), (10, 10))
     with pytest.raises(ValueError, match="one CUDA device"):
@@ -171,3 +176,59 @@ def test_tiled_matmul_kernel_matches_plain(cuda):
     got = subspace_iteration(m.to(cuda), q.to(cuda)).cpu()
     want = subspace_iteration_ref(m.to(cuda), q.to(cuda)).cpu()
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _attention_inputs(b, t, h, kv, hd, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn((b, t, h, hd), generator=gen),
+            torch.randn((b, t, kv, hd), generator=gen),
+            torch.randn((b, t, kv, hd), generator=gen))
+
+
+@pytest.mark.parametrize("shape,tiles", [
+    ((2, 384, 4, 4, 64), (128, 128)),      # multiple of the tiles, MHA
+    ((1, 1000, 14, 2, 64), (128, 128)),    # ragged T, qwen2's GQA
+    ((1, 1000, 14, 2, 64), (128, 64)),     # bq > bk: every key still seen
+    ((1, 1000, 14, 2, 64), (64, 128)),
+    ((2, 300, 4, 2, 128), (128, 128)),     # hd 128
+    ((2, 300, 4, 2, 128), (64, 64)),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, shape, tiles, dtype):
+    """f32 to 1e-5 (both sum in f32, in other orders); bf16 within one
+    bf16 rounding step of the value (both round one f32 result), plus
+    1e-6 absolute for outputs near 0."""
+    q, k, v = (x.to(cuda, dtype) for x in _attention_inputs(*shape, seed=9))
+    got = flash_attention(q, k, v, *tiles).float().cpu()
+    want = gqa_flash_attention_ref(q, k, v).float().cpu()
+    gap = (got - want).abs()
+    if dtype == torch.float32:
+        assert float(gap.max()) <= 1e-5
+    else:
+        assert bool((gap <= 2.0 ** -7 * want.abs() + 1e-6).all())
+
+
+def test_flash_attention_kernel_reads_strided_inputs(cuda):
+    """q, k, v as (B, T, H, hd) views of (B, H, T, hd) storage equal the
+    contiguous call bit for bit."""
+    q, k, v = (x.to(cuda) for x in _attention_inputs(2, 700, 4, 2, 64, seed=10))
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    assert not views[0].is_contiguous()
+    assert torch.equal(flash_attention(*views), flash_attention(q, k, v))
+
+
+def test_flash_attention_counts_launches_and_rejects_bad_input(cuda):
+    q, k, v = (x.to(cuda) for x in _attention_inputs(1, 600, 4, 2, 64, seed=11))
+    reset_launches()
+    flash_attention(q, k, v)
+    assert LAUNCHES["flash_attention"] == 1
+    assert sum(LAUNCHES.values()) == 1
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q.clone().requires_grad_(), k, v)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention(q, k.cpu(), v)
+    assert LAUNCHES["flash_attention"] == 1
