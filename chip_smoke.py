@@ -29,7 +29,9 @@ Phases, each failing the run with a non-zero exit:
      plain versions on every tensor's inputs;
   6. PowerSGD and dense block top-k: ``powersgd_rank_r`` (K8, r = 1, 2)
      and ``block_topk`` (K6) on a w8a Hessian (300 x 300 f64) and on
-     ``layers.ffn.wg[0]`` (896 x 4864), against their plain versions;
+     ``layers.ffn.wg[0]`` (896 x 4864), against their plain versions; K8's
+     small-N route (M @ Q, M^T @ P) and small-K route (P @ Q^T) must both
+     have launched;
   7. FedNL lines 5-6 by ``hess_update`` (K7) on the w8a FedNL state
      (142 Hessians), held to what ``FedNL.step`` computes and to its
      plain version, and on the embed-sized H of phase 5;
@@ -38,10 +40,13 @@ Phases, each failing the run with a non-zero exit:
      and the nearest single PyTorch call;
   9. qwen2-0.5B serving at full width and depth (bf16, random weights
      from --seed): K9 (flash_attention) against its plain version on all
-     14 heads at T=4,000 in bf16 and f32 and on heads 0 and 13 of layer
-     0's inputs at T=32,768; ``make_prefill`` at B=1, T=32,768 (K9 must
-     launch once per layer: 24), its host ms, peak memory and device
-     time by kernel group; K9's times as for K1-K8; decode == forward
+     14 heads at T=4,000 in bf16 (the wgmma route, held to the f32 oracle
+     beside SDPA: ``bf16_attention_check``) and f32 (the FFMA route, to
+     2e-5) and on heads 0 and 13 of layer 0's inputs at T=32,768;
+     ``make_prefill`` at B=1, T=32,768 (K9's wgmma route must launch once
+     per layer, 24, and its FFMA route never, by the launch counters and
+     by the profile), its host ms, peak memory and device time by kernel
+     group; K9's times as for K1-K8; decode == forward
      at B=2, T=640 (the K9 branch) within a stated bf16 tolerance;
      ``generate`` for batch 4, prompt 64, 32 greedy tokens, held to the
      forward's argmax, and timed by the serving CLI in its own process;
@@ -169,9 +174,17 @@ def device_ms(fn, kernel: str, reps: int = 20, tries: int = 6) -> float:
                        f"{[e.key[:80] for e in rows]}")
 
 
+def counts(K) -> dict:
+    """The launch counts of every wrapper, and of each route of K8 and K9
+    as "<wrapper>:<route>"."""
+    return {**K.LAUNCHES, **{f"{name}:{route}": n
+                             for name, routes in K.ROUTES.items()
+                             for route, n in routes.items()}}
+
+
 def profile_rows(fn) -> tuple[float, list]:
     """One call under the profiler: its wall ms and the device rows
-    (kernel name, device ms), largest first."""
+    (kernel name, device ms, launches), largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -182,7 +195,7 @@ def profile_rows(fn) -> tuple[float, list]:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    ops = [(e.key, e.self_device_time_total / 1e3)
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
            for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     return wall, sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
@@ -192,10 +205,10 @@ def profile_window(fn) -> dict:
     """One call under the profiler: wall ms, device busy ms, idle share
     and the top device rows."""
     wall, ops = profile_rows(fn)
-    busy = sum(ms for _, ms in ops)
+    busy = sum(ms for _, ms, _ in ops)
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall),
-            "top_device_ms": [[name[:60], ms] for name, ms in ops[:6]]}
+            "top_device_ms": [[name[:60], ms] for name, ms, _ in ops[:6]]}
 
 
 def bound(nbytes: float, ops: dict) -> tuple[float, str]:
@@ -340,7 +353,7 @@ def fednl_w8a(dev, prob, x0, K) -> dict:
             _, xs = alg.run(x0, n, ROUNDS)
             finals[family, option] = xs
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches = counts(K)
     t_main = time.perf_counter() - t_main
     print(f"# FedNL path: 8 runs x {ROUNDS} rounds on w8a in {t_main:.1f} s; "
           f"launches {json.dumps(launches)}", flush=True)
@@ -462,7 +475,7 @@ def precond_qwen2(dev, seed: int, K, err: dict) -> dict:
         lambda: opt.precondition(grads, state, params))
     torch.cuda.synchronize()
     t_path = time.perf_counter() - t_path
-    launches = dict(K.LAUNCHES)
+    launches = counts(K)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"# optimizer path: {STEPS} updates + refresh + precondition over "
           f"{n_params} qwen2-0.5b parameters, {SILOS} silos, in "
@@ -478,7 +491,7 @@ def precond_qwen2(dev, seed: int, K, err: dict) -> dict:
     uplink = [codec.compress(o.reshape((SILOS,) + _shape2d(h.shape)))
               for o, h in zip(tree_leaves(obs), tree_leaves(before.h))]
     torch.cuda.synchronize()
-    uplink_launches = dict(K.LAUNCHES)
+    uplink_launches = counts(K)
     print(f"# optimizer uplink codec: launches {json.dumps(uplink_launches)}",
           flush=True)
     require(uplink_launches["block_topk_payload"] > 0,
@@ -615,10 +628,11 @@ def powersgd_and_dense_topk(dev, seed: int, mats: dict, K, err: dict) -> dict:
         for r in (1, 2):
             outs[name].append(powersgd_rank_r(m, r, seed=seed))
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches = counts(K)
     print(f"# PowerSGD + dense top-k path: launches {json.dumps(launches)}",
           flush=True)
-    for kname in ("block_topk", "tiled_matmul"):
+    for kname in ("block_topk", "tiled_matmul", "tiled_matmul:small_n",
+                  "tiled_matmul:small_k"):
         require(launches[kname] > 0, f"kernel {kname} was not launched")
     for name, (m, k) in mats.items():
         dense = outs[name][0]
@@ -659,7 +673,7 @@ def hess_update_w8a(dev, prob, x0, embed: dict, K, err: dict) -> dict:
     K.reset_launches()
     out, l = hess_update(state.h_local, hesses, s_i, alg.alpha)
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches = counts(K)
     require(launches["hess_update"] > 0, "hess_update was not launched")
     nxt = alg.step(state)
     require(torch.equal(out, nxt.h_local),
@@ -729,8 +743,9 @@ def fednl_round_times(prob, x0) -> tuple[dict, dict]:
 
 def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
     """One entry per kernel of phases 3-7 (K1-K8): launches per path
-    (``paths``), times at the inputs its path gives it (``inputs``),
-    bound, plain and library times. K9's entry is made by phase 9."""
+    (``paths``, and per route for K8), times at the inputs its path gives
+    it (``inputs``), bound, plain and library times. K9's entry is made
+    by phase 9."""
     import torch
     from repro_torch.core import make_compressor
     from repro_torch.kernels.block_topk import (
@@ -920,31 +935,70 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
         w8a_ms=time_cuda(lambda: hess_update(*inputs["hess_update"]["w8a"])),
         w8a_shape="(142, 300, 300) f64"))
 
-    # K8: the power iteration's hot product on wg[0], M @ Q with r = 2
+    # K8: the power iteration's three products on wg[0] with r = 2, each
+    # bound by reading A (a, b) or writing C (c) once: (a) M @ Q, small-N
+    # route on a row-major A; (b) M^T @ P, small-N route on a column-major
+    # view, K in chunks summed by a second kernel; (c) P @ Q^T, small-K
     total, by = launches("tiled_matmul")
+    routes = {r: sum(c.get(f"tiled_matmul:{r}", 0) for c in paths.values())
+              for r in ("small_n", "small_k", "tiled")}
     q = torch.linalg.qr(torch.randn((wg0.shape[1], 2), device=dev))[0]
+    p = torch.linalg.qr(torch.randn((wg0.shape[0], 2), device=dev))[0]
     mm, kk = wg0.shape
+    # each of the three reads or writes one (896, 4864) f32 matrix
     b_ms, b_by = bound((mm * kk + kk * 2 + mm * 2) * 4, {"f32": 2 * mm * kk * 2})
-    big_ms = time_cuda(lambda: tiled_matmul(wg0.T, wg0[:, :896]), reps=10)
+    products = {"b": (wg0.T, p, ("tiled_matmul_small_n_cols_kernel",
+                                 "tiled_matmul_sum_partials_kernel")),
+                "c": (p, q.T, ("tiled_matmul_small_k_kernel",))}
+    more = {}
+    for key, (a, b, names) in products.items():
+        more.update({
+            f"{key}_ms": time_cuda(lambda: tiled_matmul(a, b)),
+            f"{key}_device_ms": sum(device_ms(lambda: tiled_matmul(a, b), n)
+                                    for n in names),
+            f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
+            f"{key}_library_ms": time_cuda(lambda: torch.matmul(a, b))})
+    # the tiled route, which no path's product takes, on a square product:
+    # held to its plain version here, then timed
+    from repro_torch.kernels import ROUTES
+
+    sq_a, sq_b = wg0.T, wg0[:, :896]
+    tiled_before = ROUTES["tiled_matmul"]["tiled"]
+    got = tiled_matmul(sq_a, sq_b)
+    require(ROUTES["tiled_matmul"]["tiled"] == tiled_before + 1,
+            "the square product did not take K8's tiled route")
+    want = tiled_matmul_ref(sq_a, sq_b)
+    square_err = float(torch.max(torch.abs(got - want))
+                       / torch.max(torch.abs(want)))
+    require(square_err <= 1e-5, f"tiled_matmul's tiled route off its plain "
+            f"version by {square_err:.2e} of the largest entry")
+    del got, want
+    big_ms = time_cuda(lambda: tiled_matmul(sq_a, sq_b), reps=10)
     big_bound, _ = bound((2 * kk * 896 + 896 * 896) * 4,
                          {"f32": 2 * kk * 896 * 896})
     kernels.append(dict(
         name="tiled_matmul", route="cuda",
         source="src/repro_torch/csrc/tiled_matmul.cu",
         replaces="src/repro/kernels/tiled_matmul/kernel.py:31",
-        launches=total, launches_by_path=by, max_abs_err=err["tiled_matmul"],
+        launches=total, launches_by_path=by, launches_by_route=routes,
+        max_abs_err=err["tiled_matmul"],
         max_abs_err_is="max |error| / max |entry| of powersgd_rank_r",
         ms=time_cuda(lambda: tiled_matmul(wg0, q)),
-        device_ms=device_ms(lambda: tiled_matmul(wg0, q), "tiled_matmul_kernel"),
+        device_ms=device_ms(lambda: tiled_matmul(wg0, q),
+                            "tiled_matmul_small_n_rows_kernel"),
         plain_ms=time_cuda(lambda: tiled_matmul_ref(wg0, q)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_cuda(lambda: torch.matmul(wg0, q)),
-        shape="wg[0] @ Q: (896, 4864) x (4864, 2) f32",
+        shape="(a) wg[0] @ Q: (896, 4864) x (4864, 2) f32",
         library_call="torch.matmul f32, TF32 off",
-        square_ms=big_ms, square_bound_ms=big_bound,
-        square_library_ms=time_cuda(lambda: torch.matmul(wg0.T, wg0[:, :896]),
-                                    reps=10),
-        square_shape="wg[0]^T @ wg[0][:, :896]: (4864, 896) x (896, 896)"))
+        **more,
+        b_shape="(b) wg[0]^T @ P: (4864, 896) view x (896, 2)",
+        c_shape="(c) P @ Q^T: (896, 2) x (2, 4864) view",
+        square_max_abs_err=square_err, square_ms=big_ms,
+        square_bound_ms=big_bound,
+        square_library_ms=time_cuda(lambda: torch.matmul(sq_a, sq_b), reps=10),
+        square_shape="wg[0]^T @ wg[0][:, :896]: (4864, 896) x (896, 896), "
+                     "tiled route"))
 
     return kernels
 
@@ -952,39 +1006,63 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
 # -- phase 9: qwen2-0.5B serving, prefill through K9 -------------------------
 
 
-def bf16_step_gap(got, want) -> float:
-    """max |got - want| in units of the bf16 rounding step of |want|
-    (2^-7 |want|, floored at 1e-6 / 2^-7 for outputs near 0)."""
-    import torch
+def sdpa(q, k, v):
+    """PyTorch's causal attention over (B, H, T, hd), fused backends only:
+    the library yardstick of K9's time and of its bf16 error."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    got, want = got.float(), want.float()
-    step = torch.clamp(want.abs(), min=1e-6 / 2.0 ** -7) * 2.0 ** -7
-    return float(((got - want).abs() / step).max())
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
 
 def check_flash(q, k, v, heads, err: dict, what: str) -> None:
     """K9 against its plain version on ``heads``, one head at a time
     (the plain version's (T, T) scores of one head fit the card at any
-    T of the path): f32 to 2e-5, bf16 within one bf16 step."""
+    T of the path). f32 (the FFMA route) to 2e-5. bf16 (the wgmma route,
+    which rounds P to bf16 before P V) against the plain version in f32
+    on the same bf16 inputs, not rounded: max error within 2 * 2^-8 of
+    the head's max |oracle|, mean error within 1.5 x SDPA's on the same
+    head, each row's max error within 4 * 2^-8 of its own max |oracle|
+    (``bf16_attention_check``); the worst ratios go to ``err``."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attention import (
+        bf16_attention_check,
+        flash_attention,
+        flash_attention_ref,
+    )
 
     out = flash_attention(q, k, v)
     n_rep = q.shape[2] // k.shape[2]
     for b in range(q.shape[0]):
         for h in heads:
-            want = flash_attention_ref(q[b, :, h][None], k[b, :, h // n_rep][None],
-                                       v[b, :, h // n_rep][None])[0]
+            qh, kh, vh = q[b, :, h], k[b, :, h // n_rep], v[b, :, h // n_rep]
             got = out[b, :, h]
-            e = float(torch.max(torch.abs(got.float() - want.float())))
             if q.dtype == torch.float32:
+                want = flash_attention_ref(qh[None], kh[None], vh[None])[0]
+                e = float(torch.max(torch.abs(got - want)))
                 require(e <= 2e-5, f"flash_attention off its plain version by "
                         f"{e:.2e} ({what}, head {h})")
                 err["flash_attention"] = max(err["flash_attention"], e)
             else:
-                steps = bf16_step_gap(got, want)
-                require(steps <= 1.0, f"flash_attention off its plain version "
-                        f"by {steps:.2f} bf16 steps ({what}, head {h})")
+                want = flash_attention_ref(qh[None].float(), kh[None].float(),
+                                           vh[None].float())[0]
+                r = bf16_attention_check(got, want, sdpa(
+                    qh[None, None], kh[None, None], vh[None, None])[0, 0])
+                require(r["ok"], f"flash_attention (bf16) off the f32 oracle "
+                        f"({what}, head {h}): {json.dumps(r)}")
+                worst = err.setdefault("flash_attention_bf16", {
+                    "max_abs_err": 0.0, "max_err_over_limit": 0.0,
+                    "mean_err_over_sdpa": 0.0, "row_err_over_limit": 0.0})
+                worst["max_abs_err"] = max(worst["max_abs_err"], r["max_err"])
+                worst["row_err_over_limit"] = max(
+                    worst["row_err_over_limit"], r["row_err"] / r["row_limit"])
+                worst["max_err_over_limit"] = max(worst["max_err_over_limit"],
+                                                  r["max_err"] / r["max_limit"])
+                worst["mean_err_over_sdpa"] = max(
+                    worst["mean_err_over_sdpa"],
+                    r["mean_err"] / max(r["library_mean_err"], 1e-30))
             del want
 
 
@@ -1010,18 +1088,19 @@ def serve_cli_times(seed: int) -> dict:
 
 def flash_kernel_entry(q, k, v, err: dict) -> dict:
     """K9's kernel-line entry, launches aside, on layer 0's prefill inputs
-    (bf16): read q, k, v once and write out; 4 hd flops per (query,
-    key <= query) pair and head, at the bf16 tensor-core rate. Timed
-    before the decode loops: the profiler records few launches, or none,
-    after a million of them in one process (tools/decode_profile.py)."""
-    import torch.nn.functional as F
+    (bf16, the wgmma route): read q, k, v once and write out; 4 hd flops
+    per (query, key <= query) pair and head, at the bf16 tensor-core rate.
+    The FFMA route is timed on the same inputs in f32. Timed before the
+    decode loops: the profiler records few launches, or none, after a
+    million of them in one process (tools/decode_profile.py)."""
+    import torch
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
-    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     b, t, h, hd = q.shape
     n_rep = h // k.shape[2]
+    flops = 4 * b * h * hd * t * (t + 1) / 2
     b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
-                       {"bf16": 4 * b * h * hd * t * (t + 1) / 2})
+                       {"bf16": flops})
 
     def plain_all_heads():
         for head in range(h):
@@ -1030,34 +1109,51 @@ def flash_kernel_entry(q, k, v, err: dict) -> dict:
 
     qt = q.transpose(1, 2)
     kt, vt = (x.repeat_interleave(n_rep, dim=2).transpose(1, 2) for x in (k, v))
-    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-             SDPBackend.CUDNN_ATTENTION]
 
-    def sdpa():
-        with sdpa_kernel(fused):
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    def library():
+        return sdpa(qt, kt, vt)
 
-    return dict(
+    dev_ms = device_ms(lambda: flash_attention(q, k, v),
+                       "flash_attention_kernel_wgmma", reps=10)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    bf16 = err["flash_attention_bf16"]
+    entry = dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
+        source="src/repro_torch/csrc/flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:53",
-        max_abs_err=err["flash_attention"],
-        max_abs_err_is="f32, all 14 heads at T=4000 (bf16: within one bf16 "
-                       "step at T=4000 and T=32768)",
-        ms=time_cuda(lambda: flash_attention(q, k, v), reps=5, warmup=1),
-        device_ms=device_ms(lambda: flash_attention(q, k, v),
-                            "flash_attention_kernel", reps=3),
+        max_abs_err=bf16["max_abs_err"],
+        max_abs_err_is="bf16 (wgmma) against the f32 oracle on the same bf16 "
+                       "inputs, all 14 heads at T=4000 and heads 0, 13 at "
+                       "T=32768; see bf16_check",
+        bf16_check={"max_err_over_limit": bf16["max_err_over_limit"],
+                    "mean_err_over_sdpa": bf16["mean_err_over_sdpa"],
+                    "row_err_over_limit": bf16["row_err_over_limit"],
+                    "limits": "max err <= 2 * 2^-8 max |oracle|, mean err <= "
+                              "1.5 x SDPA's, per head; each row's max err <= "
+                              "4 * 2^-8 of its max |oracle|"},
+        ms=time_cuda(lambda: flash_attention(q, k, v), reps=20),
+        device_ms=dev_ms, tflops=flops / dev_ms / 1e9,
         plain_ms=time_cuda(plain_all_heads, reps=1, warmup=1),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_cuda(sdpa, reps=20),
+        library_ms=time_cuda(library, reps=20),
         shape=f"qwen2 layer 0 prefill: q ({b}, {t}, {h}, {hd}), k and v "
               f"({b}, {t}, {k.shape[2]}, {hd}) bf16, bq=bk=128",
         plain_is="the plain version on all 14 heads, one head at a time",
         tiles_ms={f"bq={bq},bk={bk}": time_cuda(
-            lambda: flash_attention(q, k, v, bq, bk), reps=2, warmup=1)
+            lambda: flash_attention(q, k, v, bq, bk), reps=5, warmup=1)
             for bq in (64, 128) for bk in (64, 128)},
         library_call="scaled_dot_product_attention(is_causal=True), fused "
-                     "backends only, KV heads expanded beforehand")
+                     "backends only, KV heads expanded beforehand",
+        ffma_source="src/repro_torch/csrc/flash_attention.cu",
+        ffma_f32_max_abs_err=err["flash_attention"],
+        ffma_f32_ms=time_cuda(lambda: flash_attention(q32, k32, v32), reps=2,
+                              warmup=1),
+        ffma_f32_device_ms=device_ms(lambda: flash_attention(q32, k32, v32),
+                                     "flash_attention_kernel<", reps=2),
+        ffma_f32_shape="the same inputs in f32")
+    del q32, k32, v32
+    torch.cuda.empty_cache()
+    return entry
 
 
 def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
@@ -1103,8 +1199,9 @@ def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
     flash_in = (q, k, v)
     del x, pos, q, k, v
     print(f"# K9 matches its plain version: {h} heads at T={CHECK_T} (f32 max "
-          f"abs err {err['flash_attention']:.2e}, bf16 within one step), "
-          f"heads 0 and {h - 1} of layer 0 at T={PREFILL_T} (bf16)", flush=True)
+          f"abs err {err['flash_attention']:.2e}; bf16 against the f32 oracle "
+          f"{json.dumps(err['flash_attention_bf16'])}), heads 0 and {h - 1} of "
+          f"layer 0 at T={PREFILL_T} (bf16)", flush=True)
 
     # 2. prefill: B=1, T=32,768, the whole model
     prefill = make_prefill(model)
@@ -1114,11 +1211,15 @@ def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
     held_gb = torch.cuda.memory_allocated() / 1e9
     K.reset_launches()
     first_ms, logits = host_ms(lambda: prefill(params, batch))
-    prefill_launches = dict(K.LAUNCHES)
+    prefill_launches = counts(K)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    require(prefill_launches["flash_attention"] == cfg.n_layers,
-            f"prefill launched K9 {prefill_launches['flash_attention']} times, "
+    require(prefill_launches["flash_attention:wgmma"] == cfg.n_layers
+            and prefill_launches["flash_attention"] == cfg.n_layers,
+            f"prefill launched K9 {prefill_launches['flash_attention']} times "
+            f"({prefill_launches['flash_attention:wgmma']} by its wgmma route), "
             f"not once per layer")
+    require(prefill_launches["flash_attention:ffma"] == 0,
+            "the bf16 prefill took K9's FFMA route")
     require(logits.shape == (1, PREFILL_T, cfg.vocab)
             and logits.dtype == torch.bfloat16, "prefill logits misshapen")
     require(all(bool(torch.isfinite(c).all()) for c in logits.split(2048, 1)),
@@ -1129,10 +1230,21 @@ def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
         ms, out = host_ms(lambda: prefill(params, batch))
         del out
         prefill_ms.append(ms)
-    wall, rows = profile_rows(lambda: prefill(params, batch))
-    busy = sum(ms for _, ms in rows)
+    # the profile must see the wgmma symbol once per layer and the FFMA
+    # symbol never; a session may drop records (device_ms), so up to six
+    for _ in range(6):
+        wall, rows = profile_rows(lambda: prefill(params, batch))
+        seen = {route: sum(n for name, _, n in rows if symbol in name)
+                for route, symbol in (("wgmma", "flash_attention_kernel_wgmma"),
+                                      ("ffma", "flash_attention_kernel<"))}
+        if seen["wgmma"] == cfg.n_layers:
+            break
+    require(seen == {"wgmma": cfg.n_layers, "ffma": 0},
+            f"the prefill's profile shows K9 launches {seen}, not "
+            f"{cfg.n_layers} of the wgmma kernel and none of the FFMA one")
+    busy = sum(ms for _, ms, _ in rows)
     groups = {"flash_attention (K9)": 0.0, "GEMM": 0.0, "other": 0.0}
-    for name, ms in rows:
+    for name, ms, _ in rows:
         if "flash_attention_kernel" in name:
             groups["flash_attention (K9)"] += ms
         elif any(w in name.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")):
@@ -1150,11 +1262,11 @@ def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
         "held_before_gb": held_gb,
         "launches": prefill_launches, "profile_wall_ms": wall,
         "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall),
-        "device_ms_by_group": groups,
+        "device_ms_by_group": groups, "k9_profile_launches": seen,
         "k9_share_of_device": groups["flash_attention (K9)"] / busy,
         "k9_device_ms_per_launch": groups["flash_attention (K9)"] / cfg.n_layers,
         "logits_ms": logits_ms,
-        "top_device_ms": [[name[:70], ms] for name, ms in rows[:10]]}
+        "top_device_ms": [[name[:70], ms] for name, ms, _ in rows[:10]]}
     print(json.dumps({"prefill_qwen2": prefill_rep}), flush=True)
     entry = flash_kernel_entry(*flash_in, err)
     del flash_in
@@ -1173,8 +1285,8 @@ def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
         worst = torch.maximum(worst, (lg[:, 0].float() - fwd[:, p].float())
                               .abs().max())
         agree += (lg[:, 0].argmax(-1) == fwd[:, p].argmax(-1)).sum()
-    decode_launches = dict(K.LAUNCHES)
-    require(decode_launches["flash_attention"] == cfg.n_layers,
+    decode_launches = counts(K)
+    require(decode_launches["flash_attention:wgmma"] == cfg.n_layers,
             f"the T={DECODE_T} forward did not take the K9 branch in every layer")
     scale = float(fwd.float().abs().max())
     agree_share = int(agree) / (DECODE_B * DECODE_T)
@@ -1195,7 +1307,7 @@ def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
     seqs = generate("qwen2-0.5b", smoke=False, batch=GEN_B,
                     prompt_len=GEN_PROMPT, gen=GEN_N, seed=seed, greedy=True,
                     device=dev, params=params)
-    gen_launches = dict(K.LAUNCHES)
+    gen_launches = counts(K)
     require(seqs.shape == (GEN_B, GEN_PROMPT + GEN_N)
             and int(seqs.min()) >= 0 and int(seqs.max()) < cfg.vocab,
             "generate returned misshapen or out-of-range tokens")
@@ -1218,10 +1330,42 @@ def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
              "generate_qwen2": gen_launches}
     by = {path: n["flash_attention"] for path, n in paths.items()
           if n["flash_attention"]}
+    routes = {r: sum(n[f"flash_attention:{r}"] for n in paths.values())
+              for r in ("wgmma", "ffma")}
     entry = {**{key: entry[key] for key in ("name", "route", "source",
                                             "replaces")},
-             "launches": sum(by.values()), "launches_by_path": by, **entry}
+             "launches": sum(by.values()), "launches_by_path": by,
+             "launches_by_route": routes, **entry}
     return dict(paths=paths, kernel=entry)
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's C++ name with its template arguments, without its
+    namespace and parameters (``c++filt``; the mangled name without it)."""
+    try:
+        out = subprocess.run(["c++filt", mangled], capture_output=True,
+                             text=True, timeout=30).stdout.strip()
+    except OSError:
+        return mangled
+    return out.split("(anonymous namespace)::")[-1].split("(")[0] or mangled
+
+
+def ptxas_lines(log: str) -> list:
+    """One line per kernel that nvcc's ``-Xptxas -v`` log reports (its
+    name; registers, shared memory, stack and spills), and every warning
+    line."""
+    out, entry, frame = [], "?", ""
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            entry = kernel_name(found.group(1))
+        elif "warning" in line:
+            out.append(line.strip())
+        elif "spill" in line:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{entry}: {line.split('Used', 1)[1].strip()}; {frame}")
+    return out
 
 
 def main() -> int:
@@ -1262,9 +1406,8 @@ def main() -> int:
         t0 = time.perf_counter()
         logs = K.build_all()
         for name, log in logs.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"# ptxas {name}: {line.strip()}")
+            for line in ptxas_lines(log):
+                print(f"# ptxas {name}: {line}")
         print(f"# build: {time.perf_counter() - t0:.1f} s", flush=True)
 
         # -- 3-7. kernels and paths -----------------------------------------

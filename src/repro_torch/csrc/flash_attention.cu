@@ -1,21 +1,21 @@
-// Causal flash attention forward: out = softmax(q k^T / sqrt(hd), causal) v,
-// with online-softmax statistics, over q (B, T, H, hd) and k, v
-// (B, T, KV, hd) in bf16 or f32, head h reading KV head h / (H / KV).
+// Causal flash attention forward in f32: out = softmax(q k^T / sqrt(hd),
+// causal) v, with online-softmax statistics, over q (B, T, H, hd) and k, v
+// (B, T, KV, hd), head h reading KV head h / (H / KV). bf16 inputs take
+// the tensor-core kernel in flash_attention_wgmma.cu.
 //
 // Replaces the TPU kernel flash_attention_kernel
-// (src/repro/kernels/flash_attention/kernel.py, body _flash_kernel): per
-// (batch*head, query tile) the key/value tiles up to the diagonal stream
-// past a running max m, sum l and accumulator acc kept in f32; q is scaled
-// by 1/sqrt(hd) in f32, keys after the query score -1e30, and the output
-// is acc / max(l, 1e-30) in the input type. Every product and sum is an
-// f32 fused multiply-add on the CUDA cores: no tensor cores, no TF32.
+// (src/repro/kernels/flash_attention/kernel.py, body _flash_kernel) for
+// f32 inputs: per (batch*head, query tile) the key/value tiles up to the
+// diagonal stream past a running max m, sum l and accumulator acc kept in
+// f32; q is scaled by 1/sqrt(hd) in f32, keys after the query score -1e30,
+// and the output is acc / max(l, 1e-30). Every product and sum is an f32
+// fused multiply-add on the CUDA cores: no tensor cores, no TF32, so the
+// f32 route keeps f32 products.
 //
 // Bound on the H100: operations. A causal pass does 4 hd T(T+1)/2 flops
 // per (batch, head), about 1.9 TFLOP per layer of qwen2-0.5B at
-// T = 32,768 against 0.13 GB of q, k, v and out, so even at the bf16
-// tensor-core rate (989 TFLOP/s) it is far above the byte line. This
-// kernel runs on the f32 FFMA pipes (67 TFLOP/s peak): a simple tiled
-// design, before a wgmma/TMA pipeline.
+// T = 32,768 against 0.26 GB of f32 q, k, v and out; this kernel runs on
+// the f32 FFMA pipes (67 TFLOP/s peak).
 // Design: one block of 256 threads (16 x 16) per (batch*head, BQ-row query
 // tile), the tiles of the longest causal walks launched first. The scaled
 // q tile is kept transposed in dynamic shared memory; each key tile is
@@ -33,7 +33,6 @@
 // through their batch, sequence and head strides (the last dim must be
 // contiguous); the output is a contiguous (B, T, H, hd).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -47,13 +46,7 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int HD, int BQ, int BK>
 constexpr int smem_floats() {
@@ -232,8 +225,8 @@ int dispatch(const T* q, Strides sq, const T* k, Strides sk, const T* v,
 
 extern "C" {
 
-// out (B, T, H, hd) contiguous = causal attention of q over k, v; each
-// input by its batch, sequence and head strides (elements).
+// out (B, T, H, hd) contiguous = causal attention of f32 q over k, v;
+// each input by its batch, sequence and head strides (elements).
 #define FLASH_ENTRY(NAME, T)                                                  \
   int NAME(const T* q, long long sqb, long long sqt, long long sqh,           \
            const T* k, long long skb, long long skt, long long skh,           \
@@ -245,7 +238,6 @@ extern "C" {
                        v, Strides{svb, svt, svh}, o, B, seq, H, KV, hd, bq,   \
                        bk, stream);                                           \
   }
-FLASH_ENTRY(flash_attention_bf16, __nv_bfloat16)
 FLASH_ENTRY(flash_attention_f32, float)
 #undef FLASH_ENTRY
 

@@ -3,16 +3,20 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``. The
 library lands in ``build/kernels/`` at the repository root under a name
-that carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is built once. ``build_all`` starts one
-``nvcc`` per source at the same time.
+that carries a hash of its source, the shared headers and ``NVCC_FLAGS``,
+so an edited source or a changed flag is rebuilt and an unchanged one is
+built once.
+``build_all`` starts one ``nvcc`` per source at the same time.
 
-``LAUNCHES`` counts, per wrapper, the launches of its kernel. A wrapper
-adds one only where it launches; the plain CPU path adds nothing.
+``LAUNCHES`` counts, per wrapper, the launches of its kernel, and
+``ROUTES`` the launches of each route of a wrapper that has several. A
+wrapper counts (``count``) only where it launches; the plain CPU path
+counts nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,20 +28,33 @@ import torch
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("block_topk", "scatter_accum", "hess_update", "tiled_matmul",
-           "flash_attention")
+           "flash_attention", "flash_attention_wgmma")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "--warn-on-spills")
 
 LAUNCHES = {"diff_topk_payload": 0, "scatter_accumulate": 0,
             "block_scatter_accumulate": 0, "block_topk_payload": 0,
             "block_topk": 0, "hess_update": 0, "tiled_matmul": 0,
             "flash_attention": 0}
+ROUTES = {"tiled_matmul": {"tiled": 0, "small_n": 0, "small_k": 0},
+          "flash_attention": {"wgmma": 0, "ffma": 0}}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for routes in ROUTES.values():
+        for route in routes:
+            routes[route] = 0
+
+
+def count(name: str, route: str | None = None) -> None:
+    """One launch of ``name``'s kernel, by ``route`` where it has several."""
+    LAUNCHES[name] += 1
+    if route is not None:
+        ROUTES[name][route] += 1
 
 
 def _nvcc() -> str:
@@ -92,6 +109,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
+_FLASH_ARGS = [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _P, _I, _I, _I,
+               _I, _I, _I, _I, _P]
 _SIGNATURES = {
     "block_topk": {
         **{f"diff_topk_payload_{t}": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _I,
@@ -113,11 +132,14 @@ _SIGNATURES = {
         f"hess_update_{t}": [_P, _P, _P, _D, _P, _P, _I, _I, _I, _I, _P]
         for t in ("f32", "f64")},
     "tiled_matmul": {
-        "tiled_matmul_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P]},
-    "flash_attention": {
-        f"flash_attention_{t}": [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L,
-                                 _L, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-        for t in ("bf16", "f32")},
+        "tiled_matmul_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _P],
+        "tiled_matmul_small_n_f32": [_P, _L, _L, _P, _L, _L, _P, _P, _I, _I,
+                                     _I, _I, _I, _P],
+        "tiled_matmul_small_k_f32": [_P, _L, _L, _P, _L, _L, _P, _I, _I, _I,
+                                     _P]},
+    # f32 on the CUDA cores (FFMA); bf16 on the tensor cores (wgmma)
+    "flash_attention": {"flash_attention_f32": _FLASH_ARGS},
+    "flash_attention_wgmma": {"flash_attention_bf16": _FLASH_ARGS},
 }
 
 
@@ -140,5 +162,16 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
+def on(device: torch.device):
+    """A context in which ``device`` is the current CUDA device, for a
+    launch: none is entered when it is current already (entering
+    ``torch.cuda.device`` on every launch weighs on small kernels)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current stream as a raw pointer (no Stream
+    object is made: this runs once per launch)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

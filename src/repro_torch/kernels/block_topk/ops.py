@@ -66,7 +66,7 @@ def diff_topk_payload(a: torch.Tensor, b: torch.Tensor, k: int,
     idx = torch.empty((n, nblk, k), dtype=torch.int32, device=a.device)
     sq = torch.empty((n, nblk), dtype=dt, device=a.device)
     fn = getattr(_cuda.library("block_topk"), f"diff_topk_payload_{_SUFFIX[dt]}")
-    with torch.cuda.device(a.device):
+    with _cuda.on(a.device):
         err = fn(a.data_ptr(), b.data_ptr(), 0 if shared else m * nn,
                  vals.data_ptr(), idx.data_ptr(), sq.data_ptr(), n, m, nn,
                  block, k, _cuda.stream())
@@ -97,7 +97,7 @@ def block_topk_payload(x: torch.Tensor, k: int, block: int = 128,
         idx = torch.empty((n, nblk, k), dtype=torch.int32, device=x.device)
         fn = getattr(_cuda.library("block_topk"),
                      f"block_topk_payload_{_SUFFIX[x.dtype]}")
-        with torch.cuda.device(x.device):
+        with _cuda.on(x.device):
             err = fn(x3.data_ptr(), vals.data_ptr(), idx.data_ptr(), n, m, nn,
                      block, k, int(bool(bisect_all)), _cuda.stream())
         _cuda.check(err, "block_topk_payload")
@@ -119,7 +119,7 @@ def block_topk(x: torch.Tensor, k: int, block: int = 128) -> torch.Tensor:
         n, m, nn = x3.shape
         out = torch.empty_like(x3)
         fn = getattr(_cuda.library("block_topk"), f"block_topk_{_SUFFIX[x.dtype]}")
-        with torch.cuda.device(x.device):
+        with _cuda.on(x.device):
             err = fn(x3.data_ptr(), out.data_ptr(), n, m, nn, block,
                      min(int(k), block * block), _cuda.stream())
         _cuda.check(err, "block_topk")

@@ -1,9 +1,14 @@
 """Causal flash attention (forward), ``flash_attention``.
 
-On CUDA tensors it launches the kernel in ``csrc/flash_attention.cu``; on
-CPU tensors it runs the plain version in ``ref.py``. There is no other
-path: a CUDA tensor the kernel cannot take raises. There is no backward
-(the reference has none either), so an input that requires grad raises.
+On CUDA tensors it launches a kernel chosen by the inputs' type, never by
+what is available: bf16 takes the tensor-core kernel in
+``csrc/flash_attention_wgmma.cu`` (wgmma fed by TMA; P rounded to bf16
+before P V, as on every tensor-core flash attention), f32 the FFMA kernel
+in ``csrc/flash_attention.cu`` (f32 products and sums, no TF32). On CPU
+tensors it runs the plain version in ``ref.py``. There is no other path:
+a CUDA tensor the chosen kernel cannot take raises, and so does a failed
+build or launch. There is no backward (the reference has none either), so
+an input that requires grad raises.
 """
 
 from __future__ import annotations
@@ -13,9 +18,15 @@ import torch
 from .. import _cuda
 from .ref import gqa_flash_attention_ref
 
-_TYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# the kernel route of each input type: (route, library, entry point)
+_BY_DTYPE = {
+    torch.bfloat16: ("wgmma", "flash_attention_wgmma", "flash_attention_bf16"),
+    torch.float32: ("ffma", "flash_attention", "flash_attention_f32")}
 TILES = (64, 128)
 HEAD_DIMS = (64, 128)
+# TMA reads the bf16 inputs: their address and strides must be multiples
+# of 16 bytes
+TMA_ALIGN_BYTES = 16
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -32,13 +43,40 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                            "tensors that do not require grad")
 
 
+def route(dtype: torch.dtype) -> str:
+    """The kernel route that serves ``dtype`` on a card: "wgmma" for bf16,
+    "ffma" for f32; any other type raises."""
+    if dtype not in _BY_DTYPE:
+        raise TypeError(f"flash_attention takes bf16 or f32 q, k, v, got "
+                        f"{dtype}")
+    return _BY_DTYPE[dtype][0]
+
+
+def tma_strides(shape, strides, data_ptr: int) -> tuple[int, int, int]:
+    """The batch, sequence and head strides (elements) under which TMA
+    reads a bf16 (B, T, N, hd) input: a dimension of size 1 takes its
+    contiguous stride (its own is never used). Raises unless the address
+    and every such stride are multiples of 16 bytes."""
+    dense = (shape[1] * shape[2] * shape[3], shape[2] * shape[3], shape[3])
+    out = tuple(dense[i] if shape[i] == 1 else strides[i] for i in range(3))
+    if data_ptr % TMA_ALIGN_BYTES or any(
+            (2 * s) % TMA_ALIGN_BYTES for s in out):
+        raise ValueError(
+            f"flash_attention: bf16 inputs are read by TMA, which needs "
+            f"16-byte multiples: address {data_ptr:#x}, strides "
+            f"{tuple(strides[:3])} (elements); pass a contiguous tensor")
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bq: int = 128, bk: int = 128) -> torch.Tensor:
     """Causal attention over q (B, T, H, hd) and k, v (B, T, KV, hd),
     where head h reads KV head h // (H / KV). Scores, softmax statistics
     and sums in f32; the result (B, T, H, hd) in q's type. ``bq`` and
     ``bk`` are the kernel's query and key tiles (64 or 128 each); any T
-    is taken, the ragged last tile masked."""
+    is taken, the ragged last tile masked. On a card, bf16 runs on the
+    tensor cores with P rounded to bf16 before P V, f32 on the CUDA
+    cores (``route``)."""
     _check(q, k, v)
     if bq not in TILES or bk not in TILES:
         raise ValueError(f"flash_attention: tiles bq={bq}, bk={bk} must be "
@@ -49,22 +87,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash_attention: q, k and v must lie on one CUDA "
                          f"device, got {sorted(map(str, devices))}")
-    if q.dtype not in _TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes bf16 or f32 q, k, v of one "
                         f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    kind = route(q.dtype)
     b, t, h, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
     q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
+    if kind == "wgmma":
+        strides = [tma_strides(x.shape, x.stride(), x.data_ptr())
+                   for x in (q, k, v)]
+    else:
+        strides = [x.stride()[:3] for x in (q, k, v)]
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    fn = getattr(_cuda.library("flash_attention"),
-                 f"flash_attention_{_TYPES[q.dtype]}")
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
-                 v.data_ptr(), *v.stride()[:3], out.data_ptr(), b, t, h,
+    _, lib, entry = _BY_DTYPE[q.dtype]
+    fn = getattr(_cuda.library(lib), entry)
+    with _cuda.on(q.device):
+        err = fn(q.data_ptr(), *strides[0], k.data_ptr(), *strides[1],
+                 v.data_ptr(), *strides[2], out.data_ptr(), b, t, h,
                  k.shape[2], hd, bq, bk, _cuda.stream())
-    _cuda.check(err, "flash_attention")
-    _cuda.LAUNCHES["flash_attention"] += 1
+    _cuda.check(err, f"flash_attention ({kind})")
+    _cuda.count("flash_attention", kind)
     return out

@@ -36,3 +36,44 @@ def gqa_flash_attention_ref(q: torch.Tensor, k: torch.Tensor,
     v = v.repeat_interleave(n_rep, dim=2)
     out = flash_attention_ref(fold(q), fold(k), fold(v))
     return out.reshape(b, h, t, hd).transpose(1, 2)
+
+
+# The bf16 kernel rounds P to bf16 before P V (as every tensor-core flash
+# attention does) and sums in another order than the plain version, so an
+# output near 0 can differ from the plain version's by more than one bf16
+# step of itself. It is held instead, head by head, to the plain version
+# computed in f32 on the same bf16 inputs and not rounded (the oracle):
+# its largest error within BF16_MAX_ERR of the head's largest |oracle|
+# (two bf16 steps at the top of the range), its mean error within
+# BF16_MEAN_VS_LIBRARY times that of a library kernel on the same inputs,
+# and each row's largest error within BF16_ROW_ERR of that row's largest
+# |oracle| (four bf16 steps; a row's scale is taken as at least
+# BF16_ROW_FLOOR of the head's), so that one wrong row, whose outputs may
+# be far below the head's largest, fails as well.
+BF16_MAX_ERR = 2 * 2.0 ** -8
+BF16_MEAN_VS_LIBRARY = 1.5
+BF16_ROW_ERR = 4 * 2.0 ** -8
+BF16_ROW_FLOOR = 2.0 ** -8
+
+
+def bf16_attention_check(got: torch.Tensor, oracle: torch.Tensor,
+                         library: torch.Tensor) -> dict:
+    """One head's bf16 output ``got`` (T, hd) against the f32 ``oracle``,
+    beside a library kernel's output ``library`` (all of one shape).
+    Returns the errors, their limits and ``ok``; ``row_err`` is the worst
+    row's largest error over its scale."""
+    got, oracle, library = (x.float() for x in (got, oracle, library))
+    head = float(oracle.abs().max())
+    max_limit = BF16_MAX_ERR * head
+    err = (got - oracle).abs()
+    row_scale = oracle.abs().amax(-1).clamp(min=BF16_ROW_FLOOR * head)
+    row_err = float((err.amax(-1) / row_scale).max()) if head > 0 else 0.0
+    library_mean = float((library - oracle).abs().mean())
+    out = {"max_err": float(err.max()), "max_limit": max_limit,
+           "mean_err": float(err.mean()), "library_mean_err": library_mean,
+           "mean_limit": BF16_MEAN_VS_LIBRARY * library_mean,
+           "row_err": row_err, "row_limit": BF16_ROW_ERR}
+    out["ok"] = (out["max_err"] <= max_limit
+                 and out["mean_err"] <= out["mean_limit"]
+                 and row_err <= BF16_ROW_ERR)
+    return out

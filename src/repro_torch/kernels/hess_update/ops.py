@@ -47,7 +47,7 @@ def hess_update(h: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
     err = torch.empty((nmat, -(-m // block) * -(-n // block)),
                       dtype=torch.float32, device=h.device)
     fn = getattr(_cuda.library("hess_update"), f"hess_update_{_SUFFIX[h.dtype]}")
-    with torch.cuda.device(h.device):
+    with _cuda.on(h.device):
         code = fn(h.data_ptr(), d.data_ptr(), s.data_ptr(), float(alpha),
                   out.data_ptr(), err.data_ptr(), nmat, m, n, block,
                   _cuda.stream())

@@ -58,7 +58,7 @@ def scatter_accumulate(values: torch.Tensor, indices: torch.Tensor, shape,
     out = torch.empty((d0, d1), dtype=values.dtype, device=values.device)
     fn = getattr(_cuda.library("scatter_accum"),
                  f"scatter_accumulate_{_SUFFIX[values.dtype]}")
-    with torch.cuda.device(values.device):
+    with _cuda.on(values.device):
         err = fn(values.data_ptr(), indices.data_ptr(),
                  None if init is None else init.data_ptr(), out.data_ptr(),
                  n, k, d0, d1, int(bool(symmetric)), _cuda.stream())
@@ -83,7 +83,7 @@ def block_scatter_accumulate(values: torch.Tensor, indices: torch.Tensor,
                       device=values.device)
     fn = getattr(_cuda.library("scatter_accum"),
                  f"block_scatter_accumulate_{_SUFFIX[values.dtype]}")
-    with torch.cuda.device(values.device):
+    with _cuda.on(values.device):
         err = fn(values.data_ptr(), indices.data_ptr(), out.data_ptr(), n,
                  nblk, k, block, gn, _cuda.stream())
     _cuda.check(err, "block_scatter_accumulate")

@@ -7,17 +7,22 @@ This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed.
 """
 
+import dataclasses
+
 import pytest
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels import LAUNCHES, reset_launches
+from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
 from repro_torch.kernels.block_topk import (
     block_topk,
     block_topk_payload,
     diff_topk_payload,
 )
 from repro_torch.kernels.flash_attention import (
+    bf16_attention_check,
     flash_attention,
+    flash_attention_ref,
     gqa_flash_attention_ref,
 )
 from repro_torch.kernels.hess_update import hess_update, hess_update_ref
@@ -28,6 +33,7 @@ from repro_torch.kernels.scatter_accum import (
     scatter_accumulate_ref,
 )
 from repro_torch.kernels.tiled_matmul import (
+    plan,
     subspace_iteration,
     subspace_iteration_ref,
     tiled_matmul,
@@ -178,6 +184,34 @@ def test_tiled_matmul_kernel_matches_plain(cuda):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("name,route", [
+    ("a", "small_n"), ("b", "small_n"), ("c", "small_k"), ("a1", "small_n"),
+    ("b1", "small_n"), ("odd_rows", "tiled"), ("odd_cols", "tiled"),
+    ("odd_k", "tiled"), ("square", "tiled")])
+def test_tiled_matmul_routes_match_plain(cuda, name, route):
+    """The power iteration's products on qwen2's wg[0] (896 x 4864, f32),
+    and skinny shapes that allow no 16-byte access (so they are tiled),
+    each to 1e-5 of the largest entry, counted under its route."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(14)
+    m = torch.randn((896, 4864), generator=gen).to(cuda)
+    q = torch.linalg.qr(torch.randn((4864, 2), generator=gen))[0].to(cuda)
+    p = torch.linalg.qr(torch.randn((896, 2), generator=gen))[0].to(cuda)
+    a, b = {"a": (m, q), "b": (m.T, p), "c": (p, q.T),
+            "a1": (m, q[:, :1]), "b1": (m.T, p[:, :1]),
+            "odd_rows": (m[:299, :301], m[:301, :3]),
+            "odd_cols": (m[:301, :299].T, m[:301, :5]),
+            "odd_k": (m[:299, :3], m[:3, :301]),
+            "square": (m.T, m[:, :896])}[name]
+    assert plan(a.shape[0], b.shape[1], a.shape[1], a.stride(),
+                a.data_ptr() % 16 == 0).route == route
+    reset_launches()
+    got = tiled_matmul(a, b)
+    want = tiled_matmul_ref(a, b)
+    assert ROUTES["tiled_matmul"][route] == 1 == LAUNCHES["tiled_matmul"]
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 def _attention_inputs(b, t, h, kv, hd, seed):
     gen = torch.Generator().manual_seed(seed)
     return (torch.randn((b, t, h, hd), generator=gen),
@@ -195,17 +229,89 @@ def _attention_inputs(b, t, h, kv, hd, seed):
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, shape, tiles, dtype):
-    """f32 to 1e-5 (both sum in f32, in other orders); bf16 within one
-    bf16 rounding step of the value (both round one f32 result), plus
-    1e-6 absolute for outputs near 0."""
+    """f32 (the FFMA kernel) to 1e-5 of the plain version (both sum in
+    f32, in other orders); bf16 (the wgmma kernel, P rounded to bf16) to
+    the f32 oracle head by head, within ``bf16_attention_check``'s
+    limits beside SDPA."""
     q, k, v = (x.to(cuda, dtype) for x in _attention_inputs(*shape, seed=9))
-    got = flash_attention(q, k, v, *tiles).float().cpu()
-    want = gqa_flash_attention_ref(q, k, v).float().cpu()
-    gap = (got - want).abs()
+    got = flash_attention(q, k, v, *tiles)
     if dtype == torch.float32:
-        assert float(gap.max()) <= 1e-5
+        want = gqa_flash_attention_ref(q, k, v)
+        assert float((got - want).abs().max()) <= 1e-5
     else:
-        assert bool((gap <= 2.0 ** -7 * want.abs() + 1e-6).all())
+        _assert_bf16_close(got, q, k, v)
+
+
+def _sdpa_head(q, k, v):
+    return F.scaled_dot_product_attention(q[None, None], k[None, None],
+                                          v[None, None], is_causal=True)[0, 0]
+
+
+def _assert_bf16_close(got, q, k, v):
+    n_rep = q.shape[2] // k.shape[2]
+    for b in range(q.shape[0]):
+        for h in range(q.shape[2]):
+            qh, kh, vh = q[b, :, h], k[b, :, h // n_rep], v[b, :, h // n_rep]
+            oracle = flash_attention_ref(qh[None].float(), kh[None].float(),
+                                         vh[None].float())[0]
+            r = bf16_attention_check(got[b, :, h], oracle,
+                                     _sdpa_head(qh, kh, vh))
+            assert r["ok"], (b, h, r)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 200, 6, 1, 64),       # ragged T, 6 heads on one KV head
+    (1, 4000, 14, 2, 64),     # ragged T, qwen2's GQA
+    (2, 300, 4, 2, 128),      # hd 128: two 64-column boxes a row
+    (1, 200, 6, 1, 128),
+])
+@pytest.mark.parametrize("tiles", [(128, 128), (128, 64), (64, 128),
+                                   (64, 64)])
+def test_flash_attention_bf16_wgmma_matches_oracle(cuda, shape, tiles):
+    """Every served (hd, bq, bk) on the tensor-core route, counted as such."""
+    q, k, v = (x.to(cuda, torch.bfloat16)
+               for x in _attention_inputs(*shape, seed=12))
+    reset_launches()
+    got = flash_attention(q, k, v, *tiles)
+    assert ROUTES["flash_attention"] == {"wgmma": 1, "ffma": 0}
+    _assert_bf16_close(got, q, k, v)
+
+
+def test_flash_attention_bf16_reads_strided_inputs(cuda):
+    """bf16 q, k, v as (B, T, H, hd) views of (B, H, T, hd) storage: TMA
+    reads them in place, equal to the contiguous call bit for bit."""
+    q, k, v = (x.to(cuda, torch.bfloat16)
+               for x in _attention_inputs(2, 700, 4, 2, 128, seed=13))
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    assert not views[0].is_contiguous()
+    assert torch.equal(flash_attention(*views), flash_attention(q, k, v))
+
+
+def test_prefill_launches_the_wgmma_kernel(cuda):
+    """A bf16 forward past the K9 branch (T > 512) runs the wgmma symbol
+    once per layer and the FFMA symbol never, by the counters and by the
+    profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True),
+                              dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (1, 640), device=cuda)
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits = make_prefill(model)(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits.float()).all())
+    assert ROUTES["flash_attention"] == {"wgmma": cfg.n_layers, "ffma": 0}
+    names = [e.key for e in prof.key_averages()]
+    assert sum(e.count for e in prof.key_averages()
+               if "flash_attention_kernel_wgmma" in e.key) == cfg.n_layers
+    assert not any("flash_attention_kernel<" in n for n in names)
 
 
 def test_flash_attention_kernel_reads_strided_inputs(cuda):
