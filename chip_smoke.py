@@ -10,6 +10,10 @@ Phases, each failing the run with a non-zero exit:
   3. hold K1 (diff_topk_payload), K2/K3 (scatter_accumulate) and K4
      (block_scatter_accumulate) to their plain PyTorch versions on the
      card, in f64 and f32, at the shapes FedNL's path gives them on w8a;
+     then K1, K5, K6 and K4 bit for bit on adversarial inputs
+     (``kernels.adversarial``: zero tiles, ties, -0.0, inf, ragged edges,
+     k >= block^2, ``bisect_all``; repeated cells within and across
+     silos, padding, out-of-range indices, blocks 8, 128 and 256);
   4. drive FedNL Options 1 and 2 on the w8a stand-in (n=142, m=350,
      d=300, f64) for Top-K (k=d), symmetric Top-K (k=d), Rank-R (1) and
      Block-Top-K (8), 20 rounds each, through ``FedNL.run``; assert the
@@ -26,7 +30,9 @@ Phases, each failing the run with a non-zero exit:
      the optimizer's calls and K5 in the codec's; H, l and the updates
      must be finite; the card must equal the CPU port on the small
      tensors; K1, K4 and the codec's K5 payloads are then held to their
-     plain versions on every tensor's inputs;
+     plain versions on every tensor's inputs; a refresh is profiled (K1's
+     and K4's device ms beside their bounds), and K1 and K4 are timed
+     over a whole refresh beside ``torch.topk`` and ``index_put_``;
   6. PowerSGD and dense block top-k: ``powersgd_rank_r`` (K8, r = 1, 2)
      and ``block_topk`` (K6) on a w8a Hessian (300 x 300 f64) and on
      ``layers.ffn.wg[0]`` (896 x 4864), against their plain versions; K8's
@@ -50,7 +56,12 @@ Phases, each failing the run with a non-zero exit:
      at B=2, T=640 (the K9 branch) within a stated bf16 tolerance;
      ``generate`` for batch 4, prompt 64, 32 greedy tokens, held to the
      forward's argmax, and timed by the serving CLI in its own process;
-  10. print the kernel line, the card line, and last the device line.
+  10. the loss's gradient above 512 tokens (the forward's
+     ``_sdpa_chunked`` branch under autograd): reduced qwen2 in f32 at
+     B=2, T=600, card against the CPU port on the same weights (1e-4 of
+     each leaf's largest |grad|), no K9 launch; the full qwen2-0.5B in
+     bf16 at B=1, T=4,096: ms, peak memory, finite nonzero gradients;
+  11. print the kernel line, the card line, and last the device line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -323,13 +334,102 @@ def check_fednl_kernels(dev, err: dict) -> None:
         bi = bi.to(torch.int32).contiguous()
         bv = torch.randn((142, 9, 8), generator=gen, device=dev, dtype=dtype)
         got = block_scatter_accumulate(bv, bi, (3, 3), 128)
-        want = block_scatter_accumulate_ref(bv, bi, (3, 3), 128)
-        e = float(torch.max(torch.abs(got - want)))
-        require(e <= tol * 10, f"block_scatter_accumulate off by {e:.2e} ({dtype})")
+        want = block_scatter_accumulate_ref(bv.cpu(), bi.cpu(), (3, 3), 128)
+        e = float(torch.max(torch.abs(got.cpu() - want)))
+        require(torch.equal(got.cpu(), want),
+                f"block_scatter_accumulate off by {e:.2e} ({dtype})")
         if dtype == torch.float64:
             err["block_scatter_accumulate"] = max(
                 err["block_scatter_accumulate"], e)
+    check_adversarial(dev)
     torch.cuda.synchronize()
+
+
+# K1, K5, K6 on (block, k, rows, cols): the path's block and k on a ragged
+# grid; k = 8000, where v falls in a digit crowded by ties or zeros (the
+# select's path over every entry); k >= block^2; block 8 on rows of 301
+# (no 16-byte loads); block 12
+ADVERSARIAL_TOPK = [(128, 2048, 300, 260), (128, 8000, 300, 260),
+                    (128, 16384, 200, 132), (8, 5, 37, 301), (12, 50, 61, 48)]
+# K4 on (block, silos, k, grid): the path's shapes, one silo, block 8, a
+# block whose tile exceeds shared memory (row bands; k above one chunk of
+# slots), k not a multiple of 4
+ADVERSARIAL_SUM = [(128, 4, 2048, (3, 2)), (128, 1, 2048, (2, 3)),
+                   (8, 4, 20, (5, 3)), (256, 4, 3000, (2, 1)),
+                   (128, 4, 37, (1, 2))]
+
+
+def check_adversarial(dev) -> None:
+    """K1 (shared and stacked b), K5 (with and without ``bisect_all``),
+    K6 and K4 against their plain versions on the CPU, bit for bit, on
+    the inputs of ``kernels.adversarial`` in f32 and f64: tiles of zeros,
+    heavy ties, -0.0, inf and ragged edges, k >= block^2; pairs with
+    cells repeated within and across silos, -1 padding, out-of-range
+    indices, ragged grids, blocks 8, 128 and 256 (row bands). The norms
+    ||D||^2 to 1e-5 (f32) or 1e-12 (f64) relative."""
+    import torch
+    from repro_torch.kernels.adversarial import (
+        SUM_CASES,
+        TOPK_CASES,
+        block_sparse_pairs,
+        topk_inputs,
+    )
+    from repro_torch.kernels.block_topk import (
+        block_topk,
+        block_topk_payload,
+        diff_topk_payload,
+    )
+    from repro_torch.kernels.scatter_accum import (
+        block_scatter_accumulate,
+        block_scatter_accumulate_ref,
+    )
+
+    checked = 0
+    for dtype in (torch.float32, torch.float64):
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        for case in TOPK_CASES:
+            for block, k, m, cols in ADVERSARIAL_TOPK:
+                what = f"{case}, {dtype}, block {block}, k {k}"
+                a, b = topk_inputs(case, 4, m, cols, dtype, seed=21)
+                want = diff_topk_payload(a, b, k=k, block=block)
+                for bb in (b.to(dev), b.expand_as(a).contiguous().to(dev)):
+                    got = diff_topk_payload(a.to(dev), bb, k=k, block=block)
+                    require(torch.equal(got[0].cpu(), want[0])
+                            and torch.equal(got[1].cpu(), want[1]),
+                            f"diff_topk_payload differs ({what})")
+                    require(torch.equal(torch.isinf(got[2].cpu()),
+                                        torch.isinf(want[2])),
+                            f"diff_topk_payload ||D||^2 differs ({what})")
+                    fin = torch.isfinite(want[2])
+                    rel = torch.abs(got[2].cpu()[fin] - want[2][fin]) / want[2][fin]
+                    require(bool((rel <= tol).all()),
+                            f"diff_topk_payload ||D||^2 off ({what})")
+                d = a - b
+                for bisect_all in (False, True):
+                    got = block_topk_payload(d.to(dev), k, block,
+                                             bisect_all=bisect_all)
+                    want = block_topk_payload(d, k, block, bisect_all=bisect_all)
+                    require(torch.equal(got[0].cpu(), want[0])
+                            and torch.equal(got[1].cpu(), want[1]),
+                            f"block_topk_payload differs ({what}, bisect_all "
+                            f"{bisect_all})")
+                require(torch.equal(block_topk(d.to(dev), k, block).cpu(),
+                                    block_topk(d, k, block)),
+                        f"block_topk differs ({what})")
+                checked += 1
+        for case in SUM_CASES:
+            for block, n, k, grid in ADVERSARIAL_SUM:
+                vals, idx = block_sparse_pairs(case, n, grid[0] * grid[1], k,
+                                               block, dtype, seed=22)
+                got = block_scatter_accumulate(vals.to(dev), idx.to(dev), grid,
+                                               block)
+                require(torch.equal(got.cpu(), block_scatter_accumulate_ref(
+                    vals, idx, grid, block)),
+                    f"block_scatter_accumulate differs ({case}, {dtype}, "
+                    f"block {block}, n {n}, k {k})")
+                checked += 1
+    print(f"# K1, K5, K6 and K4 match their plain versions bit for bit on "
+          f"{checked} adversarial inputs", flush=True)
 
 
 # -- phase 4: FedNL Algorithm 1 on w8a ------------------------------------------
@@ -586,31 +686,109 @@ def precond_qwen2(dev, seed: int, K, err: dict) -> dict:
           f"tensors (payloads and sums bitwise; ||D||^2 rel "
           f"{rel_sq:.2e})", flush=True)
 
-    # where a refresh's device time goes (same inputs again), beside the
-    # least time of its two kernels: K1 reads every silo's observation
-    # and H once and writes the payloads and partials; K4 reads the
-    # payloads and writes the tiled dense sum
-    prof = profile_window(lambda: opt.refresh(before, obs))
+    # where a refresh's device time goes (same inputs again), and K1's
+    # and K4's device ms in it beside the least time of each: K1 reads
+    # every silo's observation and H once and writes the payloads and
+    # partials; K4 reads the payloads and writes the tiled dense sum
+    wall, rows = profile_rows(lambda: opt.refresh(before, obs))
+    busy = sum(ms for _, ms, _ in rows)
+    prof = {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall),
+            "top_device_ms": [[name[:60], ms] for name, ms, _ in rows[:6]]}
+    kernel_ms = {name: sum(ms for row, ms, _ in rows if symbol in row)
+                 for name, symbol in REFRESH_KERNELS.items()}
     n_tiles = sum(-(-_shape2d(h.shape)[0] // BLOCK)
                   * -(-_shape2d(h.shape)[1] // BLOCK)
                   for h in tree_leaves(state.h))
     pairs = SILOS * n_tiles * K_PER_BLOCK
+    entries = SILOS * n_tiles * BLOCK * BLOCK
     refresh_bound = {
         "diff_topk_payload": bound(
             (SILOS + 1) * n_params * 4 + pairs * 8 + SILOS * n_tiles * 4,
-            {"f32": 32 * SILOS * n_tiles * BLOCK * BLOCK}),
+            {"f32": K1_OPS_PER_ENTRY * entries}),
         "block_scatter_accumulate": bound(
             pairs * 8 + n_tiles * BLOCK * BLOCK * 4, {"f32": pairs})}
     timings = {"update_ms": update_ms, "refresh_ms": refresh_ms,
                "precondition_ms": precond_ms, "peak_memory_gb": peak_gb,
-               "tiles_per_silo": n_tiles, "refresh_bound_ms": refresh_bound,
-               "refresh_profile": prof}
+               "tiles_per_silo": n_tiles,
+               "refresh_kernel_device_ms": kernel_ms,
+               "refresh_bound_ms": refresh_bound, "refresh_profile": prof}
     print(json.dumps({"fednl_precond_qwen2": timings}), flush=True)
+    refresh_rows = refresh_kernel_rows(obs, before.h, refresh_bound)
     embed = {"obs": obs["embed"], "h": before.h["embed"],
              "h_new": state.h["embed"]}
     wg0 = params["layers"][0]["ffn"]["wg"][0].float()
     return dict(launches=launches, uplink_launches=uplink_launches,
-                timings=timings, embed=embed, wg0=wg0)
+                timings=timings, embed=embed, wg0=wg0, refresh=refresh_rows)
+
+
+# the kernels of a refresh, by the symbol the profiler shows
+REFRESH_KERNELS = {"diff_topk_payload": "diff_topk_payload_kernel",
+                   "block_scatter_accumulate": "block_scatter_kernel"}
+# f32 operations per tile entry in K1: a - b, the square-add of ||D||^2,
+# the max, the pass-1 key and the two bracket compares
+K1_OPS_PER_ENTRY = 6
+
+
+def refresh_kernel_rows(obs, h, refresh_bound) -> dict:
+    """K1 and K4 over a whole refresh (all 14 tensors, 4 silos, shared H):
+    CUDA-event ms of the 14 wrapper calls and device ms of their kernels,
+    beside the nearest PyTorch calls on the same inputs (``torch.topk``
+    per tile on a precomputed |D|; ``index_put_(accumulate=True)`` into a
+    tile-major buffer), for the kernel line's refresh rows."""
+    import torch
+    from repro_torch.kernels.block_topk import diff_topk_payload, to_tiles
+    from repro_torch.kernels.scatter_accum import block_scatter_accumulate
+    from repro_torch.second_order.fednl_precond import _shape2d
+    from repro_torch.tree import tree_leaves
+
+    inputs = []
+    for o, hh in zip(tree_leaves(obs), tree_leaves(h)):
+        shape2 = _shape2d(hh.shape)
+        inputs.append((o.reshape((SILOS,) + shape2), hh.reshape(shape2),
+                       tuple(-(-x // BLOCK) for x in shape2)))
+
+    def k1():
+        return [diff_topk_payload(o2, h2, K_PER_BLOCK, BLOCK)[:2]
+                for o2, h2, _ in inputs]
+
+    payloads = k1()
+
+    def k4():
+        return [block_scatter_accumulate(v, i, grid, BLOCK)
+                for (v, i), (_, _, grid) in zip(payloads, inputs)]
+
+    rows = {}
+    for name, fn in (("diff_topk_payload", k1), ("block_scatter_accumulate", k4)):
+        _, prof = profile_rows(fn)
+        rows[name] = {
+            "ms": time_cuda(fn, reps=3, warmup=1),
+            "device_ms": sum(ms for row, ms, _ in prof
+                             if REFRESH_KERNELS[name] in row),
+            "bound_ms": refresh_bound[name][0],
+            "bound_by": refresh_bound[name][1]}
+    mags = [torch.abs(to_tiles(o2 - h2, BLOCK)) for o2, h2, _ in inputs]
+    rows["diff_topk_payload"]["library_ms"] = time_cuda(
+        lambda: [torch.topk(m, K_PER_BLOCK, dim=-1) for m in mags],
+        reps=2, warmup=1)
+    rows["diff_topk_payload"]["library_call"] = (
+        "torch.topk(|D| per tile, 2048), |D| tiled beforehand")
+    del mags
+    flat = []
+    for (v, i), (o2, _, _) in zip(payloads, inputs):
+        nblk = i.shape[1]
+        tile_of = torch.arange(nblk, device=i.device)[None, :, None] * BLOCK ** 2
+        flat.append((torch.zeros(nblk * BLOCK ** 2, device=v.device),
+                     (i.to(torch.int64) + tile_of).reshape(-1), v.reshape(-1)))
+    rows["block_scatter_accumulate"]["library_ms"] = time_cuda(
+        lambda: [buf.index_put_((ix,), vv, accumulate=True)
+                 for buf, ix, vv in flat], reps=2, warmup=1)
+    rows["block_scatter_accumulate"]["library_call"] = (
+        "index_put_(accumulate=True) into (tiles, block^2), tile-major layout")
+    del flat, payloads
+    torch.cuda.empty_cache()
+    print(json.dumps({"refresh_kernels": rows}), flush=True)
+    return rows
 
 
 # -- phase 6: PowerSGD (K8) and dense block top-k (K6) ---------------------------
@@ -782,10 +960,12 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
     kernels = []
 
     # K1: read a and b once; write k (value, index) pairs and one partial
-    # per tile; 32 f32 bisection compares per padded tile entry
+    # per tile; a - b, the square-add and the f32 magnitude per entry, then
+    # the key and the two bracket compares per padded tile entry
     total, by = launches("diff_topk_payload")
     b_ms, b_by = bound(2 * n * d * d * 8 + n * nblk * (8 * (8 + 4) + 8),
-                       {"f64": 3 * n * d * d, "f32": 32 * n * nblk * 128 * 128})
+                       {"f64": 3 * n * d * d,
+                        "f32": (K1_OPS_PER_ENTRY - 3) * n * nblk * 128 * 128})
     mags = torch.abs(h_new - h_old).reshape(n, 1, d * d)
     kernels.append(dict(
         name="diff_topk_payload", route="cuda",
@@ -795,13 +975,17 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
         max_abs_err=err["diff_topk_payload"],
         ms=time_cuda(lambda: diff_topk_payload(h_new, h_old, k=8)),
         device_ms=device_ms(lambda: diff_topk_payload(h_new, h_old, k=8),
-                            "diff_topk_payload_kernel<double, false>"),
+                            "diff_topk_payload_kernel<double, false"),
         plain_ms=time_cuda(lambda: diff_topk_payload_ref(h_new, h_old, k=8),
                            reps=10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape="w8a: (142, 300, 300) f64, k=8, block=128",
         nearest_call="torch.topk(|D|, 8) per matrix, D formed beforehand",
-        nearest_call_ms=time_cuda(lambda: torch.topk(mags, 8, dim=-1))))
+        nearest_call_ms=time_cuda(lambda: torch.topk(mags, 8, dim=-1)),
+        refresh_shape="a fednl_precond refresh: 4 silos x all 14 qwen2-0.5b "
+                      "tensors, one shared H, f32, k=2048, block=128",
+        **{f"refresh_{key}": val for key, val in
+           inputs["refresh"]["diff_topk_payload"].items()}))
 
     # K2 (K3): pairs in, the dense sum out
     total, by = launches("scatter_accumulate")
@@ -818,7 +1002,7 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
         max_abs_err=err["scatter_accumulate"],
         ms=time_cuda(lambda: scatter_accumulate(tv, ti, (d, d))),
         device_ms=device_ms(lambda: scatter_accumulate(tv, ti, (d, d)),
-                            "accumulate_kernel<double, false>"),
+                            "accumulate_kernel<double>"),
         plain_ms=time_cuda(lambda: scatter_accumulate_ref(tv, ti, (d, d))),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_cuda(lambda: flat.index_put_((ti64,), tv.reshape(-1),
@@ -842,7 +1026,7 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
         ms=time_cuda(lambda: block_scatter_accumulate(bvals, bidx, grid, 128)),
         device_ms=device_ms(lambda: block_scatter_accumulate(bvals, bidx, grid,
                                                              128),
-                            "accumulate_kernel<double, true>"),
+                            "block_scatter_kernel<double"),
         plain_ms=time_cuda(lambda: block_scatter_accumulate_ref(bvals, bidx,
                                                                 grid, 128)),
         bound_ms=b_ms, bound_by=b_by,
@@ -850,7 +1034,11 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
                                                       accumulate=True)),
         shape="w8a Block-Top-K: (142, 9, 8) pairs f64",
         library_call="index_put_(accumulate=True) into (tiles, block^2), "
-                     "tile-major layout"))
+                     "tile-major layout",
+        refresh_shape="a fednl_precond refresh: K1's payloads of 4 silos x "
+                      "all 14 qwen2-0.5b tensors, f32, k=2048, block=128",
+        **{f"refresh_{key}": val for key, val in
+           inputs["refresh"]["block_scatter_accumulate"].items()}))
     del h_new, h_old, mags, flat, tiles
 
     # K5 on the optimizer's largest input: embed, 4 silos of f32
@@ -859,7 +1047,7 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
     total, by = launches("block_topk_payload")
     ntile = x.shape[0] * (-(-x.shape[1] // BLOCK)) * (-(-x.shape[2] // BLOCK))
     b_ms, b_by = bound(x.numel() * 4 + ntile * K_PER_BLOCK * 8,
-                       {"f32": 32 * ntile * BLOCK * BLOCK})
+                       {"f32": (K1_OPS_PER_ENTRY - 3) * ntile * BLOCK * BLOCK})
     mag = torch.abs(to_tiles(x, BLOCK))
     kernels.append(dict(
         name="block_topk_payload", route="cuda",
@@ -869,7 +1057,7 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
         max_abs_err=err["block_topk_payload"],
         ms=time_cuda(lambda: block_topk_payload(x, K_PER_BLOCK, BLOCK), reps=10),
         device_ms=device_ms(lambda: block_topk_payload(x, K_PER_BLOCK, BLOCK),
-                            "block_topk_payload_kernel<float>", reps=5),
+                            "block_topk_payload_kernel<float", reps=5),
         plain_ms=time_cuda(lambda: block_topk_payload_ref(x, K_PER_BLOCK,
                                                           BLOCK),
                            reps=2, warmup=1),
@@ -884,7 +1072,8 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
     wg0 = inputs["wg0"]
     total, by = launches("block_topk")
     ntile = (-(-wg0.shape[0] // BLOCK)) * (-(-wg0.shape[1] // BLOCK))
-    b_ms, b_by = bound(wg0.numel() * 8, {"f32": 32 * ntile * BLOCK * BLOCK})
+    b_ms, b_by = bound(wg0.numel() * 8,
+                       {"f32": (K1_OPS_PER_ENTRY - 3) * ntile * BLOCK * BLOCK})
     wt = to_tiles(wg0[None], BLOCK)[0]
     wmag = torch.abs(wt)
 
@@ -899,7 +1088,7 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
         launches=total, launches_by_path=by, max_abs_err=err["block_topk"],
         ms=time_cuda(lambda: block_topk(wg0, K_PER_BLOCK, BLOCK)),
         device_ms=device_ms(lambda: block_topk(wg0, K_PER_BLOCK, BLOCK),
-                            "block_topk_dense_kernel<float>"),
+                            "block_topk_dense_kernel<float"),
         plain_ms=time_cuda(lambda: block_topk_ref(wg0[None], K_PER_BLOCK,
                                                   BLOCK), reps=5),
         bound_ms=b_ms, bound_by=b_by,
@@ -1339,6 +1528,93 @@ def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
     return dict(paths=paths, kernel=entry)
 
 
+# -- phase 10: the loss's gradient above 512 tokens ------------------------------
+
+# the reduced model's check and the full model's backward at train_4k's
+# sequence (the batch cut to 1)
+GRAD_B, GRAD_T, TRAIN_T = 2, 600, 4096
+
+
+def grad_qwen2(dev, seed: int, K) -> dict:
+    """``loss_fn(...).backward()`` above 512 tokens, where the forward
+    takes ``_sdpa_chunked`` while autograd records: reduced qwen2 in f32
+    at B=2, T=600 on the card against the CPU port on the same weights
+    (each leaf within 1e-4 of its largest |grad|), with no K9 launch; then
+    the full qwen2-0.5B (24 layers, bf16) at B=1, T=4,096: host ms, peak
+    memory, and a finite, nonzero gradient on every leaf."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def leaves_of(params, device):
+        return tree_map(lambda a: a.detach().to(device).requires_grad_(True),
+                        params)
+
+    model = build_model(get_config("qwen2-0.5b", smoke=True))
+    cpu_params = model.init_params(torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 2)
+    tokens = torch.randint(0, model.cfg.vocab, (GRAD_B, GRAD_T), generator=gen)
+    batch = {"tokens": tokens, "targets": tokens.roll(-1, dims=1)}
+    grads = {}
+    for where in ("cpu", dev):
+        leaves = leaves_of(cpu_params, where)
+        K.reset_launches()
+        model.loss_fn(leaves, {key: t.to(where) for key, t in batch.items()}
+                      ).backward()
+        require(K.LAUNCHES["flash_attention"] == 0,
+                f"the forward under autograd launched K9 on {where}")
+        grads[str(where)] = [leaf.grad.cpu() for leaf in tree_leaves(leaves)]
+    worst = 0.0
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        scale = float(torch.max(torch.abs(want)))
+        gap = float(torch.max(torch.abs(got - want)))
+        require(scale > 0 and gap <= 1e-4 * scale,
+                f"card and CPU gradients differ by {gap:.3e} of max "
+                f"|grad| {scale:.3e} on a {tuple(want.shape)} leaf")
+        worst = max(worst, gap / scale)
+
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg)
+    params = leaves_of(model.init_params(
+        torch.Generator(device=dev).manual_seed(seed)), dev)
+    tokens = torch.randint(0, cfg.vocab, (1, TRAIN_T + 1),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed + 3), device=dev)
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+
+    def step():
+        for leaf in tree_leaves(params):
+            leaf.grad = None
+        loss = model.loss_fn(params, batch)
+        loss.backward()
+        return loss
+
+    first_ms, loss = host_ms(step)
+    ms = [host_ms(step)[0] for _ in range(2)]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(K.LAUNCHES["flash_attention"] == 0,
+            "the full model's forward under autograd launched K9")
+    require(bool(torch.isfinite(loss)), "non-finite loss at T=4096")
+    for leaf in tree_leaves(params):
+        require(leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
+                and bool((leaf.grad != 0).any()),
+                f"a {tuple(leaf.shape)} leaf has no finite, nonzero gradient")
+    rep = {"reduced_f32": {"shape": f"B={GRAD_B}, T={GRAD_T}, smoke config",
+                           "max_gap_over_leaf_max_grad": worst},
+           "full_bf16": {"shape": f"B=1, T={TRAIN_T}, {cfg.n_layers} layers, "
+                                  "bf16", "loss": float(loss.detach()),
+                         "first_ms": first_ms, "ms": ms,
+                         "peak_memory_gb": peak_gb}}
+    print(json.dumps({"grad_qwen2": rep}), flush=True)
+    del params, loss
+    torch.cuda.empty_cache()
+    return rep
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's C++ name with its template arguments, without its
     namespace and parameters (``c++filt``; the mangled name without it)."""
@@ -1435,7 +1711,8 @@ def main() -> int:
         round_ms, breakdown = fednl_round_times(prob, x0)
         print(json.dumps({"round_ms_median": round_ms, "card": card}), flush=True)
         print(json.dumps({"round_profile": breakdown}), flush=True)
-        inputs = dict(embed=pre["embed"], wg0=pre["wg0"], hess_update=hu)
+        inputs = dict(embed=pre["embed"], wg0=pre["wg0"], hess_update=hu,
+                      refresh=pre["refresh"])
         kernels = kernel_line(dev, prob, x0, paths, inputs, err)
         del pre, hu, inputs
 
@@ -1446,10 +1723,16 @@ def main() -> int:
         kernels.append(sv["kernel"])
         print(f"# qwen2-0.5B serving phase in {time.perf_counter() - t0:.1f} s; "
               f"launches {json.dumps(sv['paths'])}", flush=True)
+
+        # -- 10. the loss's gradient above 512 tokens -------------------------
+        t0 = time.perf_counter()
+        grad_qwen2(dev, args.seed, K)
+        print(f"# gradient phase in {time.perf_counter() - t0:.1f} s",
+              flush=True)
     except SmokeFailure as exc:
         return fail(str(exc))
 
-    # -- 10. result lines ----------------------------------------------------
+    # -- 11. result lines ----------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

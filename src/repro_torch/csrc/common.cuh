@@ -13,6 +13,13 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// Max over the warp of floats (fmaxf: a NaN never wins), to every lane.
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // Sum over the block, returned to every thread. `buf` holds 32 T.
 template <typename T>
 __device__ T block_sum(T v, T* buf) {
@@ -30,26 +37,6 @@ __device__ T block_sum(T v, T* buf) {
   T total = buf[0];
   __syncthreads();  // buf may be reused right away
   return total;
-}
-
-// Max over the block of non-negative floats, returned to every thread.
-__device__ inline float block_max(float v, float* buf) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, o));
-  if (lane == 0) buf[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    float w = lane < nw ? buf[lane] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1)
-      w = fmaxf(w, __shfl_down_sync(0xffffffffu, w, o));
-    if (lane == 0) buf[0] = w;
-  }
-  __syncthreads();
-  float m = buf[0];
-  __syncthreads();
-  return m;
 }
 
 // Exclusive prefix sum over threads in thread order; *total gets the

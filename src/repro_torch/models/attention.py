@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from .common import apply_rope, causal_mask, decode_mask, dense_init
@@ -65,13 +66,38 @@ def _sdpa(q, k, v, mask, n_rep: int):
     return out.reshape(b, t, h, hd)
 
 
-# Sequences longer than 2 * SDPA_CHUNK take the reference's long-sequence
-# branch; there the port runs the flash-attention kernel (K9), the
-# counterpart the JAX package names for its chunked XLA attention.
+# Query-chunk size of the long-sequence branch (T > 2 * SDPA_CHUNK), as
+# in the reference.
 SDPA_CHUNK = 256
 
 
+def _sdpa_chunked(q, k, v, n_rep: int, chunk: int = SDPA_CHUNK):
+    """Causal attention over query chunks, the reference's differentiable
+    long-sequence attention. q: (B,T,H,hd) with query i at absolute
+    position i; k/v: (B,T,KV,hd). T is padded up to a multiple of
+    ``chunk``; each chunk attends to every key j <= its query's position
+    and is recomputed in the backward (``checkpoint``, the counterpart of
+    ``jax.checkpoint``), so the per-chunk softmax weights are not kept."""
+    b, t, h, hd = q.shape
+    pad = (-t) % chunk
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+    j = torch.arange(t, device=q.device)
+
+    def one_chunk(qi, start: int):
+        qpos = start + torch.arange(chunk, device=q.device)
+        return _sdpa(qi, k, v, j[None, :] <= qpos[:, None], n_rep)
+
+    out = [checkpoint(one_chunk, qi, start, use_reentrant=False)
+           for qi, start in zip(q.split(chunk, dim=1),
+                                range(0, q.shape[1], chunk))]
+    return torch.cat(out, dim=1)[:, :t]
+
+
 def gqa_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions=None):
+    """Above 2 * SDPA_CHUNK tokens the reference runs ``_sdpa_chunked``;
+    so does the port while autograd records (K9 has no backward), and
+    every other call runs the flash-attention kernel (K9)."""
     require_ported(cfg)
     b, t, _ = x.shape
     if positions is None:
@@ -80,11 +106,14 @@ def gqa_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions=None):
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if t > 2 * SDPA_CHUNK:
-        out = flash_attention(q, k, v)
+    n_rep = cfg.n_heads // cfg.kv_heads
+    if t <= 2 * SDPA_CHUNK:
+        out = _sdpa(q, k, v, causal_mask(t, device=x.device), n_rep)
+    elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                      or v.requires_grad):
+        out = _sdpa_chunked(q, k, v, n_rep)
     else:
-        out = _sdpa(q, k, v, causal_mask(t, device=x.device),
-                    cfg.n_heads // cfg.kv_heads)
+        out = flash_attention(q, k, v)
     y = out.reshape(b, t, cfg.n_heads * cfg.hd) @ p["wo"]
     return y, {"k": k, "v": v}
 

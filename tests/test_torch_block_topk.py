@@ -7,7 +7,11 @@ CPU) against the JAX Pallas kernels they replace, run in interpret mode
   bit, ragged edges included (the masked edge acts as zero padding);
 * block_topk (K6): the dense output exactly;
 * BlockTopKThreshold.compress: values and indices exactly as the JAX
-  class, whose selection the port's K5 kernel runs.
+  class, whose selection the port's K5 kernel runs;
+* the CUDA kernels' bracket: an emulation of their radix select (the
+  (k+1)-th largest f32 magnitude by three digit passes, then 32 scalar
+  bisection steps) against ``ref.py``'s 32-round count bisection, bit
+  for bit.
 
 For finite input every payload slot fills (count(|x| >= lo) >= k), so
 -1 marks no slot here; the zero entries of a tile with fewer than k
@@ -34,7 +38,9 @@ from repro_torch.kernels.block_topk import (
     block_topk,
     block_topk_payload,
     diff_topk_payload,
+    to_tiles,
 )
+from repro_torch.kernels.block_topk.ref import BISECT_ROUNDS, _bracket
 
 
 def _inputs(case, n, shape, seed, dtype):
@@ -152,3 +158,104 @@ def test_block_topk_threshold_registry_and_aggregate():
     torch.testing.assert_close(comp.aggregate(p, (20, 20)),
                                dense.mean(dim=0), rtol=1e-13, atol=1e-15)
     assert int(torch.count_nonzero(dense[0, :8, :8])) == 6
+
+
+# -- the CUDA kernels' bracket, emulated --------------------------------------
+
+INF_KEY = 0x7F800000
+DIGITS = ((20, 11), (10, 10), (0, 10))    # the kernels' radix passes
+
+
+def _radix_select(keys: torch.Tensor, k: int):
+    """The kernels' select on one tile's keys (f32 bit patterns of |x|
+    without the sign bit, int64): the (k+1)-th largest non-NaN key, found
+    digit by digit from histograms and suffix counts; None if fewer than
+    k + 1 keys are not NaN."""
+    keys = keys[keys <= INF_KEY]
+    prefix, pmask, rank = 0, 0, k
+    for shift, bits in DIGITS:
+        nbins = 1 << bits
+        live = keys[(keys & pmask) == prefix]
+        hist = torch.bincount((live >> shift) & (nbins - 1), minlength=nbins)
+        if int(hist.sum()) <= rank:
+            return None
+        above = torch.flip(torch.cumsum(torch.flip(hist, [0]), 0), [0]) - hist
+        digit = int(torch.nonzero((above <= rank) & (rank < above + hist))[0])
+        rank -= int(above[digit])
+        prefix |= digit << shift
+        pmask |= (nbins - 1) << shift
+    return prefix
+
+
+def _emulated_bracket(ax: torch.Tensor, k: int):
+    """(lo, hi) as the kernels compute them from f32 magnitudes ax: hi
+    starts at the largest non-NaN magnitude (0 if none), then 32 scalar
+    steps mid = 0.5f * (lo + hi), lo = mid if mid <= v else hi = mid, in
+    f32."""
+    keys = ax.view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    v_key = _radix_select(keys, k)
+    if v_key is not None:
+        order = torch.sort(keys[keys <= INF_KEY], descending=True).values
+        assert v_key == int(order[k])                   # the order statistic
+    finite = ax[~torch.isnan(ax)]
+    half = torch.tensor(0.5, dtype=torch.float32)
+    lo = torch.tensor(0.0, dtype=torch.float32)
+    hi = finite.max() if finite.numel() else torch.tensor(0.0)
+    v = torch.tensor([v_key or 0], dtype=torch.int32).view(torch.float32)[0]
+    for _ in range(BISECT_ROUNDS):
+        mid = half * (lo + hi)
+        if v_key is not None and bool(mid <= v):
+            lo = mid
+        else:
+            hi = mid
+    return lo, hi
+
+
+def _tiles(case: str, block: int, seed: int) -> torch.Tensor:
+    """A few tiles of f32 magnitudes (ragged: a (block + 3) square matrix
+    leaves zero padding in three of its four tiles)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, block + 3, block + 3))
+    if case == "ties":
+        x = np.round(x * 2) / 2
+    elif case == "zeros":
+        x[0] = 0.0
+        x[1, : block // 2] = -0.0
+    elif case == "negzero":
+        x[np.abs(x) < 0.6] = -0.0
+    elif case == "nan":
+        x[0, ::3, ::5] = np.nan
+        x[1, :4, :] = np.nan
+    elif case == "inf":
+        x[0, 1, 2] = np.inf
+        x[1, :3, :7] = -np.inf
+    elif case == "subnormal":
+        x *= 1e-39                              # f32 subnormals and zeros
+    elif case == "lognormal":
+        x = np.sign(x) * np.exp(4.0 * rng.standard_normal(x.shape))
+    tiles = to_tiles(torch.from_numpy(x.astype(np.float32)), block)
+    return torch.abs(tiles).reshape(-1, block * block)
+
+
+@pytest.mark.parametrize("kind", ["0", "1", "bb-1", "bb", "bb+3"])
+@pytest.mark.parametrize("case", ["random", "ties", "zeros", "negzero", "nan",
+                                  "inf", "subnormal", "lognormal"])
+def test_radix_select_bracket_matches_count_bisection(case, kind):
+    """The bracket from one order statistic equals ``ref.py``'s 32 rounds
+    of count bisection bit for bit, at blocks 8 and 16 and k from 0 to
+    past the tile. A NaN never counts and never wins the max (the
+    kernels' rule); ``_bracket`` sees it as -1, which no mid >= 0
+    counts."""
+    for block in (8, 16):
+        bb = block * block
+        k = {"0": 0, "1": 1, "bb-1": bb - 1, "bb": bb, "bb+3": bb + 3}[kind]
+        for tile in _tiles(case, block, seed=block + len(case)):
+            if bool(torch.isnan(tile).all()):
+                continue
+            lo, hi = _emulated_bracket(tile, k)
+            ax = torch.where(torch.isnan(tile), -1.0, tile)[None, None]
+            want_lo, want_hi = _bracket(ax, k)
+            assert torch.equal(want_lo.reshape(()).view(torch.int32),
+                               lo.view(torch.int32))
+            assert torch.equal(want_hi.reshape(()).view(torch.int32),
+                               hi.view(torch.int32))

@@ -14,6 +14,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
+from repro_torch.kernels.adversarial import (
+    SUM_CASES,
+    TOPK_CASES,
+    block_sparse_pairs,
+    topk_inputs,
+)
 from repro_torch.kernels.block_topk import (
     block_topk,
     block_topk_payload,
@@ -152,6 +158,68 @@ def test_block_topk_kernel_matches_plain(cuda, k, block):
     for t in (x, x.float()):
         assert torch.equal(block_topk(t.to(cuda), k, block).cpu(),
                            block_topk(t, k, block))
+
+
+# (block, k, rows, cols): the path's block 128 and k 2048 on a ragged
+# grid; k = 8000, where v falls in a digit crowded by ties or zeros (the
+# select's path over every entry); k >= block^2; block 8 on rows of 301
+# (no 16-byte loads); block 12
+TOPK_SHAPES = [(128, 2048, 300, 260), (128, 8000, 300, 260),
+               (128, 16384, 200, 132), (8, 5, 37, 301), (12, 50, 61, 48)]
+
+
+@pytest.mark.parametrize("shape", TOPK_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_block_topk_kernels_match_plain_on_adversarial_tiles(cuda, case,
+                                                            dtype, shape):
+    """K1 (one b shared by the silos and a stacked b), K5 (with and
+    without ``bisect_all``) and K6 on tiles of zeros, heavy ties, -0.0,
+    inf and ragged edges: payloads, indices and dense tiles bit for bit,
+    ||D||^2 to 1e-5 (f32) or 1e-12 (f64) relative."""
+    block, k, m, cols = shape
+    a, b = topk_inputs(case, 4, m, cols, dtype, seed=21)
+    a_c, b_c = a.to(cuda), b.to(cuda)
+    want = diff_topk_payload(a, b, k=k, block=block)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for bb in (b_c, b_c.expand_as(a_c).contiguous()):
+        got = diff_topk_payload(a_c, bb, k=k, block=block)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        torch.testing.assert_close(got[2].cpu(), want[2], rtol=tol, atol=0)
+    d = a - b
+    for bisect_all in (False, True):
+        got = block_topk_payload(d.to(cuda), k, block, bisect_all=bisect_all)
+        want = block_topk_payload(d, k, block, bisect_all=bisect_all)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(block_topk(d.to(cuda), k, block).cpu(),
+                       block_topk(d, k, block))
+
+
+# (block, silos, k, grid): the path's shapes, one silo, block 8, a block
+# whose tile exceeds shared memory (row bands; k above one chunk of
+# slots), and k not a multiple of 4 (no 16-byte loads)
+SUM_SHAPES = [(128, 4, 2048, (3, 2)), (128, 1, 2048, (2, 3)),
+              (8, 4, 20, (5, 3)), (256, 4, 3000, (2, 1)),
+              (128, 4, 37, (1, 2))]
+
+
+@pytest.mark.parametrize("shape", SUM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", SUM_CASES)
+def test_block_scatter_accumulate_matches_plain_on_adversarial_pairs(
+        cuda, case, dtype, shape):
+    """K4 against its plain version on the CPU (whose index_add_ adds in
+    stream order), bit for bit: distinct cells, cells repeated within a
+    silo, every silo on the same cells with -0.0 and 0 values; all with
+    -1 padding and out-of-range indices, on ragged grids."""
+    block, n, k, grid = shape
+    vals, idx = block_sparse_pairs(case, n, grid[0] * grid[1], k, block,
+                                   dtype, seed=22)
+    got = block_scatter_accumulate(vals.to(cuda), idx.to(cuda), grid, block)
+    want = block_scatter_accumulate_ref(vals, idx, grid, block)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

@@ -1,9 +1,11 @@
 """The port's dense decoder (reduced qwen2-0.5B) against the JAX package's,
 on the CPU: config, the init tree, the prefill forward on both attention
 branches (``_sdpa`` at T <= 512, the K9 op against the reference's
-``_sdpa_chunked`` above), single-token decode and greedy ``generate``,
-in f32 and bf16, with the reference's own ``init_params(PRNGKey(0))``
-weights carried across as numpy arrays.
+``_sdpa_chunked`` above), the gradient of the loss above 512 tokens
+(the port's ``_sdpa_chunked`` against ``jax.grad`` through the
+reference's), single-token decode and greedy ``generate``, in f32 and
+bf16, with the reference's own ``init_params(PRNGKey(0))`` weights
+carried across as numpy arrays.
 
 bf16 tolerance: the two frameworks round bf16 at other places (XLA:CPU
 computes a chain of bf16 elementwise ops in f32 and rounds once, PyTorch
@@ -30,7 +32,9 @@ from repro_torch.configs.qwen2_0_5b import param_shapes
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import LAUNCHES
 from repro_torch.launch.serve import generate
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch.steps import make_prefill, make_serve_step
+from repro_torch.models import attention as port_attention
 from repro_torch.models import build_model
 from repro_torch.models.config import require_ported
 from repro_torch.tree import tree_map
@@ -239,3 +243,68 @@ def test_entry_points_default_to_the_card():
         generate("qwen2-0.5b", smoke=True, batch=1, prompt_len=2, gen=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         model.init_cache(1, 4)
+
+
+def _grad_leaves(params) -> dict:
+    """Copies of ``params`` that require grad (the cached tree is shared
+    by the other tests and stays as it is)."""
+    return tree_map(lambda a: a.detach().clone().requires_grad_(True), params)
+
+
+def test_loss_grad_matches_reference_above_512_tokens():
+    """At T=600 the reference differentiates ``_sdpa_chunked`` (query
+    chunks of 256 under ``jax.checkpoint``); the port takes its own
+    ``_sdpa_chunked`` while autograd records. Each leaf's gradient agrees
+    within 1e-4 of the leaf's largest |grad| (f32; the sums of the two
+    frameworks run in other orders)."""
+    jmodel, jparams, model, params = _models("float32")
+    toks = _tokens(11, 2, 600, model.cfg.vocab)
+    targets = toks[:, ::-1].copy()
+    jgrads = jax.grad(jmodel.loss_fn)(jparams, {
+        "tokens": jnp.asarray(toks), "targets": jnp.asarray(targets)})
+    leaves = _grad_leaves(params)
+    loss = model.loss_fn(leaves, {"tokens": torch.from_numpy(toks).long(),
+                                  "targets": torch.from_numpy(targets).long()})
+    loss.backward()
+    checked = []
+
+    def check(leaf, want):
+        want = np.asarray(want)
+        got = leaf.grad.numpy()
+        scale = float(np.max(np.abs(want)))
+        assert scale > 0 and np.all(np.isfinite(got))
+        assert float(np.max(np.abs(got - want))) <= 1e-4 * scale
+        checked.append(leaf.shape)
+
+    tree_map(check, leaves, jgrads)
+    assert len(checked) == 14
+
+
+def test_forward_under_autograd_launches_no_k9(monkeypatch):
+    """Above 512 tokens the forward calls the K9 op only where autograd
+    does not record: ``make_prefill`` (no grad) calls it once per layer,
+    ``loss_fn(...).backward()`` on leaves that require grad never, and
+    runs (it raised "flash_attention has no backward" before). The op
+    itself still refuses inputs that require grad."""
+    _, _, model, params = _models("float32")
+    calls = []
+
+    def spy(q, k, v):
+        calls.append(torch.is_grad_enabled())
+        return flash_attention(q, k, v)
+
+    monkeypatch.setattr(port_attention, "flash_attention", spy)
+    toks = torch.from_numpy(_tokens(12, 1, 600, model.cfg.vocab)).long()
+    make_prefill(model)(params, {"tokens": toks})
+    assert calls == [False] * model.cfg.n_layers
+    calls.clear()
+    leaves = _grad_leaves(params)
+    loss = model.loss_fn(leaves, {"tokens": toks, "targets": toks})
+    loss.backward()
+    assert calls == []
+    assert all(bool(torch.isfinite(leaf.grad).all()) for leaf in
+               (leaves["embed"], leaves["layers"][0]["mixer"]["wq"]))
+    q = torch.zeros((1, 600, 4, 64), requires_grad=True)
+    kv = torch.zeros((1, 600, 2, 64))
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, kv, kv)
