@@ -8,17 +8,28 @@ Phases, each failing the run with a non-zero exit:
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
      source, all started together);
   3. hold K1 (diff_topk_payload), K2/K3 (scatter_accumulate) and K4
-     (block_scatter_accumulate) to their plain PyTorch versions on the
-     card, in f64 and f32, at the shapes FedNL's path gives them on w8a;
-     then K1, K5, K6 and K4 bit for bit on adversarial inputs
-     (``kernels.adversarial``: zero tiles, ties, -0.0, inf, ragged edges,
-     k >= block^2, ``bisect_all``; repeated cells within and across
-     silos, padding, out-of-range indices, blocks 8, 128 and 256);
+     (block_scatter_accumulate) to their plain PyTorch versions, in f64
+     and f32, at the shapes FedNL's path gives them on w8a; K2 and K4
+     bit for bit against the plain version on CPU copies, K2 also with
+     init, a weight-0 silo, at d=1,100, at the K3 shape (d=2,048,
+     142 silos, k=d) and at shapes of over 2,047 regions, where its
+     sort takes two passes (``adversarial.TWO_PASS_SHAPES``); then K1, K5, K6, K4 and K2 bit for bit on
+     adversarial inputs (``kernels.adversarial``: zero tiles, ties,
+     -0.0, inf, ragged edges, k >= block^2, ``bisect_all``; repeated
+     cells within and across silos, padding, out-of-range indices,
+     blocks 8, 128 and 256; K2's one cell, diagonal, all padding,
+     (1, 90,000) row, mirrors outside the matrix, -0.0 init, a silo
+     scaled by 0, hot cells);
   4. drive FedNL Options 1 and 2 on the w8a stand-in (n=142, m=350,
      d=300, f64) for Top-K (k=d), symmetric Top-K (k=d), Rank-R (1) and
      Block-Top-K (8), 20 rounds each, through ``FedNL.run``; assert the
      error bound and that every kernel of the path was launched; then
-     hold the card to the CPU port on a1a-sized data;
+     hold the card to the CPU port on a1a-sized data; then the server's
+     mean of 142 Top-K payloads at the K3 shape through
+     ``TopK.aggregate`` (plain and symmetric: 2 launches, bit for bit);
+     then K2's timings (``k2_measure``: w8a and the K3 shape, plain and
+     symmetric, the K3 shape with 0 and 100 % hot cells; launches per
+     call as the profiler records them) while the profiler is fresh;
   5. drive the curvature-learning optimizer ``fednl_precond`` (k=2048 per
      128 x 128 tile) over all 14 tensors of qwen2-0.5B (494,032,768
      parameters, bf16, random from --seed) with 4 silos of Fisher
@@ -43,7 +54,9 @@ Phases, each failing the run with a non-zero exit:
      plain version, and on the embed-sized H of phase 5;
   8. time a FedNL round per compressor, the optimizer's refresh and
      precondition, and K1-K8 beside their bounds, their plain versions
-     and the nearest single PyTorch call;
+     and the nearest single PyTorch call (K2's from phase 4: w8a plain
+     and symmetric, and the K3 shape as its own entry,
+     ``scatter_accumulate_tiled``);
   9. qwen2-0.5B serving at full width and depth (bf16, random weights
      from --seed): K9 (flash_attention) against its plain version on all
      14 heads at T=4,000 in bf16 (the wgmma route, held to the f32 oracle
@@ -149,29 +162,18 @@ def host_ms(fn) -> tuple[float, object]:
 
 
 def device_ms(fn, kernel: str, reps: int = 20, tries: int = 6) -> float:
-    """Device time (ms) per launch of the CUDA kernel whose name contains
-    ``kernel`` (each caller here launches it once per call), from the
-    profiler (``time_cuda`` also counts the host's launch overhead
-    wherever that exceeds the kernel's run). Late in a long run (after a
-    million launches, tools/decode_profile.py) a session may record only
-    some of the ``reps`` launches, or none: the time is averaged over the
-    launches recorded, and the tries go on until one session records
-    them all. Each try is a fresh profiler session over host and device
-    activity; the run fails when no try names such a kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time (ms) per call of ``fn`` in the CUDA kernels whose
+    names contain ``kernel``, one launch a call, from the profiler
+    (``time_cuda`` also counts the host's launch overhead wherever that
+    exceeds the kernel's run). Late in a long run (after a million
+    launches, tools/decode_profile.py) a session may record only some of
+    the launches, or none: the time is averaged over the launches
+    recorded, and the tries go on until one session (``profiled``)
+    records them all; the run fails when no try names such a kernel."""
     fn()
-    torch.cuda.synchronize()
-    per_launch = None
+    per_launch, rows = None, []
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+        _, rows = profiled(fn, reps)
         seen = [e for e in rows if kernel in e.key]
         count = sum(e.count for e in seen)
         if count:
@@ -185,6 +187,70 @@ def device_ms(fn, kernel: str, reps: int = 20, tries: int = 6) -> float:
                        f"{[e.key[:80] for e in rows]}")
 
 
+def profiled(fn, reps: int = 1) -> tuple[float, list]:
+    """``reps`` calls of ``fn`` under the profiler after a warm-up step of
+    as many, which the profiler discards (it can miss the launches at its
+    start): the wall ms of the active step and its device events (the
+    step's own annotation, which spans the step, left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    events, wall = [], 0.0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda prof: events.extend(
+                     e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.key.startswith("ProfilerStep"))
+                 ) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            prof.step()
+    return wall, events
+
+
+def device_per_call(fn, names, reps: int = 10, tries: int = 6) -> dict:
+    """Device ms and launches per call of ``fn`` in the CUDA kernels whose
+    names contain each of ``names`` (a name matches every template
+    instance), as the profiler records them over ``reps`` calls
+    (``profiled``). Sessions run until two record the same launches of
+    every kernel, each a whole number per call ("complete"); else the
+    session that recorded the most launches is reported as it is. Per
+    kernel: its recorded device ms over ``reps`` and its recorded
+    launches over ``reps``. Fails when a kernel is never seen."""
+    best, seen_before = None, []
+    for _ in range(tries):
+        _, events = profiled(fn, reps)
+        ms = {name: 0.0 for name in names}
+        seen = {name: 0 for name in names}
+        for e in events:
+            for name in names:
+                if name in e.key:
+                    ms[name] += e.self_device_time_total / 1e3
+                    seen[name] += e.count
+        if not all(seen.values()):
+            continue
+        row = {"device_ms": {name: ms[name] / reps for name in names},
+               "launches": {name: seen[name] // reps if seen[name] % reps == 0
+                            else seen[name] / reps for name in names},
+               "complete": False}
+        if best is None or sum(seen.values()) > sum(
+                best["launches"].values()) * reps:
+            best = row
+        if seen in seen_before and all(c % reps == 0 for c in seen.values()):
+            return {**row, "complete": True}
+        seen_before.append(seen)
+    if best is None:
+        raise SmokeFailure(f"the profiler missed one of {list(names)} in "
+                           f"every one of {tries} tries")
+    return best
+
+
 def counts(K) -> dict:
     """The launch counts of every wrapper, and of each route of K8 and K9
     as "<wrapper>:<route>"."""
@@ -194,21 +260,10 @@ def counts(K) -> dict:
 
 
 def profile_rows(fn) -> tuple[float, list]:
-    """One call under the profiler: its wall ms and the device rows
-    (kernel name, device ms, launches), largest first."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
-    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
-           for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    """One call under the profiler (``profiled``): its wall ms and the
+    device rows (kernel name, device ms, launches), largest first."""
+    wall, events = profiled(fn)
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events]
     return wall, sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
 
 
@@ -244,6 +299,7 @@ def max_rel(got, want) -> float:
 
 def check_fednl_kernels(dev, err: dict) -> None:
     import torch
+    from repro_torch.kernels.adversarial import TWO_PASS_SHAPES, two_pass_pairs
     from repro_torch.kernels.block_topk import diff_topk_payload, diff_topk_payload_ref
     from repro_torch.kernels.scatter_accum import (
         block_scatter_accumulate,
@@ -251,6 +307,7 @@ def check_fednl_kernels(dev, err: dict) -> None:
         scatter_accumulate,
         scatter_accumulate_ref,
     )
+    from repro_torch.kernels.scatter_accum import plan as scatter_plan
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -280,53 +337,78 @@ def check_fednl_kernels(dev, err: dict) -> None:
                 and torch.equal(got[2], want[2]),
                 f"diff_topk_payload with a shared b differs ({dtype})")
 
-        def pairs(n, k, numel, symmetric):
-            idx = torch.randint(0, numel, (n, k), generator=gen, device=dev)
+        def pairs(n, k, d, symmetric):
+            idx = torch.randint(0, d * d, (n, k), generator=gen, device=dev)
+            # every silo picks some of 64 hot cells (Top-K's pattern)
+            hot = torch.randint(0, d * d, (64,), generator=gen, device=dev)
+            idx[:, ::4] = hot[torch.randint(0, 64, (n, (k + 3) // 4),
+                                            generator=gen, device=dev)]
             if symmetric:
-                r, c = idx // 300, idx % 300
-                idx = torch.maximum(r, c) * 300 + torch.minimum(r, c)
+                r, c = idx // d, idx % d
+                idx = torch.maximum(r, c) * d + torch.minimum(r, c)
             idx[:, 5] = idx[:, 2]                          # duplicates
             idx[:, -7:] = -1                               # padding
             vals = torch.randn((n, k), generator=gen, device=dev, dtype=dtype)
             return vals, idx.to(torch.int32).contiguous()
 
-        tol = 1e-12 if dtype == torch.float64 else 1e-4
-        for symmetric in (False, True):
-            vals, idx = pairs(142, 300, 300 * 300, symmetric)
-            got = scatter_accumulate(vals, idx, (300, 300), symmetric=symmetric)
-            want = scatter_accumulate_ref(vals, idx, (300, 300),
-                                          symmetric=symmetric)
-            e = float(torch.max(torch.abs(got - want)))
-            require(e <= tol * max(1.0, float(torch.max(torch.abs(want)))),
-                    f"scatter_accumulate off by {e:.2e} ({dtype})")
+        def same(what, vals, idx, d, symmetric=False, init=None):
+            """K2 on the card against its plain version on CPU copies,
+            bit for bit (both add each cell's pairs in stream order; on
+            the card the plain version's index_add_ would use atomics).
+            ``d``: the side of a square, or a shape. Records the f64
+            max |got - want| (K3's at d >= 1,025)."""
+            shape = (d, d) if isinstance(d, int) else d
+            got = scatter_accumulate(vals, idx, shape, symmetric=symmetric,
+                                     init=init).cpu()
+            want = scatter_accumulate_ref(
+                vals.cpu(), idx.cpu(), shape, symmetric=symmetric,
+                init=None if init is None else init.cpu())
+            e = float(torch.max(torch.abs(got - want))) if got.numel() else 0.0
             if dtype == torch.float64:
-                err["scatter_accumulate"] = max(err["scatter_accumulate"], e)
+                key = ("scatter_accumulate_tiled" if min(shape) >= 1025
+                       else "scatter_accumulate")
+                err[key] = max(err[key], e)
+            bits = torch.int64 if dtype == torch.float64 else torch.int32
+            require(torch.equal(got.view(bits), want.view(bits)),
+                    f"scatter_accumulate differs from its plain version "
+                    f"({what}, {dtype}, max err {e:.2e})")
+            return got
+
+        for symmetric in (False, True):
+            vals, idx = pairs(142, 300, 300, symmetric)
+            same(f"w8a, symmetric {symmetric}", vals, idx, 300, symmetric)
             # a weight-0 silo changes nothing, bit for bit
             w = torch.ones(142, dtype=dtype, device=dev)
             w[17] = 0.0
             dropped = idx.clone()
             dropped[17] = -1
-            x0 = scatter_accumulate(vals * w[:, None], idx, (300, 300),
-                                    symmetric=symmetric)
-            x1 = scatter_accumulate(vals, dropped, (300, 300),
-                                    symmetric=symmetric)
+            x0 = same("w8a, a weight-0 silo", vals * w[:, None], idx, 300,
+                      symmetric)
+            x1 = same("w8a, a silo dropped", vals, dropped, 300, symmetric)
             require(torch.equal(x0, x1),
                     "scatter_accumulate: a weight-0 silo changed the sum")
-        init = torch.randn((300, 300), generator=gen, device=dev, dtype=dtype)
-        got = scatter_accumulate(vals, idx, (300, 300), init=init)
-        want = scatter_accumulate_ref(vals, idx, (300, 300), init=init)
-        require(float(torch.max(torch.abs(got - want))) <= tol * 10,
-                "scatter_accumulate with init differs")
-        # the output-tiled regime of the TPU (d >= 1025 in f64)
-        big = torch.randint(0, 1100 * 1100, (16, 4096), generator=gen,
-                            device=dev).to(torch.int32)
-        bvals = torch.randn((16, 4096), generator=gen, device=dev, dtype=dtype)
-        got = scatter_accumulate(bvals, big, (1100, 1100))
-        want = scatter_accumulate_ref(bvals, big, (1100, 1100))
-        e = float(torch.max(torch.abs(got - want)))
-        require(e <= tol * 10, f"scatter_accumulate at d=1100 off by {e:.2e}")
-        if dtype == torch.float64:
-            err["scatter_accumulate"] = max(err["scatter_accumulate"], e)
+            init = torch.randn((300, 300), generator=gen, device=dev,
+                               dtype=dtype)
+            same(f"w8a with init, symmetric {symmetric}", vals, idx, 300,
+                 symmetric, init)
+        # d = 1,100 and the K3 shape: the TPU's output-tiled regime (d >=
+        # 1,025 in f64), at Top-K k = d over 142 silos for d = 2,048
+        for n, k, d in ((16, 4096, 1100), (142, 2048, 2048)):
+            vals, idx = pairs(n, k, d, False)
+            same(f"d={d}", vals, idx, d)
+        # over 2,047 regions: the sort takes two passes and each sum warp
+        # searches for its bucket
+        for shape in TWO_PASS_SHAPES[dtype]:
+            for symmetric in (False, True):
+                args = two_pass_pairs(shape, symmetric, dtype, seed=27,
+                                      device=dev)
+                require(scatter_plan(*args["values"].shape, *shape, symmetric,
+                                     args["values"].element_size()).passes == 2,
+                        f"scatter_accumulate's plan sorts {shape} in one pass")
+                same(f"{shape}, two sort passes, symmetric {symmetric}",
+                     args["values"], args["indices"], shape, symmetric,
+                     args["init"])
+        del vals, idx, dropped, init, x0, x1, args
 
         bi = torch.randint(0, 128 * 128, (142, 9, 8), generator=gen, device=dev)
         bi[:, :, 3] = bi[:, :, 1]
@@ -361,17 +443,22 @@ ADVERSARIAL_SUM = [(128, 4, 2048, (3, 2)), (128, 1, 2048, (2, 3)),
 
 def check_adversarial(dev) -> None:
     """K1 (shared and stacked b), K5 (with and without ``bisect_all``),
-    K6 and K4 against their plain versions on the CPU, bit for bit, on
-    the inputs of ``kernels.adversarial`` in f32 and f64: tiles of zeros,
-    heavy ties, -0.0, inf and ragged edges, k >= block^2; pairs with
-    cells repeated within and across silos, -1 padding, out-of-range
-    indices, ragged grids, blocks 8, 128 and 256 (row bands). The norms
-    ||D||^2 to 1e-5 (f32) or 1e-12 (f64) relative."""
+    K6, K4 and K2 against their plain versions on the CPU, bit for bit,
+    on the inputs of ``kernels.adversarial`` in f32 and f64: tiles of
+    zeros, heavy ties, -0.0, inf and ragged edges, k >= block^2; pairs
+    with cells repeated within and across silos, -1 padding,
+    out-of-range indices, ragged grids, blocks 8, 128 and 256 (row
+    bands); K2's cases (``SCATTER_CASES``: one cell, the diagonal, all
+    padding, a (1, 90,000) row, mirrors outside the matrix, -0.0, a silo
+    scaled by 0, hot cells). The norms ||D||^2 to 1e-5 (f32) or 1e-12
+    (f64) relative."""
     import torch
     from repro_torch.kernels.adversarial import (
+        SCATTER_CASES,
         SUM_CASES,
         TOPK_CASES,
         block_sparse_pairs,
+        scatter_pairs,
         topk_inputs,
     )
     from repro_torch.kernels.block_topk import (
@@ -382,6 +469,8 @@ def check_adversarial(dev) -> None:
     from repro_torch.kernels.scatter_accum import (
         block_scatter_accumulate,
         block_scatter_accumulate_ref,
+        scatter_accumulate,
+        scatter_accumulate_ref,
     )
 
     checked = 0
@@ -428,8 +517,28 @@ def check_adversarial(dev) -> None:
                     f"block_scatter_accumulate differs ({case}, {dtype}, "
                     f"block {block}, n {n}, k {k})")
                 checked += 1
-    print(f"# K1, K5, K6 and K4 match their plain versions bit for bit on "
-          f"{checked} adversarial inputs", flush=True)
+        for case in SCATTER_CASES:
+            args = scatter_pairs(case, dtype, seed=23)
+            silo = args.pop("zero_silo", None)
+            on_card = {**args, "values": args["values"].to(dev),
+                       "indices": args["indices"].to(dev),
+                       "init": None if args["init"] is None
+                       else args["init"].to(dev)}
+            got = scatter_accumulate(**on_card).cpu()
+            bits = torch.int64 if dtype == torch.float64 else torch.int32
+            require(torch.equal(got.view(bits),
+                                scatter_accumulate_ref(**args).view(bits)),
+                    f"scatter_accumulate differs ({case}, {dtype})")
+            if silo is not None:
+                dropped = on_card["indices"].clone()
+                dropped[silo] = -1
+                alone = scatter_accumulate(**{**on_card, "indices": dropped})
+                require(torch.equal(alone.cpu().view(bits), got.view(bits)),
+                        f"scatter_accumulate: a silo scaled by 0 changed the "
+                        f"sum ({dtype})")
+            checked += 1
+    print(f"# K1, K5, K6, K4 and K2 match their plain versions bit for bit "
+          f"on {checked} adversarial inputs", flush=True)
 
 
 # -- phase 4: FedNL Algorithm 1 on w8a ------------------------------------------
@@ -491,6 +600,72 @@ def fednl_w8a(dev, prob, x0, K) -> dict:
                     f"gap {gap:.2e}")
     print("# a1a: card iterates match the CPU port to 1e-8", flush=True)
     return launches
+
+
+# the K3 shape: d = 2,048 in f64, the first width where the TPU package
+# tiles the output, at Top-K k = d over w8a's 142 silos
+K3_N, K3_D = 142, 2048
+
+
+def k3_payloads(dev, seed: int, hot: float = 0.5):
+    """142 silos' Top-K payloads (k = d) on a 2,048 x 2,048 f64 matrix,
+    lower-triangular, values from ``seed``: every 1/``hot``-th cell of a
+    silo from 4,096 cells every silo picks (half of them by default;
+    none, or all), the rest its own. The hot share is chosen, not
+    measured: no configuration of the repo reaches d = 2,048, and it sets
+    how long the runs on one cell are."""
+    import torch
+    from repro_torch.core import SparsePayload
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cells = K3_D * K3_D
+    idx = torch.randint(0, cells, (K3_N, K3_D), generator=gen, device=dev)
+    hot_cells = torch.randint(0, cells, (4096,), generator=gen, device=dev)
+    if hot:
+        step = round(1 / hot)
+        idx[:, ::step] = hot_cells[torch.randint(
+            0, 4096, (K3_N, -(-K3_D // step)), generator=gen, device=dev)]
+    r, c = idx // K3_D, idx % K3_D
+    idx = torch.maximum(r, c) * K3_D + torch.minimum(r, c)
+    vals = torch.randn((K3_N, K3_D), generator=gen, device=dev,
+                       dtype=torch.float64)
+    return SparsePayload(values=vals, indices=idx.to(torch.int32).contiguous(),
+                         universe=cells)
+
+
+def topk_aggregate_k3(dev, K, err: dict) -> tuple[dict, object]:
+    """The server's mean of 142 Top-K payloads at the K3 shape through
+    ``TopK.aggregate`` (plain and symmetric); returns the launches and
+    the payloads. The sum is held bit for bit to the plain version on
+    the CPU, divided by n on the card as the mean is."""
+    import torch
+    from repro_torch.core import TopK
+    from repro_torch.kernels.scatter_accum import scatter_accumulate_ref
+
+    pay = k3_payloads(dev, seed=3)
+    K.reset_launches()
+    means = {sym: TopK(K3_D, symmetric=sym).aggregate(pay, (K3_D, K3_D))
+             for sym in (False, True)}
+    torch.cuda.synchronize()
+    launches = counts(K)
+    require(launches["scatter_accumulate"] == 2,
+            f"TopK.aggregate at d={K3_D} launched scatter_accumulate "
+            f"{launches['scatter_accumulate']} times, not 2")
+    for sym, mean in means.items():
+        # the mean's division as the card takes it (by the reciprocal)
+        want = (scatter_accumulate_ref(pay.values.cpu(), pay.indices.cpu(),
+                                       (K3_D, K3_D), symmetric=sym).to(dev)
+                / K3_N).cpu()
+        e = float(torch.max(torch.abs(mean.cpu() - want)))
+        err["scatter_accumulate_tiled"] = max(err["scatter_accumulate_tiled"],
+                                              e)
+        require(mean.shape == (K3_D, K3_D) and torch.equal(mean.cpu(), want),
+                f"TopK.aggregate at d={K3_D} (symmetric {sym}) differs from "
+                f"the plain version (max err {e:.2e})")
+    print(f"# TopK.aggregate at d={K3_D}: 142 silos, k = d, plain and "
+          f"symmetric, bit for bit; launches {json.dumps(launches)}",
+          flush=True)
+    return launches, pay
 
 
 # -- phase 5: the curvature-learning optimizer at qwen2-0.5B width ---------------
@@ -919,13 +1094,96 @@ def fednl_round_times(prob, x0) -> tuple[dict, dict]:
     return round_ms, breakdown
 
 
+def k2_timings(dev, vals, idx, shape, symmetric) -> dict:
+    """K2's wrapper ms, device ms and launches per call of its accum_*
+    kernels as the profiler records them (a launch per sort pass of
+    count, scan and place, and one sum, by the plan: checked when the
+    profile is complete), plain ms, bound and library ms on one input.
+    The bound: pairs in once, the dense sum out once; one add per pair
+    (two when symmetric)."""
+    import torch
+    from repro_torch.kernels.scatter_accum import (
+        plan,
+        scatter_accumulate,
+        scatter_accumulate_ref,
+    )
+
+    n, k = vals.shape
+    p = plan(n, k, shape[0], shape[1], symmetric, vals.element_size())
+    cells = shape[0] * shape[1]
+    b_ms, b_by = bound(vals.numel() * (vals.element_size() + 4)
+                       + cells * vals.element_size(),
+                       {"f64": vals.numel() * (2 if symmetric else 1)})
+    flat = torch.zeros(cells, dtype=vals.dtype, device=dev)
+    i64 = idx.reshape(-1).to(torch.int64)
+    v = vals.reshape(-1)
+    if symmetric:                          # the library call's own mirror
+        r, c = i64 // shape[1], i64 % shape[1]
+        i64 = torch.cat([i64, torch.where(r != c, c * shape[1] + r, -1)])
+        v = torch.cat([v, v])
+    keep = i64 >= 0
+    i64, v = i64[keep], v[keep]
+
+    def call():
+        return scatter_accumulate(vals, idx, shape, symmetric=symmetric)
+
+    # a call's device time and launches, kernel by kernel
+    names = ("accum_count_kernel", "accum_scan_kernel", "accum_place_kernel",
+             "accum_sum_kernel")
+    split = device_per_call(call, names)
+    per_call = sum(split["launches"].values())
+    require(not split["complete"] or per_call == 3 * p.passes + 1,
+            f"scatter_accumulate launched {per_call} kernels a call, its "
+            f"plan {3 * p.passes + 1} ({p.passes} sort passes)")
+    return dict(
+        ms=time_cuda(call),
+        device_ms=sum(split["device_ms"].values()),
+        device_ms_by_kernel=split["device_ms"],
+        launches_per_call=per_call,
+        launches_per_call_by_kernel=split["launches"],
+        device_profile_complete=split["complete"],
+        plain_ms=time_cuda(lambda: scatter_accumulate_ref(
+            vals, idx, shape, symmetric=symmetric)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_cuda(lambda: flat.index_put_((i64,), v,
+                                                     accumulate=True)))
+
+
+def k2_measure(dev, prob, x0, k3_pay) -> dict:
+    """K2's timings (``k2_timings``) early in the run, before the long
+    phases fill the profiler: w8a's Top-K payloads (plain and symmetric),
+    the K3 shape's payloads (plain and symmetric), and the K3 shape with
+    none and with all of each silo's cells drawn from the hot cells."""
+    from repro_torch.core import make_compressor
+
+    d = prob["d"]
+    diff = prob["hess"](x0) - prob["hess"](prob["xstar"])
+    out = {}
+    for key, family in (("w8a", "topk"), ("w8a_sym", "topk-sym")):
+        pay = make_compressor(family, d).compress(diff)
+        out[key] = k2_timings(dev, pay.values.contiguous(),
+                              pay.indices.contiguous(), (d, d),
+                              family == "topk-sym")
+    for sym in (False, True):
+        out["k3_sym" if sym else "k3"] = k2_timings(
+            dev, k3_pay.values, k3_pay.indices, (K3_D, K3_D), sym)
+    for hot in (0.0, 1.0):
+        pay = k3_payloads(dev, seed=4, hot=hot)
+        out[f"k3_hot{int(100 * hot)}"] = {
+            key: val for key, val in k2_timings(
+                dev, pay.values, pay.indices, (K3_D, K3_D), False).items()
+            if key in ("ms", "device_ms", "launches_per_call",
+                       "device_profile_complete")}
+    print(f"# K2 timings: {json.dumps(out)}", flush=True)
+    return out
+
+
 def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
     """One entry per kernel of phases 3-7 (K1-K8): launches per path
     (``paths``, and per route for K8), times at the inputs its path gives
-    it (``inputs``), bound, plain and library times. K9's entry is made
-    by phase 9."""
+    it (``inputs``), bound, plain and library times (K2's and K3's from
+    phase 4, ``inputs["k2"]``). K9's entry is made by phase 9."""
     import torch
-    from repro_torch.core import make_compressor
     from repro_torch.kernels.block_topk import (
         block_topk,
         block_topk_payload,
@@ -939,21 +1197,18 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
     from repro_torch.kernels.scatter_accum import (
         block_scatter_accumulate,
         block_scatter_accumulate_ref,
-        scatter_accumulate,
-        scatter_accumulate_ref,
     )
     from repro_torch.kernels.tiled_matmul import tiled_matmul, tiled_matmul_ref
 
-    def launches(name):
+    def launches(name, only=None):
         by = {path: counts[name] for path, counts in paths.items()
-              if counts.get(name)}
+              if counts.get(name) and (only is None or path in only)}
         return sum(by.values()), by
 
     d, n = prob["d"], prob["n"]
     # FedNL's inputs on w8a: Hessians at x0 against Hessians at x*
     h_new = prob["hess"](x0)
     h_old = prob["hess"](prob["xstar"])
-    topk = make_compressor("topk", 300).compress(h_new - h_old)
     bvals, bidx, _ = diff_topk_payload(h_new, h_old, k=8)
     nblk = bvals.shape[1]
     grid = (-(-d // 128),) * 2
@@ -987,28 +1242,49 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
         **{f"refresh_{key}": val for key, val in
            inputs["refresh"]["diff_topk_payload"].items()}))
 
-    # K2 (K3): pairs in, the dense sum out
-    total, by = launches("scatter_accumulate")
-    tv, ti = topk.values.contiguous(), topk.indices.contiguous()
-    b_ms, b_by = bound(tv.numel() * 12 + d * d * 8, {"f64": tv.numel()})
-    flat = torch.zeros(d * d, dtype=torch.float64, device=dev)
-    ti64 = ti.reshape(-1).to(torch.int64)
+    # K2 at w8a: Top-K's payloads, plain and symmetric (timed in phase 4)
+    k2 = inputs["k2"]
+    total, by = launches("scatter_accumulate",
+                         [path for path in paths
+                          if path != "topk_aggregate_d2048"])
     kernels.append(dict(
         name="scatter_accumulate", route="cuda",
         source="src/repro_torch/csrc/scatter_accum.cu",
         replaces="src/repro/kernels/scatter_accum/kernel.py:135",
-        also_replaces="src/repro/kernels/scatter_accum/kernel.py:219",
         launches=total, launches_by_path=by,
         max_abs_err=err["scatter_accumulate"],
-        ms=time_cuda(lambda: scatter_accumulate(tv, ti, (d, d))),
-        device_ms=device_ms(lambda: scatter_accumulate(tv, ti, (d, d)),
-                            "accumulate_kernel<double>"),
-        plain_ms=time_cuda(lambda: scatter_accumulate_ref(tv, ti, (d, d))),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_cuda(lambda: flat.index_put_((ti64,), tv.reshape(-1),
-                                                     accumulate=True)),
+        max_abs_err_is="max |card - plain version on CPU copies| over "
+                       "phase 3's f64 checks below d = 1,025 (held bit for "
+                       "bit there)",
+        **k2["w8a"],
         shape="w8a Top-K: 142 x 300 pairs into (300, 300) f64",
-        library_call="index_put_(accumulate=True) into a flat (d*d) buffer"))
+        library_call="index_put_(accumulate=True) into a flat (d*d) buffer "
+                     "(symmetric: the mirrors appended)",
+        **{f"symmetric_{key}": val for key, val in k2["w8a_sym"].items()},
+        symmetric_shape="w8a symmetric Top-K: 142 x 300 lower-triangular "
+                        "pairs and their mirrors into (300, 300) f64"))
+
+    # K3: the same kernels at the TPU's output-tiled shape
+    total, by = launches("scatter_accumulate", ("topk_aggregate_d2048",))
+    kernels.append(dict(
+        name="scatter_accumulate_tiled", route="cuda",
+        source="src/repro_torch/csrc/scatter_accum.cu",
+        replaces="src/repro/kernels/scatter_accum/kernel.py:219",
+        wrapper="scatter_accumulate",
+        launches=total, launches_by_path=by,
+        max_abs_err=err["scatter_accumulate_tiled"],
+        max_abs_err_is="max |card - plain version on CPU copies| over "
+                       "phase 3's f64 checks at d >= 1,025 and "
+                       "TopK.aggregate's mean at the K3 shape (held bit "
+                       "for bit)",
+        **k2["k3"],
+        shape=f"{K3_N} x {K3_D} Top-K pairs into ({K3_D}, {K3_D}) f64, "
+              "half of each silo's cells from 4,096 hot cells (a chosen "
+              "share)",
+        library_call="index_put_(accumulate=True) into a flat (d*d) buffer",
+        **{f"symmetric_{key}": val for key, val in k2["k3_sym"].items()},
+        **{f"{hot}_{key}": val for hot in ("hot0", "hot100")
+           for key, val in k2[f"k3_{hot}"].items()}))
 
     # K4
     total, by = launches("block_scatter_accumulate")
@@ -1039,7 +1315,7 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
                       "all 14 qwen2-0.5b tensors, f32, k=2048, block=128",
         **{f"refresh_{key}": val for key, val in
            inputs["refresh"]["block_scatter_accumulate"].items()}))
-    del h_new, h_old, mags, flat, tiles
+    del h_new, h_old, mags, tiles
 
     # K5 on the optimizer's largest input: embed, 4 silos of f32
     # observations, k = 2048 of 128^2
@@ -1623,7 +1899,8 @@ def kernel_name(mangled: str) -> str:
                              text=True, timeout=30).stdout.strip()
     except OSError:
         return mangled
-    return out.split("(anonymous namespace)::")[-1].split("(")[0] or mangled
+    name = out.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ").strip() or mangled
 
 
 def ptxas_lines(log: str) -> list:
@@ -1688,6 +1965,7 @@ def main() -> int:
 
         # -- 3-7. kernels and paths -----------------------------------------
         err = {name: 0.0 for name in K.LAUNCHES}
+        err["scatter_accumulate_tiled"] = 0.0           # K2 at d >= 1,025
         t0 = time.perf_counter()
         check_fednl_kernels(dev, err)
         print(f"# K1, K2/K3, K4 match their plain versions (f64 and f32) "
@@ -1696,6 +1974,8 @@ def main() -> int:
         prob = make_problem("w8a", seed=0, device=dev)
         x0 = torch.zeros(prob["d"], dtype=torch.float64, device=dev)
         paths = {"fednl_w8a": fednl_w8a(dev, prob, x0, K)}
+        paths["topk_aggregate_d2048"], k3_pay = topk_aggregate_k3(dev, K, err)
+        k2 = k2_measure(dev, prob, x0, k3_pay)
         pre = precond_qwen2(dev, args.seed, K, err)
         paths["fednl_precond_qwen2"] = pre["launches"]
         paths["fednl_precond_qwen2_uplink"] = pre["uplink_launches"]
@@ -1712,9 +1992,9 @@ def main() -> int:
         print(json.dumps({"round_ms_median": round_ms, "card": card}), flush=True)
         print(json.dumps({"round_profile": breakdown}), flush=True)
         inputs = dict(embed=pre["embed"], wg0=pre["wg0"], hess_update=hu,
-                      refresh=pre["refresh"])
+                      refresh=pre["refresh"], k2=k2)
         kernels = kernel_line(dev, prob, x0, paths, inputs, err)
-        del pre, hu, inputs
+        del pre, hu, inputs, k3_pay
 
         # -- 9. qwen2-0.5B serving --------------------------------------------
         t0 = time.perf_counter()

@@ -23,16 +23,34 @@
 //
 // Bound on the H100: bytes (pairs in, dense sum out).
 //
-// scatter_accumulate: one thread block per square of 32 x 32 output
-// cells. The pairs of a dense FedNL Hessian diff scatter over the whole
-// matrix, so the block streams all n * k pairs, in chunks of 1,024, one
-// per thread, the next chunk's pairs loaded while the current one is
-// placed. The pairs that land in the square are split by row into shared
-// memory, in stream order within each row (warp ballots rank them, one
-// block-wide exclusive scan places the rows); warp w then walks row w's
-// entries and lane l adds those addressed to column l. A square on the
-// diagonal receives thousands of pairs per call; split by row, each warp
-// walks only its row's share of them.
+// scatter_accumulate: the pairs are bucketed once, then each cell's
+// bucket is summed in order; the work is O(n * k + d0 * d1). The
+// entries (each pair, and its mirror when symmetric) carry their cell;
+// the output's cells fall into regions of R = 2^log_r consecutive flat
+// cells (so a (1, d1) row splits too), and dropped entries into a last
+// region. A stable counting sort by region (digits of up to 11 bits of
+// the region id, least significant first; one pass wherever the regions
+// number under 2,048) puts each region's entries together in stream
+// order. A pass is three launches: accum_count_kernel counts, per chunk
+// of the entry stream (8 warps, each a segment of `seg` consecutive
+// entries), the entries of each digit; accum_scan_kernel turns each
+// digit's column of counts into its entries in earlier chunks, and its
+// total; accum_place_kernel scans the totals into each digit's start,
+// ranks each entry among its warp's entries of its digit (warp match,
+// in stream order: groups of 32 in order, lanes in order), adds the
+// earlier chunks' and warps' entries of the digit, and writes (cell,
+// value) there. Then accum_sum_kernel gives each 2^log_sub cells of a
+// region (up to a warp's 8 KB of shared memory) to one warp: its cells
+// from `init` or 0, the region's bucket added 32 entries at a time (the
+// entries of one cell in lane order, one round each; entries outside
+// the warp's cells skipped), the cells written back with 16-byte
+// stores, touched or not. A region's bucket is its digit's range (one
+// pass) or, after several passes, found by a 32-way search of the
+// sorted regions. The wrapper picks R, the digit width and `seg`
+// (kernels/scatter_accum/ops.py `plan`), derives the rest of the plan
+// and allocates the scratch; the launcher takes the plan as given and
+// checks it. The counts are integers, and no value is ever added
+// atomically.
 //
 // block_scatter_accumulate: a block-sparse payload's pairs are already
 // grouped by tile, as contiguous runs of k per (silo, tile). One thread
@@ -55,119 +73,429 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kSide = 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-accumulate_kernel(const T* __restrict__ vals, const int* __restrict__ idx,
-                  const T* __restrict__ init, T* __restrict__ out, int n,
-                  int k, int d0, int d1, int symmetric) {
-  __shared__ short s_col[2][2 * kThreads];    // double-buffered by chunk
-  __shared__ T s_val[2][2 * kThreads];
-  __shared__ int row_start[2][kSide + 1];
-  __shared__ int offsets[kSide * 32];         // [row][warp]
-  __shared__ int red_i[32];
-
-  // thread (warp w, lane l) owns cell (r0 + w, c0 + l) of the square
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  const int r0 = blockIdx.y * kSide, c0 = blockIdx.x * kSide;
-  const int my_r = r0 + warp, my_c = c0 + lane;
-  const bool mine = my_r < d0 && my_c < d1;
-  T acc = (init != nullptr && mine)
-              ? init[static_cast<long long>(my_r) * d1 + my_c] : T(0);
-
-  // every pair of the stream may land in this square
-  const long long npairs = static_cast<long long>(n) * k;
-  const int limit = d0 * d1;
-  int next_id = -1;
-  T next_v = T(0);
-  if (threadIdx.x < npairs) {
-    next_id = idx[threadIdx.x];
-    next_v = vals[threadIdx.x];
-  }
-  for (long long base = 0, chunk = 0; base < npairs;
-       base += kThreads, ++chunk) {
-    const int id = next_id;
-    const T v = next_v;
-    const long long p = base + kThreads + threadIdx.x;
-    if (p < npairs) {                            // prefetch the next chunk
-      next_id = idx[p];
-      next_v = vals[p];
-    } else {
-      next_id = -1;
-    }
-
-    // the pair's cell in this square, and its mirror's: (row, col) or -1
-    int row0 = -1, col0 = -1, row1 = -1, col1 = -1;
-    if (id >= 0 && id < limit) {
-      const int r = id / d1, c = id - r * d1;
-      if (r >= r0 && r < r0 + kSide && c >= c0 && c < c0 + kSide) {
-        row0 = r - r0;
-        col0 = c - c0;
-      }
-      if (symmetric && r != c && c >= r0 && c < r0 + kSide && r >= c0 &&
-          r < c0 + kSide && c < d0 && r < d1) {
-        row1 = c - r0;                           // never row0: r != c
-        col1 = r - c0;
-      }
-    }
-
-    // split the chunk's entries by row, keeping stream (thread) order:
-    // per warp and row, a count and each entry's rank among lower lanes
-    offsets[lane * 32 + warp] = 0;
-    __syncwarp();
-    int rank0 = 0, rank1 = 0;
-    unsigned todo0 = __ballot_sync(0xffffffffu, row0 >= 0);
-    unsigned todo1 = __ballot_sync(0xffffffffu, row1 >= 0);
-    while (todo0 | todo1) {                      // once per row present
-      const int src = __ffs(todo0 ? todo0 : todo1) - 1;
-      const int b = __shfl_sync(0xffffffffu, todo0 ? row0 : row1, src);
-      const unsigned in0 = __ballot_sync(0xffffffffu, row0 == b);
-      const unsigned in1 = __ballot_sync(0xffffffffu, row1 == b);
-      const unsigned in_row = in0 | in1;
-      if (row0 == b) rank0 = __popc(in_row & below);
-      if (row1 == b) rank1 = __popc(in_row & below);
-      if (lane == 0) offsets[b * 32 + warp] = __popc(in_row);
-      todo0 &= ~in0;
-      todo1 &= ~in1;
-    }
-    __syncthreads();
-    int count;
-    const int off = repro::block_exclusive_scan(offsets[threadIdx.x], &count,
-                                                red_i);
-    offsets[threadIdx.x] = off;                  // [row][warp] -> start
-    const int buf = static_cast<int>(chunk & 1);
-    if (lane == 0 && warp < kSide) row_start[buf][warp] = off;
-    if (threadIdx.x == 0) row_start[buf][kSide] = count;
-    __syncthreads();
-    if (row0 >= 0) {
-      const int pos = offsets[row0 * 32 + warp] + rank0;
-      s_col[buf][pos] = static_cast<short>(col0);
-      s_val[buf][pos] = v;
-    }
-    if (row1 >= 0) {
-      const int pos = offsets[row1 * 32 + warp] + rank1;
-      s_col[buf][pos] = static_cast<short>(col1);
-      s_val[buf][pos] = v;
-    }
-    __syncthreads();
-    // warp w adds row w's entries in stream order; the next chunk writes
-    // the other buffers, and this chunk's only after the next one's scan
-    const int end = row_start[buf][warp + 1];
-    for (int j = row_start[buf][warp]; j < end; ++j)
-      if (s_col[buf][j] == lane) acc += s_val[buf][j];
-  }
-  if (mine) out[static_cast<long long>(my_r) * d1 + my_c] = acc;
+// Raise a kernel's dynamic shared-memory limit to `bytes`, once per
+// kernel instantiation and device (the attribute call costs host time on
+// every launch otherwise): `done` is that kernel's own static array of
+// the largest limit set per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<int>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int want = static_cast<int>(bytes);
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_relaxed) >= want)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             want);
+  if (err == cudaSuccess && dev < kMaxDevices)
+    done[dev].store(want, std::memory_order_relaxed);
+  return err;
 }
 
+// -- scatter_accumulate ---------------------------------------------------
+
+constexpr int kChunkWarps = 8;                     // warps per chunk
+constexpr int kChunkThreads = 32 * kChunkWarps;
+constexpr int kMaxDigitBits = 11;
+constexpr int kSumWarps = 4;                       // sum warps per block
+constexpr int kSumWarpBytes = 8 * 1024;            // a sum warp's cells
+constexpr unsigned kDropped = 0xffffffffu;         // an entry's dropped cell
+constexpr int kGroups = 8;                         // 32-entry groups in flight
+constexpr int kScanDigits = 128;                   // digits per scan block
+constexpr int kSumGroups = 4;
+
+struct Plan {
+  int entries;      // n * k, twice that when symmetric
+  int cells;        // d0 * d1
+  int log_r;        // region of a cell: cell >> log_r
+  int log_sub;      // a sum warp's share of a region: 2^log_sub cells
+  int regions;      // ceil(cells / 2^log_r); id `regions` = dropped
+  int digit_bits;   // of the region id, per pass
+  int passes;
+  int seg;          // entries per warp per chunk, a multiple of 32
+  int chunks;       // ceil(entries / (kChunkWarps * seg))
+};
+
+// Where a pass reads its entries: pass 0 from the pairs (kFromPairs),
+// later passes from the previous pass's (cell, value) arrays.
+template <typename T>
+struct Source {
+  const T* vals;
+  const int* idx;
+  const unsigned* keys;
+  int d0, d1, symmetric;
+};
+
+__device__ __forceinline__ unsigned region_of(unsigned key, const Plan& p) {
+  return key == kDropped ? static_cast<unsigned>(p.regions) : key >> p.log_r;
+}
+
+// Entry e's cell (kDropped if it lands nowhere) and value. In stream
+// order a symmetric pair q is entries 2q (the pair) and 2q + 1 (its
+// mirror, which lands only off the diagonal and inside the matrix).
+template <typename T, bool kFromPairs>
+__device__ __forceinline__ void load_entry(const Source<T>& s, const Plan& p,
+                                           int e, unsigned& key, T& v) {
+  if (!kFromPairs) {
+    key = s.keys[e];
+    v = s.vals[e];
+    return;
+  }
+  const int q = s.symmetric ? e >> 1 : e;
+  const int id = s.idx[q];
+  v = s.vals[q];
+  key = kDropped;
+  if (id < 0 || id >= p.cells) return;
+  if (!(s.symmetric && (e & 1))) {
+    key = static_cast<unsigned>(id);
+    return;
+  }
+  const int r = id / s.d1, c = id - r * s.d1;
+  if (r != c && c < s.d0 && r < s.d1)
+    key = static_cast<unsigned>(c) * s.d1 + r;
+}
+
+// The digit of entries group g, u of a warp's segment (kFull past the
+// stream): positions base + 32 (g + u) + lane.
+template <typename T, bool kFromPairs>
+__device__ __forceinline__ void load_group(const Source<T>& s, const Plan& p,
+                                           long long base, int j, int lane,
+                                           int shift, unsigned* digit,
+                                           unsigned* key, T* v) {
+  const unsigned mask = (1u << p.digit_bits) - 1u;
+#pragma unroll
+  for (int u = 0; u < kGroups; ++u) {
+    const long long e = base + j + 32 * u + lane;
+    digit[u] = kFull;
+    key[u] = kDropped;
+    v[u] = T(0);
+    if (j + 32 * u < p.seg && e < p.entries) {
+      load_entry<T, kFromPairs>(s, p, static_cast<int>(e), key[u], v[u]);
+      digit[u] = (region_of(key[u], p) >> shift) & mask;
+    }
+  }
+}
+
+// Per chunk, the entries of each digit: counts[chunk][digit].
+template <typename T, bool kFromPairs>
+__global__ void __launch_bounds__(kChunkThreads)
+accum_count_kernel(Source<T> s, Plan p, int shift, int* __restrict__ counts) {
+  extern __shared__ int hist[];
+  const int ndigit = 1 << p.digit_bits;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < ndigit; i += kChunkThreads) hist[i] = 0;
+  __syncthreads();
+  const long long base =
+      (static_cast<long long>(blockIdx.x) * kChunkWarps + warp) * p.seg;
+  for (int j = 0; j < p.seg && base + j < p.entries; j += 32 * kGroups) {
+    unsigned digit[kGroups], key[kGroups];
+    T v[kGroups];
+    load_group<T, kFromPairs>(s, p, base, j, lane, shift, digit, key, v);
+#pragma unroll
+    for (int u = 0; u < kGroups; ++u) {
+      const unsigned peers = __match_any_sync(kFull, digit[u]);
+      if (digit[u] != kFull && lane == __ffs(peers) - 1)
+        atomicAdd(&hist[digit[u]], __popc(peers));
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < ndigit; i += kChunkThreads)
+    counts[static_cast<size_t>(blockIdx.x) * ndigit + i] = hist[i];
+}
+
+// Four (or, below 4 digits, one) counts of chunk c from digit d.
+__device__ __forceinline__ int4 load_counts(const int* counts, int c, int d,
+                                            int ndigit, int per) {
+  const int* at = counts + static_cast<size_t>(c) * ndigit + d;
+  return per == 4 ? *reinterpret_cast<const int4*>(at)
+                  : make_int4(*at, 0, 0, 0);
+}
+
+// Per digit, counts[chunk][digit] -> the digit's entries in earlier
+// chunks, and totals[digit]. A block takes kScanDigits digits; a thread
+// 4 consecutive digits (16-byte loads) of one of up to 8 slices of the
+// chunks, the slices combined in shared memory. ndigit is a power of 2.
+__global__ void __launch_bounds__(256)
+accum_scan_kernel(int* __restrict__ counts, int* __restrict__ totals,
+                  int chunks, int ndigit) {
+  __shared__ int part[4 * 256];                    // [digit][slice][quad]
+  const int per = ndigit >= 4 ? 4 : 1;
+  const int quads = min(ndigit, kScanDigits) / per;
+  int slices = 1;
+  while (slices < 8 && slices * 2 * quads <= 256) slices *= 2;
+  const int t = threadIdx.x, q = t % quads, slice = t / quads;
+  const bool active = slice < slices;
+  const int per_slice = (chunks + slices - 1) / slices;
+  const int c_lo = min(chunks, slice * per_slice);
+  const int c_hi = min(chunks, c_lo + per_slice);
+  const int d = (blockIdx.x * quads + q) * per;
+
+  int tot[4] = {0, 0, 0, 0};
+  for (int c0 = c_lo; active && c0 < c_hi; c0 += 8) {
+    int4 x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      x[u] = c0 + u < c_hi ? load_counts(counts, c0 + u, d, ndigit, per)
+                           : make_int4(0, 0, 0, 0);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      tot[0] += x[u].x;
+      tot[1] += x[u].y;
+      tot[2] += x[u].z;
+      tot[3] += x[u].w;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) part[i * 256 + t] = tot[i];
+  __syncthreads();
+  if (!active) return;
+  int run[4];
+  for (int i = 0; i < per; ++i) {
+    int earlier = 0, total = 0;
+    for (int sl = 0; sl < slices; ++sl) {
+      const int x = part[i * 256 + sl * quads + q];
+      total += x;
+      if (sl < slice) earlier += x;
+    }
+    run[i] = earlier;
+    if (slice == 0) totals[d + i] = total;
+  }
+  for (int c0 = c_lo; c0 < c_hi; c0 += 8) {        // 8 loads, then 8 stores
+    int4 x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (c0 + u < c_hi) x[u] = load_counts(counts, c0 + u, d, ndigit, per);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (c0 + u >= c_hi) break;
+      int* dst = counts + static_cast<size_t>(c0 + u) * ndigit + d;
+      if (per == 4) {
+        *reinterpret_cast<int4*>(dst) =
+            make_int4(run[0], run[1], run[2], run[3]);
+        run[1] += x[u].y;
+        run[2] += x[u].z;
+        run[3] += x[u].w;
+      } else {
+        *dst = run[0];
+      }
+      run[0] += x[u].x;
+    }
+  }
+}
+
+// Each warp walks its segment in stream order; per group of 32, the
+// lowest lane of each digit takes the group's entries of that digit
+// from its warp's running count `mine[digit]`, and each entry gets
+// that start plus its rank among lower lanes. With `kPlace` the entry
+// is written there.
+template <typename T, bool kFromPairs, bool kPlace>
+__device__ __forceinline__ void walk_segment(const Source<T>& s, const Plan& p,
+                                             long long base, int lane,
+                                             int shift, int* mine,
+                                             unsigned* keys_out, T* vals_out) {
+  const unsigned below = (1u << lane) - 1u;
+  for (int j = 0; j < p.seg && base + j < p.entries; j += 32 * kGroups) {
+    unsigned digit[kGroups], key[kGroups];
+    T v[kGroups];
+    load_group<T, kFromPairs>(s, p, base, j, lane, shift, digit, key, v);
+#pragma unroll
+    for (int u = 0; u < kGroups; ++u) {
+      const unsigned peers = __match_any_sync(kFull, digit[u]);
+      const int leader = __ffs(peers) - 1;
+      int start = 0;
+      if (digit[u] != kFull && lane == leader) {
+        start = mine[digit[u]];
+        mine[digit[u]] = start + __popc(peers);
+      }
+      start = __shfl_sync(kFull, start, leader);
+      if (kPlace && digit[u] != kFull) {
+        const int at = start + __popc(peers & below);
+        keys_out[at] = key[u];
+        vals_out[at] = v[u];
+      }
+      __syncwarp();  // the next group's leaders read what these wrote
+    }
+  }
+}
+
+// One pass of the stable counting sort: every entry of the chunk to its
+// place, stream order kept within each digit.
+template <typename T, bool kFromPairs>
+__global__ void __launch_bounds__(kChunkThreads)
+accum_place_kernel(Source<T> s, Plan p, int shift,
+                   const int* __restrict__ prefix,
+                   const int* __restrict__ totals, int* __restrict__ starts,
+                   unsigned* __restrict__ keys_out, T* __restrict__ vals_out) {
+  extern __shared__ int table[];                   // [warp][digit], base
+  __shared__ int buf[32];
+  const int ndigit = 1 << p.digit_bits;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < kChunkWarps * ndigit; i += kChunkThreads)
+    table[i] = 0;
+  // where each digit's entries start: the totals of the digits below it
+  // (a thread scans up to 8 consecutive digits); block 0 hands them to
+  // the sum kernel
+  int* digit_base = table + kChunkWarps * ndigit;
+  {
+    const int span = (ndigit + kChunkThreads - 1) / kChunkThreads;  // <= 8
+    const int first = threadIdx.x * span;
+    int tot[8];
+    int sum = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      tot[i] = i < span && first + i < ndigit ? totals[first + i] : 0;
+      sum += tot[i];
+    }
+    int all;
+    int run = repro::block_exclusive_scan(sum, &all, buf);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i < span && first + i < ndigit) {
+        digit_base[first + i] = run;
+        if (blockIdx.x == 0) starts[first + i] = run;
+      }
+      run += tot[i];
+    }
+  }
+  __syncthreads();
+  const long long base =
+      (static_cast<long long>(blockIdx.x) * kChunkWarps + warp) * p.seg;
+  int* mine = table + warp * ndigit;
+  // 1. each warp's entries per digit
+  walk_segment<T, kFromPairs, false>(s, p, base, lane, shift, mine, nullptr,
+                                     nullptr);
+  __syncthreads();
+  // 2. where each warp's entries of a digit start: the digit's base, its
+  // entries in earlier chunks, the earlier warps' counts
+  for (int d = threadIdx.x; d < ndigit; d += kChunkThreads) {
+    int run = digit_base[d] +
+              prefix[static_cast<size_t>(blockIdx.x) * ndigit + d];
+#pragma unroll
+    for (int w = 0; w < kChunkWarps; ++w) {
+      const int c = table[w * ndigit + d];
+      table[w * ndigit + d] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+  // 3. the same walk places each entry
+  walk_segment<T, kFromPairs, true>(s, p, base, lane, shift, mine, keys_out,
+                                    vals_out);
+}
+
+// First position in [0, entries) whose region is >= g (entries if
+// none), by a 32-way search of the sorted keys; every lane gets it.
+__device__ int bucket_start(const unsigned* keys, const Plan& p, unsigned g,
+                            int lane) {
+  int lo = 0, hi = p.entries;                      // the answer is in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int at = lo + lane * step;
+    const bool less = at < hi && region_of(keys[at], p) < g;
+    const int n = __popc(__ballot_sync(kFull, less));
+    if (n == 0) return lo;
+    hi = min(hi, lo + n * step);
+    lo += (n - 1) * step + 1;
+  }
+  return lo;
+}
+
+// One warp per 2^log_sub cells of a region (all of it, or one share when
+// the region is wider than a warp's shared memory): its cells from
+// `init` (or 0), the entries of the region's bucket that land there
+// added in stream order, all its cells written.
+template <typename T>
+__global__ void __launch_bounds__(32 * kSumWarps)
+accum_sum_kernel(const unsigned* __restrict__ keys, const T* __restrict__ vals,
+                 const int* __restrict__ starts, const T* __restrict__ init,
+                 T* __restrict__ out, Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long sub = static_cast<long long>(blockIdx.x) * kSumWarps + warp;
+  const int g = static_cast<int>(sub >> (p.log_r - p.log_sub));
+  const long long first = sub << p.log_sub;
+  if (first >= p.cells) return;                    // no block barrier below
+  const int side = 1 << p.log_sub;
+  T* acc = reinterpret_cast<T*>(smem) + static_cast<size_t>(warp) * side;
+  const int ncell = static_cast<int>(min(static_cast<long long>(side),
+                                         p.cells - first));
+  int lo = 0, hi = 0;
+  if (p.entries > 0) {
+    if (starts != nullptr) {                       // one pass: the scan's
+      lo = starts[g];
+      hi = starts[g + 1];
+    } else {
+      lo = bucket_start(keys, p, g, lane);
+      hi = bucket_start(keys, p, g + 1, lane);
+    }
+  }
+
+  // the cells from init, or +0.0
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  const bool vec = ((reinterpret_cast<uintptr_t>(out) |
+                     reinterpret_cast<uintptr_t>(init)) & 15u) == 0;
+  const int units = vec ? ncell / kPer : 0;
+  uint4* acc4 = reinterpret_cast<uint4*>(acc);
+  if (init != nullptr) {
+    const uint4* src = reinterpret_cast<const uint4*>(init + first);
+#pragma unroll 4
+    for (int u = lane; u < units; u += 32) acc4[u] = src[u];
+    for (int i = units * kPer + lane; i < ncell; i += 32)
+      acc[i] = init[first + i];
+  } else {
+    for (int u = lane; u < units; u += 32) acc4[u] = make_uint4(0, 0, 0, 0);
+    for (int i = units * kPer + lane; i < ncell; i += 32) acc[i] = T(0);
+  }
+  __syncwarp();
+
+  // the bucket, kSumGroups groups of 32 loaded at a time; per group the
+  // entries of one cell add in lane order, one round each
+  const unsigned below = (1u << lane) - 1u;
+  for (int b = lo; b < hi; b += 32 * kSumGroups) {
+    int c[kSumGroups];
+    T v[kSumGroups];
+#pragma unroll
+    for (int u = 0; u < kSumGroups; ++u) {
+      const int e = b + 32 * u + lane;
+      c[u] = -1;
+      v[u] = T(0);
+      if (e < hi) {
+        const long long at = static_cast<long long>(keys[e]) - first;
+        if (at >= 0 && at < ncell) {
+          c[u] = static_cast<int>(at);
+          v[u] = vals[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSumGroups; ++u) {
+      const unsigned peers = __match_any_sync(kFull, c[u]);
+      const int rank = __popc(peers & below);
+      const int last = __reduce_max_sync(kFull, c[u] >= 0 ? rank : 0);
+      for (int r = 0; r <= last; ++r) {
+        if (c[u] >= 0 && rank == r) acc[c[u]] += v[u];
+        __syncwarp();
+      }
+    }
+  }
+
+  // every cell, 16 bytes a store where aligned
+  uint4* dst = reinterpret_cast<uint4*>(out + first);
+#pragma unroll 4
+  for (int u = lane; u < units; u += 32) dst[u] = acc4[u];
+  for (int i = units * kPer + lane; i < ncell; i += 32) out[first + i] = acc[i];
+}
 
 // -- block_scatter_accumulate ---------------------------------------------
 
@@ -376,23 +704,138 @@ int launch_block_scatter(const T* vals, const int* idx, T* out, int n,
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   auto kernel = vec ? block_scatter_kernel<T, true>
                     : block_scatter_kernel<T, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static std::atomic<int> done[2][kMaxDevices];
+  const cudaError_t err = allow_smem(kernel, smem, done[vec ? 1 : 0]);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(ctas), kTileThreads, smem, stream>>>(
       vals, idx, out, n, nblk, k, block, gn, band_rows, nbands);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether scratch array [at, at + bytes) lies in [base, base + size).
+bool inside(const void* at, size_t bytes, const void* base, size_t size) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(at);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(base);
+  return bytes == 0 || (at != nullptr && a >= b && a - b <= size &&
+                        bytes <= size - (a - b));
+}
+
+// The plan comes whole from the wrapper (ops.py `make_plan`); the
+// launcher checks that it covers the matrix and the entries and that
+// every array it writes lies in the scratch it is given.
 template <typename T>
 int launch_scatter(const T* vals, const int* idx, const T* init, T* out,
-                   int n, int k, int d0, int d1, int symmetric,
+                   const void* scratch, size_t scratch_bytes, unsigned* keys0,
+                   T* vals0, unsigned* keys1, T* vals1, int* counts,
+                   int* totals, int* starts, int n, int k, int d0, int d1,
+                   int symmetric, int log_r, int log_sub, int regions,
+                   int digit_bits, int passes, int seg, int chunks,
                    cudaStream_t stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (n < 0 || k < 0 || d0 < 0 || d1 < 0) return invalid;
   if (d0 == 0 || d1 == 0) return 0;
-  const dim3 grid((d1 + kSide - 1) / kSide, (d0 + kSide - 1) / kSide);
-  accumulate_kernel<T><<<grid, kThreads, 0, stream>>>(
-      vals, idx, init, out, n, k, d0, d1, symmetric);
+  const long long cells = static_cast<long long>(d0) * d1;
+  const long long entries =
+      static_cast<long long>(n) * k * (symmetric ? 2 : 1);
+  if (cells > 0x7fffffffLL || entries > 0x7fffffc0LL) return invalid;
+  // regions of 2^log_r cells cover the matrix; ids 0..regions fit the
+  // passes' digits; a sum warp's cells fit its shared memory; the chunks
+  // cover the entries
+  if (log_r < 0 || log_r > 30 || log_sub < 0 || log_sub > log_r ||
+      (sizeof(T) << log_sub) > static_cast<size_t>(kSumWarpBytes) ||
+      regions < 1 || (static_cast<long long>(regions) << log_r) < cells ||
+      digit_bits < 1 || digit_bits > kMaxDigitBits || passes < 1 ||
+      passes * digit_bits > 31 || (regions >> (passes * digit_bits)) != 0 ||
+      seg < 32 || seg % 32 != 0 || chunks < 0 ||
+      static_cast<long long>(chunks) * kChunkWarps * seg < entries)
+    return invalid;
+  const size_t ne = static_cast<size_t>(entries);
+  const size_t ndigits = size_t{1} << digit_bits;
+  const bool two = passes > 1;
+  if (!inside(keys0, ne * 4, scratch, scratch_bytes) ||
+      !inside(vals0, ne * sizeof(T), scratch, scratch_bytes) ||
+      !inside(keys1, two ? ne * 4 : 0, scratch, scratch_bytes) ||
+      !inside(vals1, two ? ne * sizeof(T) : 0, scratch, scratch_bytes) ||
+      !inside(counts, static_cast<size_t>(chunks) * ndigits * 4, scratch,
+              scratch_bytes) ||
+      !inside(totals, ndigits * 4, scratch, scratch_bytes) ||
+      !inside(starts, ndigits * 4, scratch, scratch_bytes) ||
+      reinterpret_cast<uintptr_t>(counts) % 16 != 0)
+    return invalid;
+  Plan p;
+  p.entries = static_cast<int>(entries);
+  p.cells = static_cast<int>(cells);
+  p.log_r = log_r;
+  p.log_sub = log_sub;
+  p.regions = regions;
+  p.digit_bits = digit_bits;
+  p.passes = passes;
+  p.seg = seg;
+  p.chunks = chunks;
+
+  const int ndigit = 1 << digit_bits;
+  const size_t count_smem = static_cast<size_t>(ndigit) * sizeof(int);
+  const size_t place_smem = (kChunkWarps + 1) * count_smem;
+  const int scan_blocks = ndigit > kScanDigits ? ndigit / kScanDigits : 1;
+  const size_t sum_smem =
+      static_cast<size_t>(kSumWarps) * (sizeof(T) << p.log_sub);
+  cudaError_t err;
+  unsigned* keys_of[2] = {keys0, keys1};
+  T* vals_of[2] = {vals0, vals1};
+  if (entries > 0) {
+    static std::atomic<int> place_done[2][kMaxDevices];
+    if ((err = allow_smem(accum_place_kernel<T, true>, place_smem,
+                          place_done[0])) != cudaSuccess ||
+        (err = allow_smem(accum_place_kernel<T, false>, place_smem,
+                          place_done[1])) != cudaSuccess)
+      return static_cast<int>(err);
+    for (int pass = 0; pass < p.passes; ++pass) {
+      const int shift = pass * digit_bits;
+      const int from = (pass - 1) & 1, to = pass & 1;
+      if (pass == 0) {
+        const Source<T> src{vals, idx, nullptr, d0, d1, symmetric};
+        accum_count_kernel<T, true><<<p.chunks, kChunkThreads, count_smem,
+                                      stream>>>(src, p, shift, counts);
+        if ((err = cudaGetLastError()) != cudaSuccess)
+          return static_cast<int>(err);
+        accum_scan_kernel<<<scan_blocks, 256, 0, stream>>>(
+            counts, totals, p.chunks, ndigit);
+        if ((err = cudaGetLastError()) != cudaSuccess)
+          return static_cast<int>(err);
+        accum_place_kernel<T, true><<<p.chunks, kChunkThreads, place_smem,
+                                      stream>>>(src, p, shift, counts, totals,
+                                                starts, keys_of[to],
+                                                vals_of[to]);
+      } else {
+        const Source<T> src{vals_of[from], nullptr, keys_of[from], d0, d1,
+                            symmetric};
+        accum_count_kernel<T, false><<<p.chunks, kChunkThreads, count_smem,
+                                       stream>>>(src, p, shift, counts);
+        if ((err = cudaGetLastError()) != cudaSuccess)
+          return static_cast<int>(err);
+        accum_scan_kernel<<<scan_blocks, 256, 0, stream>>>(
+            counts, totals, p.chunks, ndigit);
+        if ((err = cudaGetLastError()) != cudaSuccess)
+          return static_cast<int>(err);
+        accum_place_kernel<T, false><<<p.chunks, kChunkThreads, place_smem,
+                                       stream>>>(src, p, shift, counts, totals,
+                                                 starts, keys_of[to],
+                                                 vals_of[to]);
+      }
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+    }
+  }
+  static std::atomic<int> sum_done[kMaxDevices];
+  if ((err = allow_smem(accum_sum_kernel<T>, sum_smem, sum_done)) !=
+      cudaSuccess)
+    return static_cast<int>(err);
+  const int last = (p.passes - 1) & 1;
+  const int* bounds = entries > 0 && p.passes == 1 ? starts : nullptr;
+  const long long warps = ((p.cells - 1LL) >> p.log_sub) + 1;
+  const int blocks = static_cast<int>((warps + kSumWarps - 1) / kSumWarps);
+  accum_sum_kernel<T><<<blocks, 32 * kSumWarps, sum_smem, stream>>>(
+      keys_of[last], vals_of[last], bounds, init, out, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -400,17 +843,27 @@ int launch_scatter(const T* vals, const int* idx, const T* init, T* out,
 
 extern "C" {
 
-int scatter_accumulate_f32(const float* vals, const int* idx, const float* init,
-                           float* out, int n, int k, int d0, int d1,
-                           int symmetric, cudaStream_t stream) {
-  return launch_scatter(vals, idx, init, out, n, k, d0, d1, symmetric, stream);
-}
+// keys0/vals0 (and keys1/vals1 when the sort takes several passes) hold
+// `entries` (cell, value) pairs each, counts chunks * 2^digit_bits ints,
+// totals and starts 2^digit_bits ints each, all within the
+// `scratch_bytes` at `scratch`: the wrapper allocates them and gives the
+// plan's fields (ops.py `make_plan`).
+#define REPRO_SCATTER_ENTRY(NAME, T)                                         \
+  int NAME(const T* vals, const int* idx, const T* init, T* out,             \
+           const void* scratch, size_t scratch_bytes, unsigned* keys0,       \
+           T* vals0, unsigned* keys1, T* vals1, int* counts, int* totals,    \
+           int* starts, int n, int k, int d0, int d1, int symmetric,         \
+           int log_r, int log_sub, int regions, int digit_bits, int passes,  \
+           int seg, int chunks, cudaStream_t stream) {                       \
+    return launch_scatter(vals, idx, init, out, scratch, scratch_bytes,      \
+                          keys0, vals0, keys1, vals1, counts, totals, starts, \
+                          n, k, d0, d1, symmetric, log_r, log_sub, regions,  \
+                          digit_bits, passes, seg, chunks, stream);          \
+  }
 
-int scatter_accumulate_f64(const double* vals, const int* idx,
-                           const double* init, double* out, int n, int k,
-                           int d0, int d1, int symmetric, cudaStream_t stream) {
-  return launch_scatter(vals, idx, init, out, n, k, d0, d1, symmetric, stream);
-}
+REPRO_SCATTER_ENTRY(scatter_accumulate_f32, float)
+REPRO_SCATTER_ENTRY(scatter_accumulate_f64, double)
+#undef REPRO_SCATTER_ENTRY
 
 int block_scatter_accumulate_f32(const float* vals, const int* idx, float* out,
                                  int n, int nblk, int k, int block, int gn,

@@ -122,7 +122,8 @@ _SIGNATURES = {
            for t in ("f32", "f64")},
     },
     "scatter_accum": {
-        **{f"scatter_accumulate_{t}": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+        **{f"scatter_accumulate_{t}": [_P] * 5 + [ctypes.c_size_t]
+           + [_P] * 7 + [_I] * 12 + [_P]
            for t in ("f32", "f64")},
         **{f"block_scatter_accumulate_{t}": [_P, _P, _P, _I, _I, _I, _I,
                                              _I, _P]

@@ -15,10 +15,14 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import LAUNCHES, ROUTES, reset_launches
 from repro_torch.kernels.adversarial import (
+    SCATTER_CASES,
     SUM_CASES,
     TOPK_CASES,
+    TWO_PASS_SHAPES,
     block_sparse_pairs,
+    scatter_pairs,
     topk_inputs,
+    two_pass_pairs,
 )
 from repro_torch.kernels.block_topk import (
     block_topk,
@@ -38,6 +42,7 @@ from repro_torch.kernels.scatter_accum import (
     scatter_accumulate,
     scatter_accumulate_ref,
 )
+from repro_torch.kernels.scatter_accum import plan as scatter_plan
 from repro_torch.kernels.tiled_matmul import (
     plan,
     subspace_iteration,
@@ -95,6 +100,71 @@ def test_scatter_accumulate_kernel_matches_plain(cuda, symmetric):
         want = scatter_accumulate_ref(v, i, (300, 300), symmetric=symmetric,
                                       init=seed)
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_scatter_accumulate_matches_plain_on_adversarial_pairs(cuda, case,
+                                                              dtype):
+    """K2 against its plain version on the CPU, bit for bit: every pair
+    on one cell, the diagonal (symmetric), all padding, indices past the
+    matrix, a ragged n * k, a (1, 90,000) row, mirrors outside a 30 x 70
+    matrix, -0.0 init and values, a silo scaled by 0 (which equals the
+    silo left out), 142 silos on the same hot cells."""
+    args = scatter_pairs(case, dtype, seed=23)
+    silo = args.pop("zero_silo", None)
+    on_card = {**args, "values": args["values"].to(cuda),
+               "indices": args["indices"].to(cuda),
+               "init": None if args["init"] is None else args["init"].to(cuda)}
+    got = scatter_accumulate(**on_card).cpu()
+    want = scatter_accumulate_ref(**args)
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(got.view(bits), want.view(bits))
+    if silo is not None:
+        dropped = on_card["indices"].clone()
+        dropped[silo] = -1
+        alone = scatter_accumulate(**{**on_card, "indices": dropped}).cpu()
+        assert torch.equal(alone.view(bits), got.view(bits))
+
+
+@pytest.mark.parametrize("n,k,d,symmetric", [
+    (142, 300, 300, False), (142, 300, 300, True), (16, 4096, 1100, False),
+    (142, 2048, 2048, False), (2, 10, 10, True)])
+def test_scatter_accumulate_kernel_matches_plain_at_path_shapes(
+        cuda, n, k, d, symmetric):
+    """w8a's Top-K (plain and symmetric), d = 1,100, the K3 shape (d =
+    2,048 f64, k = d) and a matrix of one region (a sort of 2 digits),
+    bit for bit against the CPU plain version."""
+    gen = torch.Generator().manual_seed(8)
+    v, i = _pairs(n, k, d * d, gen)
+    hot = torch.randint(0, d * d, (64,), generator=gen).to(torch.int32)
+    i[:, ::4] = hot[torch.randint(0, 64, (n, (k + 3) // 4), generator=gen)]
+    got = scatter_accumulate(v.to(cuda), i.to(cuda), (d, d),
+                             symmetric=symmetric)
+    assert torch.equal(got.cpu(), scatter_accumulate_ref(v, i, (d, d),
+                                                         symmetric=symmetric))
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scatter_accumulate_two_pass_sort_matches_plain(cuda, dtype, which,
+                                                        symmetric):
+    """Over 2,047 regions (a flat row and a square per dtype), where the
+    sort takes two passes and each sum warp searches for its bucket;
+    init when symmetric. Bit for bit against the CPU plain version."""
+    shape = TWO_PASS_SHAPES[dtype][which]
+    args = two_pass_pairs(shape, symmetric, dtype, seed=26)
+    n, k = args["values"].shape
+    assert scatter_plan(n, k, *shape, symmetric,
+                        args["values"].element_size()).passes == 2
+    got = scatter_accumulate(**{**args, "values": args["values"].to(cuda),
+                                "indices": args["indices"].to(cuda),
+                                "init": None if args["init"] is None
+                                else args["init"].to(cuda)}).cpu()
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(got.view(bits),
+                       scatter_accumulate_ref(**args).view(bits))
 
 
 def test_block_scatter_accumulate_kernel_matches_plain(cuda):
