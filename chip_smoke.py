@@ -19,7 +19,10 @@ Phases, each failing the run with a non-zero exit:
      cells within and across silos, padding, out-of-range indices,
      blocks 8, 128 and 256; K2's one cell, diagonal, all padding,
      (1, 90,000) row, mirrors outside the matrix, -0.0 init, a silo
-     scaled by 0, hot cells);
+     scaled by 0, hot cells); K2 and K4 also bit for bit on the FedNL
+     variants' traffic: Rand-K's indices at w8a, a FedNL-PP round's
+     payloads with 28 of 142 silos weighted 1 and the rest 0 (equal bit
+     for bit to the 28 alone), and K2 into (1, 300) and (1, 4,096) rows;
   4. drive FedNL Options 1 and 2 on the w8a stand-in (n=142, m=350,
      d=300, f64) for Top-K (k=d), symmetric Top-K (k=d), Rank-R (1) and
      Block-Top-K (8), 20 rounds each, through ``FedNL.run``; assert the
@@ -30,6 +33,17 @@ Phases, each failing the run with a non-zero exit:
      then K2's timings (``k2_measure``: w8a and the K3 shape, plain and
      symmetric, the K3 shape with 0 and 100 % hot cells; launches per
      call as the profiler records them) while the profiler is fresh;
+  4b. FedNL variants on w8a: FedNL-PP (Top-K k=d and Block-Top-K 8, tau
+     28 and 71), FedNL-CR (Top-K), FedNL-LS (Block-Top-K), FedNL-BC
+     (Top-K, downlink Top-K d/2, p=0.5), FedNL with Rand-K (k=d) and with
+     PowerSGD (r=1), fednl-stoch (half of each silo's points a round) and
+     fednl-ppbc (Top-K), newton, n0, ns, n0-ls, DIANA and Artemis (Rand-K
+     on the gradient), seed 0, 20 rounds each, through the entry points
+     (``make_method``, ``run``); each ||x^20 - x*|| under its bound from
+     the reference (``VARIANT_RATIO``), K1, K2 and K4 launched on the
+     path; the card against the CPU port on a1a-sized data to 1e-8
+     (every draw from a CPU generator, so the same draws); each run's
+     median ms per round;
   5. drive the curvature-learning optimizer ``fednl_precond`` (k=2048 per
      128 x 128 tile) over all 14 tensors of qwen2-0.5B (494,032,768
      parameters, bf16, random from --seed) with 4 silos of Fisher
@@ -391,6 +405,38 @@ def check_fednl_kernels(dev, err: dict) -> None:
                                dtype=dtype)
             same(f"w8a with init, symmetric {symmetric}", vals, idx, 300,
                  symmetric, init)
+        # the FedNL variants' traffic: Rand-K's indices (each silo a
+        # uniform permutation's prefix, in random order) at w8a; a
+        # FedNL-PP round's payloads, 28 of 142 silos weighted 1 and the
+        # rest 0, which must sum bit for bit as the 28 alone; vector
+        # payloads (DIANA, Artemis) into a (1, 300) and a (1, 4,096) row
+        host = torch.Generator().manual_seed(5)
+        bits = torch.int64 if dtype == torch.float64 else torch.int32
+
+        def randk(n, k, size):
+            return torch.stack([torch.randperm(size, generator=host)[:k]
+                                for _ in range(n)]).to(
+                device=dev, dtype=torch.int32).contiguous()
+
+        rvals = torch.randn((142, 300), generator=gen, device=dev, dtype=dtype)
+        same("w8a Rand-K", rvals, randk(142, 300, 300 * 300), 300)
+        active = torch.zeros(142, dtype=torch.bool)
+        active[torch.randperm(142, generator=host)[:28]] = True
+        active = active.to(dev)
+        weight = active.to(dtype)
+        vals, idx = pairs(142, 300, 300, False)
+        x0 = same("w8a, a FedNL-PP round's weights",
+                  (vals * weight[:, None]).contiguous(), idx, 300)
+        x1 = same("w8a, a FedNL-PP round's active silos", vals,
+                  torch.where(active[:, None], idx, -1).contiguous(), 300)
+        require(torch.equal(x0.view(bits), x1.view(bits)),
+                "scatter_accumulate: FedNL-PP's weight-0 silos changed the "
+                "sum")
+        for width, k in ((300, 30), (4096, 410)):
+            vvals = torch.randn((142, k), generator=gen, device=dev,
+                                dtype=dtype)
+            same(f"a (1, {width}) row", vvals, randk(142, k, width),
+                 (1, width))
         # d = 1,100 and the K3 shape: the TPU's output-tiled regime (d >=
         # 1,025 in f64), at Top-K k = d over 142 silos for d = 2,048
         for n, k, d in ((16, 4096, 1100), (142, 2048, 2048)):
@@ -408,7 +454,7 @@ def check_fednl_kernels(dev, err: dict) -> None:
                 same(f"{shape}, two sort passes, symmetric {symmetric}",
                      args["values"], args["indices"], shape, symmetric,
                      args["init"])
-        del vals, idx, dropped, init, x0, x1, args
+        del vals, idx, dropped, init, x0, x1, args, rvals, vvals
 
         bi = torch.randint(0, 128 * 128, (142, 9, 8), generator=gen, device=dev)
         bi[:, :, 3] = bi[:, :, 1]
@@ -423,6 +469,17 @@ def check_fednl_kernels(dev, err: dict) -> None:
         if dtype == torch.float64:
             err["block_scatter_accumulate"] = max(
                 err["block_scatter_accumulate"], e)
+        # a FedNL-PP round's block payloads: weight 0 changes nothing
+        bw = (bv * weight[:, None, None]).contiguous()
+        got = block_scatter_accumulate(bw, bi, (3, 3), 128).cpu()
+        want = block_scatter_accumulate_ref(bw.cpu(), bi.cpu(), (3, 3), 128)
+        kept = block_scatter_accumulate(
+            bv, torch.where(active[:, None, None], bi, -1).contiguous(),
+            (3, 3), 128).cpu()
+        require(torch.equal(got.view(bits), want.view(bits))
+                and torch.equal(got.view(bits), kept.view(bits)),
+                f"block_scatter_accumulate: FedNL-PP's weight-0 silos "
+                f"changed the sum ({dtype})")
     check_adversarial(dev)
     torch.cuda.synchronize()
 
@@ -599,6 +656,205 @@ def fednl_w8a(dev, prob, x0, K) -> dict:
             require(gap <= 1e-8, f"a1a {family} option {option}: card vs CPU "
                     f"gap {gap:.2e}")
     print("# a1a: card iterates match the CPU port to 1e-8", flush=True)
+    return launches
+
+
+# -- phase 4b: FedNL variants on w8a -------------------------------------------
+
+# ||x^20 - x*|| / ||x^0 - x*|| of the JAX reference on its own w8a draws
+# (x0 = 0, ||x0 - x*|| = 2.6326945144070444), f64 on the CPU, the worst
+# of seeds 0-4 for a randomized run, from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_w8a_fednl.py --variants
+# The port runs seed 0 on its own draws of the same shapes: its
+# ||x^20 - x*|| must stay under twice the ratio times its own
+# ||x0 - x*||, and never below 1e-9, as phase 4's bound.
+VARIANT_RATIO = {
+    "pp-topk-tau28": 0.11719373085773886,
+    "pp-topk-tau71": 0.08177540661220406,
+    "pp-blocktopk-tau28": 0.11938175809798668,
+    "pp-blocktopk-tau71": 0.08543234087049228,
+    "cr-topk": 0.7806104998003254,
+    "ls-blocktopk": 2.1715769030154446e-09,
+    "bc-topk": 8.512120959378604e-06,
+    "fednl-randk": 5.11636267963348e-09,
+    "fednl-powersgd": 0.013335457820175693,
+    "stoch-topk": 0.5355960348430475,
+    "ppbc-topk": 0.16363813617286493,
+    "newton": 8.641077179687332e-17,
+    "n0": 6.898411927615837e-09,
+    "ns": 8.3237630477544e-17,
+    "n0-ls": 1.1817479095191405e-08,
+    "diana-randk": 0.9655598291978416,
+    "artemis-randk": 0.9838289861608442,
+}
+VARIANT_ROUNDS_A1A = 12
+
+
+def variant_methods(prob) -> dict:
+    """The phase's runs at the problem's n and d: Top-K at k = d,
+    Block-Top-K 8 per 128^2 tile, tau = 0.2 n and 0.5 n (Fig. 9), the
+    downlinks Top-K at d/2, Rand-K on the Hessian at k = d (alpha =
+    1/(omega + 1)) and on the gradient at k = d/10."""
+    import torch
+    from repro_torch.core import (
+        FedNL,
+        PowerSGD,
+        RandK,
+        SubsampledHessian,
+        TopK,
+        make_compressor,
+    )
+    from repro_torch.core.baselines import Artemis, Diana
+    from repro_torch.engine import Oracles, make_method
+
+    d, n = prob["d"], prob["n"]
+    data, consts = prob["data"], prob["consts"]
+    oracles = Oracles(prob["val"], prob["grad"], prob["hess"])
+    topk, block, down = TopK(d), make_compressor("blocktopk", 8), TopK(d // 2)
+    randk, grad_k = RandK(d), RandK(d // 10)
+    omega = grad_k.spec((d,)).omega
+    tau = {"tau28": round(0.2 * n), "tau71": round(0.5 * n)}
+    hstar = torch.mean(prob["hess"](prob["xstar"]), dim=0)
+    runs = {f"pp-{name}-{t}": make_method("fednl-pp", oracles, comp,
+                                          tau=tau[t])
+            for name, comp in (("topk", topk), ("blocktopk", block))
+            for t in tau}
+    runs.update({
+        "cr-topk": make_method("fednl-cr", oracles, topk,
+                               l_star=consts["L_star"]),
+        "ls-blocktopk": make_method("fednl-ls", oracles, block, mu=MU),
+        "bc-topk": make_method("fednl-bc", oracles, topk,
+                               model_compressor=down, p=0.5, option=1, mu=MU),
+        "fednl-randk": FedNL(prob["grad"], prob["hess"], randk, option=1,
+                             mu=MU,
+                             alpha=1.0 / (randk.spec((d, d)).omega + 1.0)),
+        "fednl-powersgd": FedNL(prob["grad"], prob["hess"], PowerSGD(1),
+                                option=2),
+        "stoch-topk": make_method(
+            "fednl-stoch", oracles, topk,
+            hess_fn_stoch=SubsampledHessian(data, data.a.shape[1] // 2)),
+        "ppbc-topk": make_method("fednl-ppbc", oracles, topk,
+                                 model_compressor=down, tau=tau["tau28"]),
+        "newton": make_method("newton", oracles),
+        "n0": make_method("n0", oracles),
+        "ns": make_method("ns", oracles, h_fixed=hstar),
+        "n0-ls": make_method("n0-ls", oracles),
+        "diana-randk": Diana(prob["grad"], grad_k, consts["L"], n, omega),
+        "artemis-randk": Artemis(prob["grad"], grad_k, consts["L"], n, omega,
+                                 tau=tau["tau28"]),
+    })
+    return runs
+
+
+def fednl_variants_w8a(dev, prob, x0, K, card: str) -> dict:
+    """The FedNL variants, the Newton family and DIANA/Artemis on w8a
+    (seed 0, ROUNDS rounds each) against their reference bounds, with
+    K1, K2 and K4 launched on the path; the runs whose bound would pass
+    an unmoved x also against the CPU port on w8a; then the card against
+    the CPU port on a1a-sized data (same seeds, same draws: every draw
+    comes from a CPU generator, so the checks are exact to 1e-8); then
+    each run's median ms per round (6 rounds after a warm-up). Returns
+    the path's launches."""
+    import torch
+    from repro_torch.core import solve_cubic_subproblem
+    from repro_torch.data import problem_from_data
+    from repro_torch.data.synthetic import make_libsvm_like
+
+    t_phase = time.perf_counter()
+    d, n = prob["d"], prob["n"]
+    err0 = float(torch.linalg.vector_norm(x0 - prob["xstar"]))
+    runs = variant_methods(prob)
+    require(set(runs) == set(VARIANT_RATIO), "the phase's runs and their "
+            "reference ratios differ")
+    K.reset_launches()
+    t_main = time.perf_counter()
+    finals = {name: alg.run(x0, n, ROUNDS, seed=0)[1]
+              for name, alg in runs.items()}
+    torch.cuda.synchronize()
+    launches = counts(K)
+    t_main = time.perf_counter() - t_main
+    print(f"# FedNL variants path: {len(runs)} runs x {ROUNDS} rounds on "
+          f"w8a in {t_main:.1f} s; launches {json.dumps(launches)}",
+          flush=True)
+    for name, xs in finals.items():
+        require(xs.shape == (ROUNDS + 1, d) and bool(torch.isfinite(xs).all()),
+                f"{name}: non-finite or misshapen iterates")
+        e = float(torch.linalg.vector_norm(xs[-1] - prob["xstar"]))
+        limit = max(1e-9, 2 * VARIANT_RATIO[name] * err0)
+        print(f"# w8a {name}: ||x0-x*|| {err0:.6e} -> ||x{ROUNDS}-x*|| "
+              f"{e:.6e} (bound {limit:.6e})")
+        require(e < limit, f"{name}: ||x-x*|| = {e:.3e} >= {limit}")
+    for name in ("diff_topk_payload", "scatter_accumulate",
+                 "block_scatter_accumulate"):
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the variants path")
+
+    # a bound at or above ||x0 - x*|| passes a run that never moves x:
+    # those runs are held to the CPU port on the same data and draws
+    cpu = problem_from_data(prob["data"]._replace(a=prob["data"].a.cpu(),
+                                                  b=prob["data"].b.cpu()))
+    cpu_runs = variant_methods(cpu)
+    for name in [r for r in runs if 2 * VARIANT_RATIO[r] >= 1]:
+        xs = cpu_runs[name].run(torch.zeros(d, dtype=torch.float64), n,
+                                ROUNDS, seed=0)[1]
+        gap = float(torch.max(torch.abs(finals[name].cpu() - xs)))
+        print(f"# w8a {name}: card vs CPU port gap {gap:.3e} over "
+              f"{ROUNDS} rounds", flush=True)
+        require(gap <= 1e-8, f"w8a {name}: card vs CPU gap {gap:.2e}")
+    print("# FedNL variants path: diff_topk_payload "
+          f"{launches['diff_topk_payload']}, scatter_accumulate "
+          f"{launches['scatter_accumulate']}, block_scatter_accumulate "
+          f"{launches['block_scatter_accumulate']} launches", flush=True)
+
+    # the card against the CPU port on a1a-sized data
+    small = make_libsvm_like(torch.Generator().manual_seed(1), "a1a")
+    probs = (problem_from_data(small),
+             problem_from_data(small._replace(a=small.a.to(dev),
+                                              b=small.b.to(dev))))
+    both = [variant_methods(p) for p in probs]
+    for name in runs:
+        xs = []
+        for p, methods in zip(probs, both):
+            z = torch.zeros(p["d"], dtype=torch.float64,
+                            device=p["xstar"].device)
+            xs.append(methods[name].run(z, p["n"], VARIANT_ROUNDS_A1A,
+                                        seed=0)[1].cpu())
+        gap = float(torch.max(torch.abs(xs[0] - xs[1])))
+        require(gap <= 1e-8, f"a1a {name}: card vs CPU gap {gap:.2e}")
+    print(f"# a1a: the card's iterates of all {len(runs)} runs match the "
+          "CPU port to 1e-8", flush=True)
+
+    # ms per round; FedNL-LS's line search reads each probe's value on the
+    # host and FedNL-CR's cubic solve is 100 serial bisection steps, so
+    # their times are shown beside the rounds'
+    probe_ms = []
+    val = prob["val"]
+
+    def timed_val(x):
+        ms, v = host_ms(lambda: val(x))
+        probe_ms.append(ms)
+        return v
+
+    round_ms, extra = {}, {}
+    for name, alg in variant_methods(dict(prob, val=timed_val)).items():
+        state = alg.step(alg.init(x0, n, seed=1))     # a warm-up round
+        probe_ms.clear()
+        times = []
+        for _ in range(6):
+            ms, state = host_ms(lambda: alg.step(state))
+            times.append(ms)
+        round_ms[name] = statistics.median(times)
+        if name == "ls-blocktopk":
+            extra["ls_value_calls_per_round"] = len(probe_ms) / 6
+            extra["ls_value_ms_per_round"] = sum(probe_ms) / 6
+        if name == "cr-topk":
+            g = torch.mean(prob["grad"](state.x), dim=0)
+            extra["cr_cubic_solve_ms"] = statistics.median(
+                host_ms(lambda: solve_cubic_subproblem(
+                    g, state.h_global, alg.l_star))[0] for _ in range(6))
+    print(json.dumps({"variants_round_ms_median": round_ms, **extra,
+                      "phase_s": time.perf_counter() - t_phase,
+                      "card": card}), flush=True)
     return launches
 
 
@@ -1974,6 +2230,8 @@ def main() -> int:
         prob = make_problem("w8a", seed=0, device=dev)
         x0 = torch.zeros(prob["d"], dtype=torch.float64, device=dev)
         paths = {"fednl_w8a": fednl_w8a(dev, prob, x0, K)}
+        paths["fednl_variants_w8a"] = fednl_variants_w8a(dev, prob, x0, K,
+                                                         card)
         paths["topk_aggregate_d2048"], k3_pay = topk_aggregate_k3(dev, K, err)
         k2 = k2_measure(dev, prob, x0, k3_pay)
         pre = precond_qwen2(dev, args.seed, K, err)

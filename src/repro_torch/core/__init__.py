@@ -1,5 +1,7 @@
-"""FedNL core in PyTorch: Algorithm 1, its compressors, the eq. (10)
-oracles and the Newton-step linear algebra."""
+"""FedNL core in PyTorch: Algorithm 1 and its variants (PP, CR, LS, BC,
+stochastic Hessians, PP-BC), the Newton family, the paper's baselines,
+the compressors, the eq. (10) oracles and the Newton-step linear
+algebra."""
 
 from .compressors import (
     BlockSparsePayload,
@@ -8,22 +10,56 @@ from .compressors import (
     Compressor,
     CompSpec,
     DensePayload,
+    DitheredPayload,
     Identity,
     LowRankPayload,
+    NaturalSparsification,
+    PowerSGD,
+    RandK,
+    RandomDithering,
     RankR,
     SparsePayload,
     TopK,
     Zero,
+    ab_constants,
     alpha_for,
     available_compressors,
     make_compressor,
+    register_compressor,
     scale_payload,
 )
+from .extensions import (
+    ExactHessian,
+    FedNLPPBC,
+    FedNLPPBCState,
+    StochasticFedNL,
+    SubsampledHessian,
+)
 from .fednl import FedNL, FedNLState
-from .linalg import frob_norm, project_psd, solve_newton_system, symmetrize
-from .newton import newton_run, newton_step
+from .fednl_bc import FedNLBC, FedNLBCState
+from .fednl_cr import FedNLCR
+from .fednl_ls import FedNLLS
+from .fednl_pp import FedNLPP, FedNLPPState
+from .linalg import (
+    frob_norm,
+    project_psd,
+    solve_cubic_subproblem,
+    solve_newton_system,
+    symmetrize,
+)
+from .newton import (
+    FixedHessian,
+    N0LS,
+    Newton,
+    backtracking,
+    fixed_hessian_run,
+    n0_ls_run,
+    newton_run,
+    newton_step,
+)
 from .objectives import (
     LogRegData,
+    QuadData,
     batch_grad,
     batch_hess,
     batch_value,

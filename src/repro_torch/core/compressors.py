@@ -1,12 +1,21 @@
 """Compression operators for FedNL (Definitions 3.2 and 3.3) as wire
-codecs — the slice of ``repro.core.compressors`` that Algorithm 1 runs.
+codecs, counterpart of ``repro.core.compressors``.
 
 Every compressor works on a STACK of silo matrices: the silo axis that
 the reference vmaps over is the leading dimension here.
 
-    payload = comp.compress(m)                # m: (n, *shape)
+    payload = comp.compress(m, gen)           # m: (n, *shape)
     dense   = comp.decompress(payload, shape) # (n, *shape)
     mean    = comp.aggregate(payload, shape)  # (*shape) server mean
+
+A randomized compressor (Def 3.2) splits ``compress`` into two steps:
+``draw(n, shape, dtype, gen)``, the random variates from a
+``torch.Generator`` (Rand-K's indices, dithering's uniforms, natural
+sparsification's mask), and ``apply(m, draw)``, the deterministic rest.
+``compress`` does both and raises without a generator, as the
+reference asserts on its key; a caller that holds the draws (a method's
+round-draw source, or a test replaying the reference's) calls ``apply``.
+A deterministic compressor draws nothing: its ``apply`` is ``compress``.
 
 The server never decompresses a silo: ``aggregate`` sums the stacked
 payloads straight into one dense accumulator — the ``scatter_accum``
@@ -31,6 +40,7 @@ from ..kernels.block_topk import (
     to_tiles,
 )
 from ..kernels.scatter_accum import block_scatter_accumulate, scatter_accumulate
+from .linalg import frob_norm
 
 FLOAT_BITS = 64  # the paper counts double-precision floats
 INDEX_BITS = 32
@@ -76,9 +86,25 @@ class LowRankPayload:
 
 @dataclasses.dataclass(frozen=True)
 class DensePayload:
-    """A dense array shipped as-is; ``count`` entries on the wire."""
+    """A dense array shipped as-is; ``count`` entries on the wire,
+    ``indexed`` if each also ships an index (Bernoulli sparsification,
+    charged its expected occupancy int(p * numel) of ``universe``)."""
 
     values: torch.Tensor
+    count: int = 0
+    indexed: bool = False
+    universe: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class DitheredPayload:
+    """Random dithering: one q-norm per silo, and per entry a sign and an
+    integer-valued level in [0, s], stored as floats."""
+
+    norm: torch.Tensor    # (n, 1)
+    signs: torch.Tensor   # (n, *shape)
+    levels: torch.Tensor  # (n, *shape)
+    s: int = 1
     count: int = 0
 
 
@@ -96,8 +122,14 @@ def _scatter_flat(values: torch.Tensor, indices: torch.Tensor,
 
 def scale_payload(payload, w: torch.Tensor):
     """Payload whose decoded matrices are w_i * decompress(payload_i):
-    the one leaf each format is linear in (values; low-rank middle)."""
-    field = "middle" if isinstance(payload, LowRankPayload) else "values"
+    the one leaf each format is linear in (values; low-rank middle;
+    dithering's signs)."""
+    if isinstance(payload, LowRankPayload):
+        field = "middle"
+    elif isinstance(payload, DitheredPayload):
+        field = "signs"
+    else:
+        field = "values"
     leaf = getattr(payload, field)
     w = torch.as_tensor(w, dtype=leaf.dtype, device=leaf.device)
     wb = w.reshape(w.shape + (1,) * (leaf.dim() - w.dim()))
@@ -121,7 +153,8 @@ def _sparse_aggregate(payloads: SparsePayload, shape,
 
 def _lowrank_aggregate(payloads: LowRankPayload) -> torch.Tensor:
     """mean_i (left_i * middle_i) @ right_i^T as one contraction over
-    (silo, rank)."""
+    (silo, rank); ``middle`` is (n, r) values or PowerSGD's (n, 1)
+    rescale."""
     left, right, mid = payloads.left, payloads.right, payloads.middle
     n = left.shape[0]
     return torch.einsum("nir,njr->ij", left * mid[:, None, :], right) / n
@@ -146,16 +179,26 @@ class CompSpec(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Compressor:
     """A compression operator on a silo stack; ``__call__`` is always
-    ``decompress(compress(m))``."""
+    ``decompress(compress(m, gen))``. Deterministic compressors ignore
+    ``gen``."""
 
-    def compress(self, m: torch.Tensor):
+    def compress(self, m: torch.Tensor, gen=None):
         raise NotImplementedError
+
+    def draw(self, n: int, shape, dtype, gen) -> Optional[torch.Tensor]:
+        """The random variates of n silos' compressions at ``shape``, on
+        ``gen``'s device; None for a deterministic compressor."""
+        return None
+
+    def apply(self, m: torch.Tensor, draw=None):
+        """``compress`` with its random variates given."""
+        return self.compress(m)
 
     def decompress(self, payload, shape) -> torch.Tensor:
         raise NotImplementedError
 
-    def __call__(self, m: torch.Tensor) -> torch.Tensor:
-        return self.decompress(self.compress(m), m.shape[1:])
+    def __call__(self, m: torch.Tensor, gen=None) -> torch.Tensor:
+        return self.decompress(self.compress(m, gen), m.shape[1:])
 
     def aggregate(self, payloads, shape, weights=None) -> torch.Tensor:
         """Server mean over silos, ``mean_i w_i * decompress(payload_i)``.
@@ -234,7 +277,7 @@ class TopK(Compressor):
             return shape[0] * (shape[0] + 1) // 2
         return numel(shape)
 
-    def compress(self, m: torch.Tensor) -> SparsePayload:
+    def compress(self, m: torch.Tensor, gen=None) -> SparsePayload:
         shape = tuple(m.shape[1:])
         n = m.shape[0]
         flat = (torch.tril(m) if self._sym(shape) else m).reshape(n, -1)
@@ -324,7 +367,7 @@ class BlockTopK(_BlockSparse):
     (b x b) tile, delta = k_per_block / b^2. ``compress`` is the
     sort-based selection; the FedNL uplink uses ``fused_diff_payloads``."""
 
-    def compress(self, m: torch.Tensor) -> BlockSparsePayload:
+    def compress(self, m: torch.Tensor, gen=None) -> BlockSparsePayload:
         tiles = to_tiles(m, self.block)
         idx = _topk_indices(torch.abs(tiles), self._k())
         return BlockSparsePayload(values=torch.gather(tiles, 2, idx),
@@ -341,7 +384,7 @@ class BlockTopKThreshold(_BlockSparse):
     ``compress`` is the ``block_topk_payload`` kernel, bracketing also
     when k covers the tile, as the reference class does."""
 
-    def compress(self, m: torch.Tensor) -> BlockSparsePayload:
+    def compress(self, m: torch.Tensor, gen=None) -> BlockSparsePayload:
         vals, idx = block_topk_payload(m, self._k(), self.block,
                                        bisect_all=True)
         return BlockSparsePayload(values=vals, indices=idx,
@@ -358,7 +401,7 @@ class RankR(Compressor):
     r: int
     symmetric: bool = True
 
-    def compress(self, m: torch.Tensor) -> LowRankPayload:
+    def compress(self, m: torch.Tensor, gen=None) -> LowRankPayload:
         if self.symmetric:
             lam, q = torch.linalg.eigh(0.5 * (m + m.transpose(1, 2)))
             idx = _topk_indices(torch.abs(lam), min(self.r, lam.shape[-1]))
@@ -389,12 +432,74 @@ class RankR(Compressor):
                         deterministic=True)
 
 
+
+def _orthonormalize(q: torch.Tensor) -> torch.Tensor:
+    """Q of the reduced QR (Householder, as ``jnp.linalg.qr``)."""
+    return torch.linalg.qr(q)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class PowerSGD(Compressor):
+    """Rank-R approximation by ``iters`` rounds of subspace iteration
+    (Vogels et al. 2019), scaled so ||C(M)||_F <= ||M||_F. Deterministic:
+    the start subspace is a normal draw from ``seed`` in m's dtype, the
+    same for every silo. Products are plain ``@`` in m's dtype, as the
+    reference computes them. The payload is the two factors and the
+    rescale float."""
+
+    r: int
+    iters: int = 2
+    seed: int = 0
+
+    def start(self, d1: int, dtype, device) -> torch.Tensor:
+        """The (d1, r) start subspace drawn from ``seed``."""
+        gen = torch.Generator().manual_seed(self.seed)
+        return torch.randn((d1, self.r), generator=gen,
+                           dtype=dtype).to(device)
+
+    def compress(self, m: torch.Tensor, gen=None) -> LowRankPayload:
+        return self.apply(m)
+
+    def apply(self, m: torch.Tensor, draw=None) -> LowRankPayload:
+        """``draw``: the (d1, r) start subspace; None draws it from
+        ``seed``."""
+        q = self.start(m.shape[2], m.dtype, m.device) if draw is None else draw
+        q = _orthonormalize(q)
+        mt = m.transpose(1, 2)
+        for _ in range(self.iters):
+            p = _orthonormalize(m @ q)          # (n, d0, r)
+            q = _orthonormalize(mt @ p)         # (n, d1, r)
+        p = m @ q                               # un-normalized left factor
+        num = frob_norm(m)
+        den = frob_norm(p @ q.transpose(1, 2))
+        scale = torch.clamp(num / torch.clamp(den, min=1e-30), max=1.0)
+        return LowRankPayload(left=p, right=q, middle=scale[:, None])
+
+    def decompress(self, payload: LowRankPayload, shape) -> torch.Tensor:
+        return ((payload.left @ payload.right.transpose(1, 2))
+                * payload.middle[:, :, None])
+
+    def aggregate(self, payloads: LowRankPayload, shape,
+                  weights=None) -> torch.Tensor:
+        # (L_i @ R_i^T) * mid_i == (L_i * mid_i) @ R_i^T: Rank-R's sum
+        if weights is not None:
+            payloads = scale_payload(payloads, weights)
+        return _lowrank_aggregate(payloads)
+
+    def spec(self, shape) -> CompSpec:
+        r = min(self.r, min(shape))
+        return CompSpec(delta=r / min(shape), omega=None,
+                        bits=self.r * FLOAT_BITS * (shape[0] + shape[1])
+                        + FLOAT_BITS,  # + the rescale float
+                        deterministic=True)
+
+
 @dataclasses.dataclass(frozen=True)
 class Identity(Compressor):
     """C = I (classical Newton's communication)."""
 
-    def compress(self, m: torch.Tensor) -> DensePayload:
-        return DensePayload(values=m, count=numel(m.shape[1:]))
+    def compress(self, m: torch.Tensor, gen=None) -> DensePayload:
+        return DensePayload(values=m, count=numel(m.shape[1:]), indexed=False)
 
     def decompress(self, payload: DensePayload, shape) -> torch.Tensor:
         return payload.values.reshape((-1, *shape))
@@ -410,7 +515,7 @@ class Identity(Compressor):
 class Zero(Compressor):
     """C = 0 (Newton-Zero / Newton-Star). The payload is empty."""
 
-    def compress(self, m: torch.Tensor) -> SparsePayload:
+    def compress(self, m: torch.Tensor, gen=None) -> SparsePayload:
         n = m.shape[0]
         return SparsePayload(values=m.reshape(n, -1)[:, :0],
                              indices=torch.zeros((n, 0), dtype=torch.int32,
@@ -432,6 +537,184 @@ class Zero(Compressor):
 
 
 # ---------------------------------------------------------------------------
+# Unbiased compressors  B(omega)  — Def 3.2
+# ---------------------------------------------------------------------------
+
+
+def _need_gen(comp, gen) -> None:
+    if gen is None:
+        raise ValueError(f"{type(comp).__name__} is randomized; pass a "
+                         "torch.Generator (or its draws to apply)")
+
+
+@dataclasses.dataclass(frozen=True)
+class RandK(Compressor):
+    """Rand-K with the numel/K rescale folded into the values (paper
+    A.3.4), omega = numel/K - 1. The draw is each silo's K indices, the
+    prefix of a uniform permutation."""
+
+    k: int
+
+    def draw(self, n: int, shape, dtype, gen) -> torch.Tensor:
+        size = numel(shape)
+        k = min(self.k, size)
+        if k * k > size:   # a repeat is likely: the k least of size keys
+            keys = torch.rand(n, size, generator=gen, dtype=torch.float64,
+                              device=gen.device)
+            return torch.topk(keys, k, dim=1, largest=False).indices
+        # k uniform indices a row, the rows that repeat one drawn again: a
+        # row without a repeat is a uniform ordered k-subset, and one is
+        # so with probability about exp(-k^2 / 2 size) >= exp(-1/2)
+        idx = torch.empty(n, k, dtype=torch.int64, device=gen.device)
+        todo = torch.arange(n, device=gen.device)
+        while todo.numel():
+            cand = torch.randint(size, (todo.numel(), k), generator=gen,
+                                 device=gen.device)
+            s = torch.sort(cand, dim=1).values
+            ok = torch.all(s[:, 1:] != s[:, :-1], dim=1)
+            idx[todo[ok]] = cand[ok]
+            todo = todo[~ok]
+        return idx
+
+    def compress(self, m: torch.Tensor, gen=None) -> SparsePayload:
+        _need_gen(self, gen)
+        return self.apply(m, self.draw(m.shape[0], m.shape[1:], m.dtype, gen))
+
+    def apply(self, m: torch.Tensor, draw=None) -> SparsePayload:
+        """``draw``: (n, K) flat indices."""
+        flat = m.reshape(m.shape[0], -1)
+        size = flat.shape[1]
+        idx = draw.to(device=m.device, dtype=torch.int64)
+        return SparsePayload(values=torch.gather(flat, 1, idx)
+                             * (size / idx.shape[1]),
+                             indices=idx.to(torch.int32), universe=size)
+
+    def decompress(self, payload: SparsePayload, shape) -> torch.Tensor:
+        n = payload.values.shape[0]
+        return _scatter_flat(payload.values, payload.indices,
+                             numel(shape)).reshape((n, *shape))
+
+    def aggregate(self, payloads: SparsePayload, shape,
+                  weights=None) -> torch.Tensor:
+        if weights is not None:
+            payloads = scale_payload(payloads, weights)
+        return _sparse_aggregate(payloads, shape)
+
+    def spec(self, shape) -> CompSpec:
+        size = numel(shape)
+        k = min(self.k, size)
+        return CompSpec(delta=None, omega=size / k - 1.0,
+                        bits=k * (FLOAT_BITS + INDEX_BITS),
+                        deterministic=False)
+
+
+def _qnorm(flat: torch.Tensor, q: float) -> torch.Tensor:
+    """Per-row q-norm of (n, numel), as ``jnp.linalg.norm`` writes it."""
+    if q == 2:
+        return torch.sqrt(torch.sum(flat * flat, dim=1))
+    if q == math.inf:
+        return torch.amax(torch.abs(flat), dim=1)
+    return torch.sum(torch.abs(flat) ** q, dim=1) ** (1.0 / q)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomDithering(Compressor):
+    """Random dithering with s levels in the q-norm (paper A.3.1), omega
+    <= min(d/s^2, sqrt(d)/s) for q = 2. The draw is one uniform per entry;
+    an entry's level is bumped where its uniform falls below the
+    fractional part of |x|/||x|| s, as ``jax.random.bernoulli`` compares
+    its own uniform with p."""
+
+    s: int
+    q: float = 2.0
+
+    def draw(self, n: int, shape, dtype, gen) -> torch.Tensor:
+        return torch.rand((n, *shape), generator=gen, dtype=dtype,
+                          device=gen.device)
+
+    def compress(self, m: torch.Tensor, gen=None) -> DitheredPayload:
+        _need_gen(self, gen)
+        return self.apply(m, self.draw(m.shape[0], m.shape[1:], m.dtype, gen))
+
+    def apply(self, m: torch.Tensor, draw=None) -> DitheredPayload:
+        """``draw``: (n, *shape) uniforms in [0, 1)."""
+        n = m.shape[0]
+        norm = torch.clamp(_qnorm(m.reshape(n, -1), self.q), min=1e-30)
+        nb = norm.reshape((n,) + (1,) * (m.dim() - 1))
+        y = torch.abs(m) / nb * self.s          # in [0, s]
+        low = torch.floor(y)
+        bump = (draw.to(m.device) < y - low).to(m.dtype)
+        return DitheredPayload(norm=norm[:, None], signs=torch.sign(m),
+                               levels=low + bump, s=self.s,
+                               count=numel(m.shape[1:]))
+
+    def decompress(self, payload: DitheredPayload, shape) -> torch.Tensor:
+        n = payload.signs.shape[0]
+        norm = payload.norm.reshape((n,) + (1,) * (payload.signs.dim() - 1))
+        out = payload.signs * norm * (payload.levels / self.s)
+        return torch.where(norm > 1e-29, out, 0.0).reshape((n, *shape))
+
+    def aggregate(self, payloads: DitheredPayload, shape,
+                  weights=None) -> torch.Tensor:
+        # the wire holds a level per entry: the mean of the decode is the
+        # payload-space sum
+        if weights is not None:
+            payloads = scale_payload(payloads, weights)
+        return torch.mean(self.decompress(payloads, shape), dim=0)
+
+    def spec(self, shape) -> CompSpec:
+        size = numel(shape)
+        level_bits = max(1, math.ceil(math.log2(self.s + 1)))
+        return CompSpec(
+            delta=None,
+            omega=min(size / self.s**2, math.sqrt(size) / self.s),
+            bits=FLOAT_BITS + size * (1 + level_bits),
+            deterministic=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class NaturalSparsification(Compressor):
+    """Bernoulli(p) sparsification with the 1/p rescale, omega = 1/p - 1.
+    The draw is each entry's Bernoulli(p) mask (an f64 uniform below p);
+    the payload charges the expected occupancy int(p * numel)."""
+
+    p: float
+
+    def draw(self, n: int, shape, dtype, gen) -> torch.Tensor:
+        return torch.rand((n, *shape), generator=gen, dtype=torch.float64,
+                          device=gen.device) < self.p
+
+    def compress(self, m: torch.Tensor, gen=None) -> DensePayload:
+        _need_gen(self, gen)
+        return self.apply(m, self.draw(m.shape[0], m.shape[1:], m.dtype, gen))
+
+    def apply(self, m: torch.Tensor, draw=None) -> DensePayload:
+        """``draw``: (n, *shape) bool mask."""
+        size = numel(m.shape[1:])
+        # where(), not m * mask / p: a dropped negative entry must be a
+        # clean +0.0, not -0.0
+        return DensePayload(values=torch.where(draw.to(m.device), m / self.p,
+                                               0.0),
+                            count=int(self.p * size), indexed=True,
+                            universe=size)
+
+    def decompress(self, payload: DensePayload, shape) -> torch.Tensor:
+        return payload.values.reshape((-1, *shape))
+
+    def aggregate(self, payloads: DensePayload, shape,
+                  weights=None) -> torch.Tensor:
+        if weights is not None:
+            payloads = scale_payload(payloads, weights)
+        return torch.mean(self.decompress(payloads, shape), dim=0)
+
+    def spec(self, shape) -> CompSpec:
+        return CompSpec(
+            delta=None, omega=1.0 / self.p - 1.0,
+            bits=int(self.p * numel(shape)) * (FLOAT_BITS + INDEX_BITS),
+            deterministic=False)
+
+
+# ---------------------------------------------------------------------------
 # Registry entries (string key -> factory(level))
 # ---------------------------------------------------------------------------
 
@@ -449,6 +732,26 @@ def _make_topk(level):
 @register_compressor("topk-sym")
 def _make_topk_sym(level):
     return TopK(k=int(level), symmetric=True)
+
+
+@register_compressor("powersgd")
+def _make_powersgd(level):
+    return PowerSGD(r=int(level), iters=2)
+
+
+@register_compressor("randk")
+def _make_randk(level):
+    return RandK(k=int(level))
+
+
+@register_compressor("dithering", "random-dithering")
+def _make_dithering(level):
+    return RandomDithering(s=int(level))
+
+
+@register_compressor("natural")
+def _make_natural(level):
+    return NaturalSparsification(p=float(level))
 
 
 @register_compressor("blocktopk")
@@ -494,3 +797,13 @@ def alpha_for(comp: Compressor, shape, rule: str = "auto") -> float:
             raise ValueError("rule 'unbiased' needs an unbiased compressor")
         return 1.0 / (sp.omega + 1.0)
     raise ValueError(rule)
+
+
+def ab_constants(comp: Compressor, shape, alpha: float) -> tuple[float, float]:
+    """(A, B) of eq. (5), selecting the assumption matching (comp, alpha)."""
+    sp = comp.spec(shape)
+    if sp.deterministic:
+        if alpha == 1.0:
+            return sp.delta / 4.0, 6.0 / sp.delta - 3.5
+        return alpha**2, alpha
+    return alpha, alpha

@@ -13,16 +13,17 @@ One communication round:
       Option 2: x^{k+1} = x^k - (H^k + l^k I)^{-1} grad
 
 The per-silo state is stacked on a leading silo axis; the server means
-S in payload space (``Compressor.aggregate``).
+S in payload space (``Compressor.aggregate``). A randomized compressor
+takes each silo's draw from the state's round-draw source.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from ..engine.method import MethodBase, Oracles, register
+from ..engine.method import MethodBase, Oracles, register, round_draws
 from .compressors import FLOAT_BITS, Compressor
 from .linalg import project_psd, solve_newton_system
 
@@ -32,6 +33,7 @@ class FedNLState(NamedTuple):
     h_local: torch.Tensor   # (n, d, d) local Hessian estimates H_i
     h_global: torch.Tensor  # (d, d) server estimate H = mean_i H_i
     step: int               # iteration counter
+    draws: Any              # round-draw source
 
 
 class FedNL(MethodBase):
@@ -54,20 +56,24 @@ class FedNL(MethodBase):
         self.mu = mu
 
     def init(self, x0: torch.Tensor, n: int,
-             h0: Optional[torch.Tensor] = None) -> FedNLState:
+             h0: Optional[torch.Tensor] = None, seed: int = 0,
+             draws=None) -> FedNLState:
         """h0: (n, d, d) initial local estimates; default the exact local
         Hessians at x0 (the paper's initialization)."""
         if h0 is None:
             h0 = self.hess_fn(x0)
         return FedNLState(x=x0, h_local=h0, h_global=torch.mean(h0, dim=0),
-                          step=0)
+                          step=0, draws=round_draws(draws, seed, x0))
 
     def step(self, state: FedNLState) -> FedNLState:
+        n = state.h_local.shape[0]
+        shape = tuple(state.h_local.shape[1:])
+        silo_draws = state.draws.silos(self.comp, n, shape, state.x.dtype)
         grads = self.grad_fn(state.x)                     # (n, d)
         hesses = self.hess_fn(state.x)                    # (n, d, d)
-        shape = tuple(hesses.shape[1:])
 
-        payloads, l_i = self._uplink_diff_payloads(hesses, state.h_local)
+        payloads, l_i = self._uplink_diff_payloads(hesses, state.h_local,
+                                                   silo_draws)
         s_i = self._local_hessians(payloads, shape)
 
         grad = torch.mean(grads, dim=0)
@@ -85,7 +91,8 @@ class FedNL(MethodBase):
                             device=state.x.device)
             h_eff = state.h_global + l_mean * eye
         x_new = state.x - solve_newton_system(h_eff, grad)
-        return FedNLState(x_new, h_local, h_global, state.step + 1)
+        return FedNLState(x_new, h_local, h_global, state.step + 1,
+                          state.draws)
 
     def bits_per_round(self, d: int) -> int:
         """Analytic uplink bits per device per round: gradient + S_i +

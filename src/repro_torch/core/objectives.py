@@ -7,6 +7,8 @@ Counterpart of ``repro.core.objectives``: per-silo oracles take one
 (m, d) / (m,) slab; the ``batch_*`` oracles write the silo axis out as
 the leading dimension of (n, m, d) / (n, m) tensors instead of vmapping
 the per-silo ones. The regularizer is split evenly into every f_i.
+Also: the quadratic oracles (for NS / N0 tests) and the GLM weights
+phi'' that the NL1 baseline learns.
 """
 
 from __future__ import annotations
@@ -39,6 +41,13 @@ def silo_grad(x, a, b, lam: float) -> torch.Tensor:
     margins = -b * (a @ x)
     coef = torch.sigmoid(margins) * (-b)
     return a.T @ coef / a.shape[0] + lam * x
+
+
+def silo_phi2(x, a, b) -> torch.Tensor:
+    """phi''_ij(a_ij^T x), the GLM weights NL1 learns (eq. (2)); on
+    stacked (n, m, d) / (n, m) data it gives (n, m)."""
+    s = torch.sigmoid(-b * (a @ x))
+    return s * (1.0 - s)
 
 
 def silo_hess(x, a, b, lam: float) -> torch.Tensor:
@@ -101,3 +110,24 @@ def lipschitz_constants(data: LogRegData) -> dict:
     smooth = float(torch.max(torch.mean(norms**2, dim=1)) / 4.0 + data.lam)
     return dict(mu=data.lam, L=smooth, L_star=l_star, L_F=l_star,
                 L_inf=l_inf)
+
+
+# -- quadratic oracles (for NS / N0 / unit tests) ------------------------------
+
+
+class QuadData(NamedTuple):
+    q: torch.Tensor  # (n, d, d) per-silo PSD matrices
+    c: torch.Tensor  # (n, d)    per-silo linear terms
+
+
+def quad_value(x, data: QuadData) -> torch.Tensor:
+    vals = (0.5 * x) @ data.q @ x - data.c @ x              # (n,)
+    return torch.mean(vals)
+
+
+def quad_grad(x, data: QuadData) -> torch.Tensor:
+    return torch.mean(data.q @ x - data.c, dim=0)
+
+
+def quad_hess_batch(x, data: QuadData) -> torch.Tensor:
+    return data.q

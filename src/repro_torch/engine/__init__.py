@@ -2,4 +2,11 @@
 string-keyed method registry."""
 
 from ..core.compressors import available_compressors, make_compressor, scale_payload
-from .method import MethodBase, Oracles, available_methods, make_method, register
+from .method import (
+    MethodBase,
+    Oracles,
+    RoundDraws,
+    available_methods,
+    make_method,
+    register,
+)

@@ -1,13 +1,22 @@
 """The ``MethodBase`` round driver, its uplink helpers and the method
 registry (counterpart of ``repro.engine.method``).
 
-A method is a config object with ``init(x0, n, ...) -> State``,
-``step(State) -> State`` and ``bits_per_round(d)``. ``MethodBase.run``
-is the one round loop — a Python loop where the reference has
-``lax.scan`` — and the uplink is split the way the deployment is:
-``_uplink_diff_payloads`` and ``_local_hessians`` on the devices,
-``_server_aggregate`` on the server, which never sees a silo's dense
-matrix.
+A method is a config object with ``init(x0, n, ..., seed=0,
+draws=None) -> State``, ``step(State) -> State`` and
+``bits_per_round(d)``. ``MethodBase.run`` is the one round loop — a
+Python loop where the reference has ``lax.scan`` — and the uplink is
+split the way the deployment is: ``_uplink_diff_payloads`` and
+``_local_hessians`` on the devices, ``_server_aggregate`` on the
+server, which never sees a silo's dense matrix.
+
+Where the reference keeps a PRNG key in its state and splits it every
+round, a port method keeps a round-draw source (``RoundDraws`` by
+default, from ``seed``; ``draws=`` gives another, such as one that
+replays the reference's draws). Its methods hand a step the variates the
+reference splits from its key: each silo's compressor draw, the active
+set, a Bernoulli flag, an oracle's generator. ``bits_per_round`` is the
+analytic count from ``comp.spec(shape).bits``; the measured count
+(``measured_bits_per_round``) needs the wire codec, ROADMAP item 9.
 """
 
 from __future__ import annotations
@@ -26,37 +35,78 @@ class Oracles(NamedTuple):
     hess: Callable[[torch.Tensor], torch.Tensor]
 
 
+class RoundDraws:
+    """The default round-draw source: one CPU ``torch.Generator`` seeded
+    with ``seed``, each draw moved to ``device``. Drawing on the CPU
+    gives a run on the card and a run on the CPU from one seed the same
+    draws."""
+
+    def __init__(self, seed: int = 0, device="cpu"):
+        self.gen = torch.Generator().manual_seed(int(seed))
+        self.device = torch.device(device)
+
+    def silos(self, comp, n: int, shape, dtype):
+        """n silos' stacked draws for ``comp`` at ``shape``; None for a
+        deterministic compressor."""
+        draw = comp.draw(n, tuple(shape), dtype, self.gen)
+        return None if draw is None else draw.to(self.device)
+
+    def active(self, n: int, tau: int) -> torch.Tensor:
+        """(n,) bool mask of tau silos, a uniform subset."""
+        mask = torch.zeros(n, dtype=torch.bool)
+        mask[torch.randperm(n, generator=self.gen)[:tau]] = True
+        return mask.to(self.device)
+
+    def coin(self, p: float) -> bool:
+        """One Bernoulli(p) flag, on the host."""
+        return bool(torch.rand((), generator=self.gen,
+                               dtype=torch.float64) < p)
+
+    def oracle(self, fn):
+        """Stochastic oracle ``fn``'s draw (``fn.draw``); None if it
+        draws nothing."""
+        draw = fn.draw(self.gen)
+        return None if draw is None else draw.to(self.device)
+
+
+def round_draws(draws, seed: int, x0: torch.Tensor):
+    """``draws`` if given, else ``RoundDraws(seed)`` on x0's device."""
+    return RoundDraws(seed, x0.device) if draws is None else draws
+
+
 class MethodBase:
     """Shared ``run`` driver plus the payload wire helpers."""
 
     traj_field: str = "x"
 
-    def _uplink_diff_payloads(self, h_new, h_old):
+    def _uplink_diff_payloads(self, h_new, h_old, silo_draws=None):
         """Device side: payloads of D_i = h_new_i - h_old_i and
         l_i = ||D_i||_F. Compressors with ``fused_diff_payloads`` (the
         block-sparse family) do both in one kernel pass; the others
-        compress the dense difference."""
+        compress the dense difference with this round's ``silo_draws``
+        (which the fused path, deterministic, ignores)."""
         fused = getattr(self.comp, "fused_diff_payloads", None)
         if fused is not None:
             return fused(h_new, h_old)
         from ..core.linalg import frob_norm
 
         diff = h_new - h_old
-        return self.comp.compress(diff), frob_norm(diff)
+        return self.comp.apply(diff, silo_draws), frob_norm(diff)
 
     def _local_hessians(self, payloads, shape):
         """Device side: each silo's own dense S_i, for its H_i update."""
         return self.comp.decompress(payloads, shape)
 
-    def _server_aggregate(self, payloads, shape):
-        """Server side: S = mean_i S_i straight from payload space."""
-        return self.comp.aggregate(payloads, shape)
+    def _server_aggregate(self, payloads, shape, weights=None):
+        """Server side: S = mean_i w_i S_i straight from payload space;
+        ``weights`` (0 for an absent silo) scale the payloads."""
+        return self.comp.aggregate(payloads, shape, weights=weights)
 
-    def run(self, x0, n, num_rounds: int, *args, **init_kw):
+    def run(self, x0, n, num_rounds: int, *args, seed: int = 0, **init_kw):
         """``num_rounds`` rounds from x0. Returns (final state,
         (num_rounds + 1, d) iterates with x0 first); extra arguments go
         to ``init``."""
-        state = self.init(x0, n, *args, **init_kw)
+        state = self.init(x0, n, *args, seed=seed, **init_kw)
         xs = [x0]
         for _ in range(num_rounds):
             state = self.step(state)
@@ -92,7 +142,7 @@ def available_methods() -> list[str]:
 
 def make_method(name: str, oracles: Oracles, compressor=None, **params):
     """Construct a registered method by name; ``params`` (alpha, option,
-    mu, ...) go to its factory."""
+    mu, tau, p, l_star, model_compressor, ...) go to its factory."""
     _ensure_registered()
     try:
         factory = _REGISTRY[name]

@@ -7,9 +7,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.extensions import FedNLPPBCState
 from .core.fednl import FedNLState
+from .core.fednl_bc import FedNLBCState
+from .core.fednl_pp import FedNLPPState
 from .core.objectives import LogRegData
 from .device import resolve_device
+from .engine.method import RoundDraws
 from .second_order.fednl_precond import FedNLPrecondState
 from .tree import tree_map
 
@@ -33,14 +37,56 @@ def logreg_from_numpy(a, b, lam: float, device=None,
                       lam=float(lam))
 
 
-def fednl_state_from_numpy(x, h_local, h_global, step, device=None,
-                           dtype: torch.dtype = torch.float64) -> FedNLState:
-    """A reference ``FedNLState``'s arrays -> the port's ``FedNLState``."""
+def _state(cls, fields: dict, step, draws, device, dtype, **host):
+    """``cls`` from the reference state's arrays (its key left behind)
+    and its ``host`` values: ``draws`` is the round-draw source the
+    state continues with, ``RoundDraws(0)`` if None."""
     dev = resolve_device(device)
-    return FedNLState(x=_tensor(x, dev, dtype),
-                      h_local=_tensor(h_local, dev, dtype),
-                      h_global=_tensor(h_global, dev, dtype),
-                      step=int(np.asarray(step)))
+    return cls(**{name: _tensor(val, dev, dtype)
+                  for name, val in fields.items()}, **host,
+               step=int(np.asarray(step)),
+               draws=RoundDraws(0, dev) if draws is None else draws)
+
+
+def fednl_state_from_numpy(x, h_local, h_global, step, device=None,
+                           dtype: torch.dtype = torch.float64,
+                           draws=None) -> FedNLState:
+    """A reference ``FedNLState``'s arrays -> the port's ``FedNLState``."""
+    return _state(FedNLState, dict(x=x, h_local=h_local, h_global=h_global),
+                  step, draws, device, dtype)
+
+
+def fednl_pp_state_from_numpy(w, h_local, l_local, g_local, h_global,
+                              l_global, g_global, x, step, device=None,
+                              dtype: torch.dtype = torch.float64,
+                              draws=None) -> FedNLPPState:
+    """A reference ``FedNLPPState``'s arrays -> the port's."""
+    return _state(FedNLPPState, dict(
+        w=w, h_local=h_local, l_local=l_local, g_local=g_local,
+        h_global=h_global, l_global=l_global, g_global=g_global, x=x),
+        step, draws, device, dtype)
+
+
+def fednl_bc_state_from_numpy(z, w, grad_w, h_local, h_global, xi, x, step,
+                              device=None, dtype: torch.dtype = torch.float64,
+                              draws=None) -> FedNLBCState:
+    """A reference ``FedNLBCState``'s arrays -> the port's (xi a host
+    bool)."""
+    return _state(FedNLBCState, dict(z=z, w=w, grad_w=grad_w,
+                                     h_local=h_local, h_global=h_global,
+                                     x=x),
+                  step, draws, device, dtype, xi=bool(np.asarray(xi)))
+
+
+def fednl_ppbc_state_from_numpy(z, w, h_local, l_local, g_local, h_global,
+                                l_global, g_global, x, step, device=None,
+                                dtype: torch.dtype = torch.float64,
+                                draws=None) -> FedNLPPBCState:
+    """A reference ``FedNLPPBCState``'s arrays -> the port's."""
+    return _state(FedNLPPBCState, dict(
+        z=z, w=w, h_local=h_local, l_local=l_local, g_local=g_local,
+        h_global=h_global, l_global=l_global, g_global=g_global, x=x),
+        step, draws, device, dtype)
 
 
 def params_from_numpy(tree, device=None, dtype: torch.dtype | None = None):

@@ -147,7 +147,8 @@ def test_scale_payload_and_registry_errors():
     assert torch.equal(scaled.middle[:, 0], pay.middle[:, 0] * torch.arange(N))
     assert torch.equal(scaled.left, pay.left)
     with pytest.raises(ValueError, match="unknown compressor"):
-        tc.make_compressor("powersgd", 1)
+        tc.make_compressor("signsgd", 1)
+    assert tc.make_compressor("powersgd", 1) == tc.PowerSGD(r=1, iters=2)
     method = make_method("fednl", Oracles(None, None, None),
                          tc.make_compressor("zero"), option=2)
     assert method.bits_per_round(D) == D * 64 + 64

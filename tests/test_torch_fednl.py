@@ -108,7 +108,12 @@ def test_make_method_and_bits_match_reference():
             want = ref.bits_per_round(d)
         assert port.bits_per_round(d) == want
         assert port.init_bits(d) == ref.init_bits(d)
-    assert available_methods() == ["fednl"]
+    from repro.engine.method import available_methods as jax_available
+
+    names = ["fednl", "fednl-bc", "fednl-cr", "fednl-ls", "fednl-pp",
+             "fednl-ppbc", "fednl-stoch", "n0", "n0-ls", "newton", "ns"]
+    assert available_methods() == names
+    assert names == sorted(set(jax_available()) - {"fednl-cohort"})
 
 
 def test_entry_points_default_to_cuda():
