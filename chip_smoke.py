@@ -23,6 +23,7 @@ Phases, each failing the run with a non-zero exit:
      variants' traffic: Rand-K's indices at w8a, a FedNL-PP round's
      payloads with 28 of 142 silos weighted 1 and the rest 0 (equal bit
      for bit to the 28 alone), and K2 into (1, 300) and (1, 4,096) rows;
+     and a fednl-cohort round's fractionally weighted payloads (K2, K4);
   4. drive FedNL Options 1 and 2 on the w8a stand-in (n=142, m=350,
      d=300, f64) for Top-K (k=d), symmetric Top-K (k=d), Rank-R (1) and
      Block-Top-K (8), 20 rounds each, through ``FedNL.run``; assert the
@@ -44,6 +45,22 @@ Phases, each failing the run with a non-zero exit:
      path; the card against the CPU port on a1a-sized data to 1e-8
      (every draw from a CPU generator, so the same draws); each run's
      median ms per round;
+  4c. the engine on w8a: one ``Sweep`` of six cells (FedNL Top-K k=d,
+     Block-Top-K 8 and Rand-K k=d at Option 2 over seeds 0-2 / 0-1;
+     FedNL-PP Top-K at tau 28; fednl-cohort Top-K and Block-Top-K with
+     K = 28 on the fl-cross-device link, deadline 0.8, beta 0.5), 20
+     rounds from x0 = 0: K1, K2 and K4 must launch; every cell equals
+     the serial ``run`` of its seeds bit for bit; the cohort at beta 0
+     and q 1 equals the PP cell bit for bit; the cohort cells equal the
+     CPU port on a1a and on w8a to 1e-8; the accounting columns and
+     ``uplink_bits`` over qwen2-0.5B with 4 silos equal the reference's
+     (``ENGINE_ACCOUNTING``); each last gap stays under its bound from
+     the reference (``ENGINE_GAP_RATIO``); one round's Top-K and
+     Block-Top-K payloads of all 142 silos through the codec and back
+     (raw bit for bit, fp16 and int8 within the reference's bounds);
+     then the sweep CLI in process on the card. Prints each cell's
+     us_per_round and median ms per round, the sweep's wall clock
+     against the bare serial runs' and the codec's host ms;
   5. drive the curvature-learning optimizer ``fednl_precond`` (k=2048 per
      128 x 128 tile) over all 14 tensors of qwen2-0.5B (494,032,768
      parameters, bf16, random from --seed) with 4 silos of Fisher
@@ -95,6 +112,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -480,8 +498,43 @@ def check_fednl_kernels(dev, err: dict) -> None:
                 and torch.equal(got.view(bits), kept.view(bits)),
                 f"block_scatter_accumulate: FedNL-PP's weight-0 silos "
                 f"changed the sum ({dtype})")
+        # a fednl-cohort round's fractional weights (on time 1, stragglers
+        # (1 + s)^(-1/2), the unsampled 0) on Top-K and Block-Top-K pairs
+        w = cohort_round_weights(142, 300, dtype, dev, seed=11)
+        require(bool(((w > 0) & (w < 1)).any()),
+                "the cohort round has no fractionally weighted silo")
+        vals, idx = pairs(142, 300, 300, False)
+        same("w8a, a cohort round's weights",
+             (vals * w[:, None]).contiguous(), idx, 300)
+        bw = (bv * w[:, None, None]).contiguous()
+        got = block_scatter_accumulate(bw, bi, (3, 3), 128).cpu()
+        want = block_scatter_accumulate_ref(bw.cpu(), bi.cpu(), (3, 3), 128)
+        require(torch.equal(got.view(bits), want.view(bits)),
+                f"block_scatter_accumulate differs on a cohort round's "
+                f"weights ({dtype})")
     check_adversarial(dev)
     torch.cuda.synchronize()
+
+
+def cohort_round_weights(n: int, d: int, dtype, dev, seed: int):
+    """(n,) weights of a ``fednl-cohort`` round (K = 28, the fl-cross-
+    device deadline at 0.8, beta = 0.5) from the port's own
+    ``round_weights``, with each silo last landed at a random round
+    before round 9."""
+    import torch
+    from repro_torch.core import CohortFedNLPP, CohortSpec, TopK
+    from repro_torch.core.cohort import CohortFedNLPPState
+    from repro_torch.engine.method import RoundDraws
+
+    co = CohortFedNLPP(None, None, TopK(d), CohortSpec(cohort=28))
+    last = torch.randint(0, 9, (n,), generator=torch.Generator().manual_seed(
+        seed), dtype=torch.int32)
+    state = CohortFedNLPPState(
+        w=torch.zeros(n, d, dtype=dtype, device=dev), h_local=None,
+        l_local=None, g_local=None, h_global=None, l_global=None,
+        g_global=None, x=torch.zeros(d, dtype=dtype, device=dev), step=9,
+        draws=None, last_round=last.to(dev))
+    return co.round_weights(state, RoundDraws(seed, dev).active(n, 28))
 
 
 # K1, K5, K6 on (block, k, rows, cols): the path's block and k on a ragged
@@ -855,6 +908,290 @@ def fednl_variants_w8a(dev, prob, x0, K, card: str) -> dict:
     print(json.dumps({"variants_round_ms_median": round_ms, **extra,
                       "phase_s": time.perf_counter() - t_phase,
                       "card": card}), flush=True)
+    return launches
+
+
+# -- phase 4c: the engine on w8a ------------------------------------------------
+
+# The cells of one Sweep on w8a (x0 = 0, ROUNDS rounds): name -> (method,
+# compressor family, level (None: k = d), params, seeds, cohort?). Rand-K
+# takes alpha = 1/(omega + 1) (Assumption 3.5); tau and the cohort K are
+# 0.2 n (28 of w8a's 142), a cohort on the fl-cross-device link with the
+# deadline at 0.8 and beta = 0.5.
+ENGINE_CELLS = {
+    "a": ("fednl", "topk", None, dict(option=2), (0, 1, 2), False),
+    "b": ("fednl", "blocktopk", 8, dict(option=2), (0, 1, 2), False),
+    "c": ("fednl", "randk", None, dict(option=2), (0, 1), False),
+    "d": ("fednl-pp", "topk", None, {}, (0,), False),
+    "e": ("fednl-cohort", "topk", None, {}, (0,), True),
+    "f": ("fednl-cohort", "blocktopk", 8, {}, (0,), True),
+}
+# The reference's accounting of each cell at n = 142, d = 300 (the
+# summary's bits_per_round, bits_per_round_measured,
+# bits_per_round_entropy, seconds_per_round), and fednl_precond's
+# uplink_bits over the qwen2-0.5B tree with 4 silos, printed by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/reference_w8a_fednl.py --sweep
+ENGINE_ACCOUNTING = {
+    "a": (48064.0, 48064.0, 41360.0, 0.0316584228101312),
+    "b": (26176.0, 26176.0, 24745.0, 0.030894402615774322),
+    "c": (48064.0, 48064.0, 41360.0, 0.0316584228101312),
+    "d": (48064.0, 48064.0, 41360.0, 0.0316584228101312),
+    "e": (48064.0, 48064.0, 41360.0, 0.0748019643902884),
+    "f": (26176.0, 26176.0, 24745.0, 0.07094680601829031),
+}
+UPLINK_BITS_QWEN2_4_SILOS = 23733731328
+# (f(x^20) - f*) / (f(x^0) - f*) of the reference on its own w8a draws
+# (x0 = 0), the worst of seeds 0-4 where a cell draws at random, from the
+# same script: the port's last gap must stay under twice the ratio times
+# its own first gap, and never below 1e-12 (the f64 floor of f - f*)
+ENGINE_GAP_RATIO = {
+    "a": 0.0013784136472973093,
+    "b": 0.001655705129014783,
+    "c": 0.0018589652797741704,
+    "d": 0.010164736214737076,
+    "e": 0.010184646799153476,
+    "f": 0.010561249225571466,
+}
+# rounds of the CPU port held to the card's engine cells e and f on w8a
+ENGINE_CPU_ROUNDS = 3
+# the reference CLI's summary header with --target
+SWEEP_HEADER = ("name,method,compressor,level,num_seeds,bits_per_round,"
+                "bits_per_round_measured,bits_per_round_entropy,us_per_round,"
+                "seconds_per_round,bits_to_target,rounds_to_target,"
+                "bits_to_target_worst_seed")
+
+
+def engine_specs(n: int, d: int) -> dict:
+    """``ENGINE_CELLS`` as ``ExperimentSpec``s at n silos of width d."""
+    from repro_torch.core import CohortSpec, make_compressor
+    from repro_torch.engine import ExperimentSpec
+
+    tau = round(0.2 * n)
+    alpha = 1.0 / (make_compressor("randk", d).spec((d, d)).omega + 1.0)
+    specs = {}
+    for name, (method, family, level, params, seeds, co) in \
+            ENGINE_CELLS.items():
+        if family == "randk":
+            params = dict(params, alpha=alpha)
+        if method == "fednl-pp":
+            params = dict(params, tau=tau)
+        specs[name] = ExperimentSpec(
+            method, family, d if level is None else level, params=params,
+            seeds=seeds, num_rounds=ROUNDS,
+            cohort=CohortSpec(cohort=tau) if co else None)
+    return specs
+
+
+def codec_round_trip(dev, prob, x0) -> dict:
+    """One FedNL round's uplink on w8a, all 142 silos: Block-Top-K 8
+    payloads from K1 and Top-K payloads (K2's input), each through
+    ``encode_silos`` -> ``decode_silos`` -> ``decompress`` under every
+    value format. raw must give the original's decompress bit for bit and
+    the same server mean through K2/K4; fp16 the original's values cast
+    to f16 and back, exactly; int8 each silo's values within max|v| / 250
+    (the reference's stated bounds). Returns the host ms of encode and
+    decode per payload kind and format."""
+    import numpy as np
+    import torch
+    from repro_torch.core import FedNL, make_compressor
+    from repro_torch.wire import decode_silos, encode_silos
+
+    d, n = prob["d"], prob["n"]
+    times = {}
+    for family, level in (("blocktopk", 8), ("topk", d)):
+        comp = make_compressor(family, level)
+        alg = FedNL(prob["grad"], prob["hess"], comp, option=2)
+        state = alg.step(alg.init(x0, n))
+        pay, _ = alg._uplink_diff_payloads(prob["hess"](state.x),
+                                           state.h_local)
+        dense = comp.decompress(pay, (d, d))
+        for fmt in ("raw", "fp16", "int8"):
+            enc_ms, bufs = host_ms(lambda: list(encode_silos(
+                pay, value_format=fmt)))
+            dec_ms, back = host_ms(lambda: decode_silos(bufs, device=dev))
+            times[f"{family}_{fmt}"] = dict(
+                encode_ms=enc_ms, decode_ms=dec_ms, silos=len(bufs),
+                bytes=sum(len(b) for b in bufs))
+            got = comp.decompress(back, (d, d))
+            what = f"codec round trip ({family}, {fmt})"
+            if fmt == "raw":
+                require(torch.equal(got, dense), f"{what}: decompress differs")
+                require(torch.equal(comp.aggregate(back, (d, d)),
+                                    comp.aggregate(pay, (d, d))),
+                        f"{what}: the server mean differs")
+            elif fmt == "fp16":
+                # numpy's one rounding to f16, as the codec's
+                cast = dataclasses.replace(pay, values=torch.from_numpy(
+                    pay.values.cpu().numpy().astype(np.float16).astype(
+                        np.float64)).to(dev))
+                require(torch.equal(got, comp.decompress(cast, (d, d))),
+                        f"{what}: values are not the f16 cast")
+            else:
+                lim = torch.amax(torch.abs(pay.values).reshape(n, -1), dim=1)
+                err = torch.amax(torch.abs(got - dense).reshape(n, -1), dim=1)
+                require(bool((err <= lim / 250).all()),
+                        f"{what}: error {float((err / lim).max()):.3e} of "
+                        f"max|v| above 1/250")
+    return times
+
+
+def engine_w8a(dev, prob, K, card: str) -> dict:
+    """The experiment engine on w8a: one ``Sweep`` of ``ENGINE_CELLS``
+    (the main path: K1, K2 and K4 must launch; counts around the sweep
+    alone), held to the serial ``run`` of every cell and seed bit for
+    bit, the cohort at beta = 0 and q = 1 to cell d bit for bit, cells e
+    and f to the CPU port on a1a and on w8a (1e-8, the same draws), the
+    accounting columns to the reference's, each last gap under its bound,
+    and the codec round trip; then the CLI once, in process. Prints each
+    cell's us_per_round and median ms per round, the sweep's wall clock
+    against the bare serial runs' and the codec's host ms. Returns the
+    sweep's launches."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.qwen2_0_5b import param_shapes
+    from repro_torch.core import CohortSpec, make_compressor
+    from repro_torch.data import problem_from_data
+    from repro_torch.data.synthetic import make_libsvm_like
+    from repro_torch.engine import Oracles, Sweep, make_method
+    from repro_torch.launch import sweep as sweep_cli
+    from repro_torch.second_order.fednl_precond import fednl_precond
+
+    t_phase = time.perf_counter()
+    d, n = prob["d"], prob["n"]
+    x0 = torch.zeros(d, dtype=torch.float64, device=dev)
+    oracles = Oracles(prob["val"], prob["grad"], prob["hess"])
+    specs = engine_specs(n, d)
+
+    # the bare serial runs first: the sweep's cells must equal them
+    serial, serial_s = {}, 0.0
+    for name, spec in specs.items():
+        for seed in spec.seeds:
+            method = spec.build(oracles)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            serial[name, seed] = method.run(x0, n, ROUNDS, seed=seed)[1]
+            torch.cuda.synchronize()
+            serial_s += time.perf_counter() - t
+
+    K.reset_launches()
+    t = time.perf_counter()
+    res = Sweep(list(specs.values())).run(prob, x0=x0)
+    sweep_s = time.perf_counter() - t
+    launches = counts(K)
+    print(f"# engine path: one Sweep of {len(specs)} cells ("
+          f"{sum(len(s.seeds) for s in specs.values())} runs x {ROUNDS} "
+          f"rounds) on w8a in {sweep_s:.3f} s, the bare serial runs "
+          f"{serial_s:.3f} s (overhead {sweep_s / serial_s - 1:+.2%}, the "
+          f"sweep's gaps and accounting included); launches "
+          f"{json.dumps(launches)}", flush=True)
+    for kernel in ("diff_topk_payload", "scatter_accumulate",
+                   "block_scatter_accumulate"):
+        require(launches[kernel] > 0,
+                f"kernel {kernel} was not launched on the engine path")
+
+    summary = {row["name"]: row for row in res.summary()}
+    for name, spec in specs.items():
+        cell = res.cell(spec.label)
+        for i, seed in enumerate(spec.seeds):
+            require(torch.equal(torch.from_numpy(cell.xs[i]),
+                                serial[name, seed].cpu()),
+                    f"engine cell {name} seed {seed}: the sweep differs from "
+                    f"the serial run")
+        row = summary[spec.label]
+        got = (row["bits_per_round"], row["bits_per_round_measured"],
+               row["bits_per_round_entropy"], row["seconds_per_round"])
+        require(got == ENGINE_ACCOUNTING[name],
+                f"engine cell {name}: accounting {got} != the reference's "
+                f"{ENGINE_ACCOUNTING[name]}")
+        require(bool(np.isfinite(cell.gaps).all()),
+                f"engine cell {name}: non-finite gaps")
+        limit = max(1e-12, 2 * ENGINE_GAP_RATIO[name]
+                    * float(cell.gaps[:, 0].max()))
+        worst = float(cell.gaps[:, -1].max())
+        print(f"# engine cell {name} ({spec.label}): gap {cell.gaps[0, 0]:.6e}"
+              f" -> {worst:.6e} (bound {limit:.6e})")
+        require(worst < limit, f"engine cell {name}: last gap {worst:.3e} >= "
+                f"{limit:.3e}")
+
+    # FedNL-PP recovered: beta = 0 and deadline quantile 1 are cell d
+    pin = CohortSpec(cohort=specs["d"].params["tau"], staleness_beta=0.0,
+                     deadline_quantile=1.0)
+    _, xs = make_method("fednl-cohort", oracles, make_compressor("topk", d),
+                        cohort=pin).run(x0, n, ROUNDS, seed=0)
+    require(torch.equal(xs.cpu(), torch.from_numpy(
+        res.cell(specs["d"].label).xs[0])),
+            "the cohort at beta 0, q 1 differs from FedNL-PP (cell d)")
+
+    # the card against the CPU port on cells e and f, from the same draws:
+    # 12 rounds on a1a-sized data; on w8a the sweep's own iterates against
+    # the CPU port's first ENGINE_CPU_ROUNDS rounds (a CPU round of w8a's
+    # Block-Top-K takes seconds)
+    small = make_libsvm_like(torch.Generator().manual_seed(1), "a1a")
+    cpu_w8a = problem_from_data(prob["data"]._replace(a=prob["data"].a.cpu(),
+                                                      b=prob["data"].b.cpu()))
+    for name in ("e", "f"):
+        for where, p_cpu, p_gpu, rounds in (
+                ("a1a", problem_from_data(small), problem_from_data(
+                    small._replace(a=small.a.to(dev), b=small.b.to(dev))), 12),
+                ("w8a", cpu_w8a, None, ENGINE_CPU_ROUNDS)):
+            xs = []
+            for p in (p_cpu, p_gpu):
+                if p is None:
+                    xs.append(torch.from_numpy(res.cell(specs[name].label)
+                                               .xs[0][:rounds + 1]))
+                    continue
+                spec = engine_specs(p["n"], p["d"])[name]
+                method = spec.build(Oracles(p["val"], p["grad"], p["hess"]))
+                z = torch.zeros(p["d"], dtype=torch.float64,
+                                device=p["xstar"].device)
+                xs.append(method.run(z, p["n"], rounds, seed=0)[1].cpu())
+            gap = float(torch.max(torch.abs(xs[0] - xs[1])))
+            require(gap <= 1e-8, f"{where} engine cell {name}: card vs CPU "
+                    f"gap {gap:.2e}")
+            print(f"# {where} engine cell {name}: card vs CPU port gap "
+                  f"{gap:.3e} over {rounds} rounds", flush=True)
+
+    bits = fednl_precond(k_per_block=K_PER_BLOCK, block=BLOCK).uplink_bits(
+        param_shapes(), n_silos=SILOS)
+    require(bits == UPLINK_BITS_QWEN2_4_SILOS,
+            f"uplink_bits over qwen2-0.5B: {bits} != the reference's "
+            f"{UPLINK_BITS_QWEN2_4_SILOS}")
+
+    # median ms per round of each cell (seed 0, a warm-up round first)
+    round_ms = {}
+    for name, spec in specs.items():
+        method = spec.build(oracles)
+        state = method.step(method.init(x0, n, seed=0))
+        times = []
+        for _ in range(ROUNDS - 1):
+            ms, state = host_ms(lambda: method.step(state))
+            times.append(ms)
+        round_ms[name] = statistics.median(times)
+    codec_ms = codec_round_trip(dev, prob, x0)
+
+    # the CLI once, in process, on the card
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = sweep_cli.main(["--problem", "w8a", "--method", "fednl",
+                             "--compressor", "topk", "--levels", "300",
+                             "--seeds", "0,1", "--rounds", "5", "--option",
+                             "2", "--target", "1e-9", "--device", "cuda"])
+    lines = out.getvalue().strip().splitlines()
+    require(rc == 0 and lines and lines[0] == SWEEP_HEADER and len(lines) == 2,
+            f"the sweep CLI printed {lines[:2]}")
+    print(json.dumps({
+        "engine_us_per_round": {name: res.cell(spec.label).us_per_round
+                                for name, spec in specs.items()},
+        "engine_round_ms_median": round_ms,
+        "engine_sweep_s": sweep_s, "engine_serial_s": serial_s,
+        "engine_launches": {k: launches[k] for k in (
+            "diff_topk_payload", "scatter_accumulate",
+            "block_scatter_accumulate")},
+        "codec_host_ms": codec_ms, "cli_row": lines[1],
+        "phase_s": time.perf_counter() - t_phase, "card": card}), flush=True)
     return launches
 
 
@@ -2232,6 +2569,7 @@ def main() -> int:
         paths = {"fednl_w8a": fednl_w8a(dev, prob, x0, K)}
         paths["fednl_variants_w8a"] = fednl_variants_w8a(dev, prob, x0, K,
                                                          card)
+        paths["engine_w8a"] = engine_w8a(dev, prob, K, card)
         paths["topk_aggregate_d2048"], k3_pay = topk_aggregate_k3(dev, K, err)
         k2 = k2_measure(dev, prob, x0, k3_pay)
         pre = precond_qwen2(dev, args.seed, K, err)

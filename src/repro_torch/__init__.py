@@ -1,7 +1,7 @@
 """FedNL in PyTorch: the CUDA port of the ``repro`` JAX package.
 
 The package mirrors ``repro``'s module names (``core/``, ``data/``,
-``engine/``, ``second_order/``, ``configs/``,
+``engine/``, ``wire/``, ``second_order/``, ``configs/``, ``launch/``,
 ``kernels/<name>/{ref,ops}.py``) so each module's counterpart is easy to
 find. It imports ``torch`` and never ``jax``.
 

@@ -1,7 +1,7 @@
 """FedNL core in PyTorch: Algorithm 1 and its variants (PP, CR, LS, BC,
-stochastic Hessians, PP-BC), the Newton family, the paper's baselines,
-the compressors, the eq. (10) oracles and the Newton-step linear
-algebra."""
+stochastic Hessians, PP-BC, the cross-device cohort), the Newton family,
+the paper's baselines, the compressors, the eq. (10) oracles and the
+Newton-step linear algebra."""
 
 from .compressors import (
     BlockSparsePayload,
@@ -14,6 +14,7 @@ from .compressors import (
     Identity,
     LowRankPayload,
     NaturalSparsification,
+    Payload,
     PowerSGD,
     RandK,
     RandomDithering,
@@ -24,9 +25,20 @@ from .compressors import (
     ab_constants,
     alpha_for,
     available_compressors,
+    canonical_float_bits,
     make_compressor,
+    payload_bits,
     register_compressor,
     scale_payload,
+)
+from .cohort import (
+    CohortFedNLPP,
+    CohortFedNLPPState,
+    CohortSpec,
+    arrival_times,
+    on_time_mask,
+    sample_cohort,
+    staleness_weights,
 )
 from .extensions import (
     ExactHessian,

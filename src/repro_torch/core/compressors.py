@@ -23,6 +23,15 @@ kernels for the sparse families, one factor contraction for Rank-R.
 Top-K selection breaks ties toward the lower flat index, as
 ``jax.lax.top_k`` does (a stable descending sort; ``torch.topk`` does
 not promise that order).
+
+A payload measures its own wire size: ``payload.bits(index_coding)``
+reads only the trailing dims and dtypes of its arrays, so a stacked
+payload reports bits per silo. ``comp.structure(shape, dtype)`` is one
+silo's payload of ``meta`` tensors — its structure, built from the shape
+alone, without computing or allocating anything at the tensor's size —
+and ``payload_bits(comp, shape)`` asks it, as the reference asks
+``jax.eval_shape``. The port has no ambient float: widths default to
+f64, the paper's accounting, and take ``dtype=`` otherwise.
 """
 
 from __future__ import annotations
@@ -50,13 +59,73 @@ def numel(shape) -> int:
     return math.prod(int(s) for s in shape)
 
 
+def _dtype_bits(x) -> int:
+    """Wire width of one element of ``x`` (a tensor, meta included, or a
+    numpy array)."""
+    if isinstance(x, torch.Tensor):
+        return 8 * x.element_size()
+    return 8 * x.dtype.itemsize
+
+
+def canonical_float_bits(dtype: torch.dtype = torch.float64) -> int:
+    """Bits of the float every method ships uncompressed (gradients,
+    l_i): 64 by default, the paper's accounting and the reference's under
+    x64; the sweep passes its problem's dtype."""
+    return 8 * torch.empty((), dtype=dtype).element_size()
+
+
 # ---------------------------------------------------------------------------
 # Payloads — the wire objects, stacked over silos
 # ---------------------------------------------------------------------------
 
 
+class Payload:
+    """The wire-object surface every payload family shares.
+
+    ``index_coding="raw"`` counts index streams at INDEX_BITS per entry;
+    ``"entropy"`` swaps them for ceil(log2 C(universe, k)). Only the
+    families that carry an index stream (Sparse, BlockSparse, indexed
+    Dense) implement ``_entropy_bits``; for the others the argument is a
+    no-op. ``repro_torch.wire.wire_cost`` returns every accounting at
+    once."""
+
+    def bits(self, index_coding: str = "raw") -> int:
+        """Wire size in bits of ONE silo's payload (trailing dims)."""
+        if index_coding not in ("raw", "entropy"):
+            raise ValueError(f"index_coding must be 'raw' or 'entropy', "
+                             f"got {index_coding!r}")
+        if index_coding == "entropy":
+            eb = self._entropy_bits()
+            if eb is not None:
+                return eb
+        return self._raw_bits()
+
+    def _raw_bits(self) -> int:
+        raise NotImplementedError
+
+    def _entropy_bits(self) -> Optional[int]:
+        return None
+
+    def encode(self, value_format: str = "raw") -> bytes:
+        """This one-silo payload as wire bytes (``wire.codec.encode``)."""
+        from ..wire.codec import encode
+
+        return encode(self, value_format=value_format)
+
+
+def _entropy_index_bits(k: int, universe: int) -> int:
+    """ceil(log2 C(universe, k)), the information cost of a k-subset of
+    ``universe`` slots, capped at the raw k * INDEX_BITS."""
+    if k <= 0 or universe <= 0 or k >= universe:
+        return 0
+    ln2 = math.log(2.0)
+    log2c = (math.lgamma(universe + 1) - math.lgamma(k + 1)
+             - math.lgamma(universe - k + 1)) / ln2
+    return min(k * INDEX_BITS, math.ceil(log2c))
+
+
 @dataclasses.dataclass(frozen=True)
-class SparsePayload:
+class SparsePayload(Payload):
     """k (value, flat-index) pairs per silo; -1 marks an empty slot.
     ``universe`` is the number of addressable slots."""
 
@@ -64,9 +133,20 @@ class SparsePayload:
     indices: torch.Tensor  # (n, k) int32
     universe: int = 0
 
+    def _raw_bits(self) -> int:
+        k = int(self.values.shape[-1])
+        return k * (_dtype_bits(self.values) + _dtype_bits(self.indices))
+
+    def _entropy_bits(self) -> Optional[int]:
+        if not self.universe:
+            return None
+        k = int(self.values.shape[-1])
+        return (k * _dtype_bits(self.values)
+                + _entropy_index_bits(k, self.universe))
+
 
 @dataclasses.dataclass(frozen=True)
-class BlockSparsePayload:
+class BlockSparsePayload(Payload):
     """k (value, in-tile flat index) pairs per (block x block) tile,
     tiles in row-major grid order; ``universe`` is block^2."""
 
@@ -74,18 +154,37 @@ class BlockSparsePayload:
     indices: torch.Tensor  # (n, tiles, k) int32
     universe: int = 0
 
+    def _raw_bits(self) -> int:
+        nblk, k = (int(s) for s in self.values.shape[-2:])
+        return nblk * k * (_dtype_bits(self.values)
+                           + _dtype_bits(self.indices))
+
+    def _entropy_bits(self) -> Optional[int]:
+        if not self.universe:
+            return None
+        nblk, k = (int(s) for s in self.values.shape[-2:])
+        return nblk * (k * _dtype_bits(self.values)
+                       + _entropy_index_bits(k, self.universe))
+
 
 @dataclasses.dataclass(frozen=True)
-class LowRankPayload:
-    """Rank-R factors: dense = (left * middle) @ right^T."""
+class LowRankPayload(Payload):
+    """Rank-R factors: dense = (left * middle) @ right^T; PowerSGD's
+    middle is its one rescale float."""
 
     left: torch.Tensor    # (n, d0, r)
     right: torch.Tensor   # (n, d1, r)
-    middle: torch.Tensor  # (n, r)
+    middle: torch.Tensor  # (n, r), or PowerSGD's (n, 1)
+
+    def _raw_bits(self) -> int:
+        d0, r = (int(s) for s in self.left.shape[-2:])
+        d1 = int(self.right.shape[-2])
+        mid = int(self.middle.shape[-1])
+        return (d0 * r + d1 * r + mid) * _dtype_bits(self.left)
 
 
 @dataclasses.dataclass(frozen=True)
-class DensePayload:
+class DensePayload(Payload):
     """A dense array shipped as-is; ``count`` entries on the wire,
     ``indexed`` if each also ships an index (Bernoulli sparsification,
     charged its expected occupancy int(p * numel) of ``universe``)."""
@@ -95,17 +194,37 @@ class DensePayload:
     indexed: bool = False
     universe: int = 0
 
+    def _raw_bits(self) -> int:
+        vbits = self.count * _dtype_bits(self.values)
+        return vbits + self.count * INDEX_BITS if self.indexed else vbits
+
+    def _entropy_bits(self) -> Optional[int]:
+        if not (self.indexed and self.universe):
+            return None
+        return (self.count * _dtype_bits(self.values)
+                + _entropy_index_bits(self.count, self.universe))
+
 
 @dataclasses.dataclass(frozen=True)
-class DitheredPayload:
+class DitheredPayload(Payload):
     """Random dithering: one q-norm per silo, and per entry a sign and an
-    integer-valued level in [0, s], stored as floats."""
+    integer-valued level in [0, s], stored as floats; charged 1 +
+    ceil(log2(s + 1)) bits an entry."""
 
     norm: torch.Tensor    # (n, 1)
     signs: torch.Tensor   # (n, *shape)
     levels: torch.Tensor  # (n, *shape)
     s: int = 1
     count: int = 0
+
+    def _raw_bits(self) -> int:
+        level_bits = max(1, math.ceil(math.log2(self.s + 1)))
+        return _dtype_bits(self.norm) + self.count * (1 + level_bits)
+
+
+def _meta(*shape, dtype) -> torch.Tensor:
+    """A ``meta`` tensor: shape and dtype, no storage."""
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _scatter_flat(values: torch.Tensor, indices: torch.Tensor,
@@ -212,6 +331,39 @@ class Compressor:
     def spec(self, shape) -> CompSpec:
         raise NotImplementedError
 
+    def structure(self, shape, dtype=torch.float64) -> Payload:
+        """One silo's payload at ``shape`` as ``meta`` tensors (a silo
+        axis of 1): the structure ``compress`` would give, from the shape
+        alone."""
+        raise NotImplementedError
+
+    def bits(self, shape) -> int:
+        """Analytic wire bits of one application (= spec(shape).bits)."""
+        return self.spec(shape).bits
+
+    def encode(self, payload, value_format: str = "raw") -> bytes:
+        """ONE silo's payload as wire bytes (``wire.codec.encode``)."""
+        from ..wire.codec import encode
+
+        return encode(payload, value_format=value_format)
+
+    def decode(self, data: bytes, shape=None):
+        """Wire bytes back into a one-silo payload of host numpy arrays
+        (``wire.codec.decode``)."""
+        from ..wire.codec import decode
+
+        return decode(data, shape=shape)
+
+
+def payload_bits(comp: Compressor, shape, dtype=torch.float64,
+                 index_coding: str = "raw") -> int:
+    """MEASURED wire bits of one payload at ``shape``, from its structure
+    (``comp.structure``: meta tensors, no compute), as the reference's
+    ``payload_bits`` reads ``jax.eval_shape``; ``wire_cost`` is the entry
+    point that returns it beside the other accountings."""
+    return int(comp.structure(tuple(int(s) for s in shape),
+                              dtype).bits(index_coding=index_coding))
+
 
 # ---------------------------------------------------------------------------
 # Registry
@@ -310,6 +462,13 @@ class TopK(Compressor):
                         bits=k * (FLOAT_BITS + INDEX_BITS),
                         deterministic=True)
 
+    def structure(self, shape, dtype=torch.float64) -> SparsePayload:
+        slots = self._slots(tuple(shape))
+        k = min(self.k, slots)
+        return SparsePayload(values=_meta(1, k, dtype=dtype),
+                             indices=_meta(1, k, dtype=torch.int32),
+                             universe=slots)
+
 
 @dataclasses.dataclass(frozen=True)
 class _BlockSparse(Compressor):
@@ -348,6 +507,14 @@ class _BlockSparse(Compressor):
         return CompSpec(delta=self._k() / (b * b), omega=None,
                         bits=nblk * self._k() * (FLOAT_BITS + INDEX_BITS),
                         deterministic=True)
+
+    def structure(self, shape, dtype=torch.float64) -> BlockSparsePayload:
+        b = self.block
+        nblk = -(-int(shape[0]) // b) * -(-int(shape[1]) // b)
+        return BlockSparsePayload(
+            values=_meta(1, nblk, self._k(), dtype=dtype),
+            indices=_meta(1, nblk, self._k(), dtype=torch.int32),
+            universe=b * b)
 
     def fused_diff_payloads(self, h_new: torch.Tensor, h_old: torch.Tensor):
         """Per silo, the payload of D_i = h_new_i - h_old_i and ||D_i||_F
@@ -431,6 +598,15 @@ class RankR(Compressor):
                         bits=r * FLOAT_BITS * (1 + shape[0] + shape[1]),
                         deterministic=True)
 
+    def structure(self, shape, dtype=torch.float64) -> LowRankPayload:
+        d0, d1 = (int(s) for s in shape)
+        if self.symmetric:              # eigh of the (d0, d0) matrix
+            d1 = d0
+        r = min(self.r, d0 if self.symmetric else min(d0, d1))
+        return LowRankPayload(left=_meta(1, d0, r, dtype=dtype),
+                              right=_meta(1, d1, r, dtype=dtype),
+                              middle=_meta(1, r, dtype=dtype))
+
 
 
 def _orthonormalize(q: torch.Tensor) -> torch.Tensor:
@@ -493,6 +669,14 @@ class PowerSGD(Compressor):
                         + FLOAT_BITS,  # + the rescale float
                         deterministic=True)
 
+    def structure(self, shape, dtype=torch.float64) -> LowRankPayload:
+        d0, d1 = (int(s) for s in shape)
+        # each reduced QR keeps min(rows, cols) columns
+        r = min(self.r, d1) if self.iters == 0 else min(self.r, d0, d1)
+        return LowRankPayload(left=_meta(1, d0, r, dtype=dtype),
+                              right=_meta(1, d1, r, dtype=dtype),
+                              middle=_meta(1, 1, dtype=dtype))
+
 
 @dataclasses.dataclass(frozen=True)
 class Identity(Compressor):
@@ -509,6 +693,10 @@ class Identity(Compressor):
     def spec(self, shape) -> CompSpec:
         return CompSpec(delta=1.0, omega=None,
                         bits=numel(shape) * FLOAT_BITS, deterministic=True)
+
+    def structure(self, shape, dtype=torch.float64) -> DensePayload:
+        return DensePayload(values=_meta(1, *shape, dtype=dtype),
+                            count=numel(shape), indexed=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -534,6 +722,11 @@ class Zero(Compressor):
 
     def spec(self, shape) -> CompSpec:
         return CompSpec(delta=0.0, omega=None, bits=0, deterministic=True)
+
+    def structure(self, shape, dtype=torch.float64) -> SparsePayload:
+        return SparsePayload(values=_meta(1, 0, dtype=dtype),
+                             indices=_meta(1, 0, dtype=torch.int32),
+                             universe=numel(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -607,6 +800,13 @@ class RandK(Compressor):
                         bits=k * (FLOAT_BITS + INDEX_BITS),
                         deterministic=False)
 
+    def structure(self, shape, dtype=torch.float64) -> SparsePayload:
+        size = numel(shape)
+        k = min(self.k, size)
+        return SparsePayload(values=_meta(1, k, dtype=dtype),
+                             indices=_meta(1, k, dtype=torch.int32),
+                             universe=size)
+
 
 def _qnorm(flat: torch.Tensor, q: float) -> torch.Tensor:
     """Per-row q-norm of (n, numel), as ``jnp.linalg.norm`` writes it."""
@@ -671,6 +871,12 @@ class RandomDithering(Compressor):
             bits=FLOAT_BITS + size * (1 + level_bits),
             deterministic=False)
 
+    def structure(self, shape, dtype=torch.float64) -> DitheredPayload:
+        return DitheredPayload(norm=_meta(1, 1, dtype=dtype),
+                               signs=_meta(1, *shape, dtype=dtype),
+                               levels=_meta(1, *shape, dtype=dtype),
+                               s=self.s, count=numel(shape))
+
 
 @dataclasses.dataclass(frozen=True)
 class NaturalSparsification(Compressor):
@@ -712,6 +918,12 @@ class NaturalSparsification(Compressor):
             delta=None, omega=1.0 / self.p - 1.0,
             bits=int(self.p * numel(shape)) * (FLOAT_BITS + INDEX_BITS),
             deterministic=False)
+
+    def structure(self, shape, dtype=torch.float64) -> DensePayload:
+        size = numel(shape)
+        return DensePayload(values=_meta(1, *shape, dtype=dtype),
+                            count=int(self.p * size), indexed=True,
+                            universe=size)
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,14 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..engine.method import MethodBase, Oracles, register, round_draws
-from .compressors import FLOAT_BITS, Compressor, RandK
+from ..engine.method import (
+    MethodBase,
+    Oracles,
+    payload_wire_bits,
+    register,
+    round_draws,
+)
+from .compressors import FLOAT_BITS, Compressor, RandK, canonical_float_bits
 from .fednl import FedNLState
 from .fednl_bc import downlink
 from .fednl_pp import corrected_grads
@@ -192,6 +198,16 @@ class FedNLPPBC(MethodBase):
         """(uplink per active silo, downlink broadcast)."""
         up = self.comp.spec((d, d)).bits + FLOAT_BITS + d * FLOAT_BITS
         return up, self.comp_m.spec((d,)).bits
+
+    def measured_bits_per_round(self, d: int, index_coding: str = "raw",
+                                dtype: torch.dtype = torch.float64
+                                ) -> tuple[int, int]:
+        """Measured (uplink per active silo, downlink): a bidirectional
+        wire."""
+        fb = canonical_float_bits(dtype)
+        up = (payload_wire_bits(self.comp, (d, d), index_coding, dtype)
+              + fb + d * fb)
+        return up, payload_wire_bits(self.comp_m, (d,), index_coding, dtype)
 
 
 @register("fednl-stoch")

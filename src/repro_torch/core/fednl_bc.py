@@ -16,8 +16,14 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from ..engine.method import MethodBase, Oracles, register, round_draws
-from .compressors import FLOAT_BITS, Compressor
+from ..engine.method import (
+    MethodBase,
+    Oracles,
+    payload_wire_bits,
+    register,
+    round_draws,
+)
+from .compressors import FLOAT_BITS, Compressor, canonical_float_bits
 from .linalg import project_psd, solve_newton_system
 
 
@@ -107,6 +113,19 @@ class FedNLBC(MethodBase):
         up = (self.p * d * FLOAT_BITS + self.comp.spec((d, d)).bits
               + FLOAT_BITS)
         down = self.comp_m.spec((d,)).bits + 1  # model increment + xi bit
+        return up, down
+
+    def measured_bits_per_round(self, d: int, index_coding: str = "raw",
+                                dtype: torch.dtype = torch.float64
+                                ) -> tuple[float, int]:
+        """Measured (uplink, downlink): this wire is bidirectional, so
+        both compressors' payload structures, and the floats in
+        ``dtype``."""
+        fb = canonical_float_bits(dtype)
+        up = (self.p * d * fb
+              + payload_wire_bits(self.comp, (d, d), index_coding, dtype)
+              + fb)
+        down = payload_wire_bits(self.comp_m, (d,), index_coding, dtype) + 1
         return up, down
 
 

@@ -1,6 +1,7 @@
-"""Benchmark problems: eq. (10) on the LibSVM-shaped stand-ins, packaged
-as the oracle dict the engine consumes (counterpart of
-``repro.data.problems.make_problem`` for the five Table 3 names)."""
+"""Benchmark problems: eq. (10) on the LibSVM-shaped stand-ins (Table 3
+sizes) or the Sec. A.14 synthetic generator, packaged as the oracle dict
+the engine consumes (counterpart of ``repro.data.problems``).
+"""
 
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from ..core.objectives import (
     lipschitz_constants,
 )
 from ..device import resolve_device
-from .synthetic import LIBSVM_SHAPES, make_libsvm_like
+from .synthetic import LIBSVM_SHAPES, make_libsvm_like, make_synthetic
 
 
 def problem_from_data(data: LogRegData, newton_rounds: int = 25) -> dict:
@@ -35,10 +36,17 @@ def problem_from_data(data: LogRegData, newton_rounds: int = 25) -> dict:
 
 def make_problem(name: str = "a1a", lam: float = 1e-3, seed: int = 0,
                  device=None, dtype: torch.dtype = torch.float64) -> dict:
-    """Returns dict with oracles, x*, constants for a Table 3 name."""
+    """The oracle dict, x* and constants for a Table 3 name ('a1a', ...)
+    or 'synthetic:ALPHA:BETA' (Sec. A.14's generator at n=30, m=200,
+    d=100), drawn from ``seed`` on ``device`` (the card unless asked)."""
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    if name.startswith("synthetic"):
+        _, alpha, beta = name.split(":")
+        return problem_from_data(make_synthetic(
+            gen, float(alpha), float(beta), n=30, m=200, d=100, lam=lam,
+            dtype=dtype))
     if name not in LIBSVM_SHAPES:
         raise ValueError(f"unknown problem {name!r}; the port has "
-                         f"{sorted(LIBSVM_SHAPES)}")
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+                         f"{sorted(LIBSVM_SHAPES)} and synthetic:ALPHA:BETA")
     return problem_from_data(make_libsvm_like(gen, name, lam=lam,
                                               dtype=dtype))

@@ -15,8 +15,9 @@ default, from ``seed``; ``draws=`` gives another, such as one that
 replays the reference's draws). Its methods hand a step the variates the
 reference splits from its key: each silo's compressor draw, the active
 set, a Bernoulli flag, an oracle's generator. ``bits_per_round`` is the
-analytic count from ``comp.spec(shape).bits``; the measured count
-(``measured_bits_per_round``) needs the wire codec, ROADMAP item 9.
+analytic count from ``comp.spec(shape).bits``;
+``measured_bits_per_round`` the count measured from the payload's
+structure (``wire.wire_cost``).
 """
 
 from __future__ import annotations
@@ -74,6 +75,16 @@ def round_draws(draws, seed: int, x0: torch.Tensor):
     return RoundDraws(seed, x0.device) if draws is None else draws
 
 
+def payload_wire_bits(comp, shape, index_coding: str = "raw",
+                      dtype: torch.dtype = torch.float64) -> int:
+    """One payload's measured bits at ``shape``: ``wire_cost``'s raw or
+    entropy count."""
+    from ..wire.report import wire_cost
+
+    rep = wire_cost(comp, shape, dtype=dtype, encoded=False)
+    return rep.entropy_bits if index_coding == "entropy" else rep.raw_bits
+
+
 class MethodBase:
     """Shared ``run`` driver plus the payload wire helpers."""
 
@@ -101,6 +112,24 @@ class MethodBase:
         """Server side: S = mean_i w_i S_i straight from payload space;
         ``weights`` (0 for an absent silo) scale the payloads."""
         return self.comp.aggregate(payloads, shape, weights=weights)
+
+    def measured_bits_per_round(self, d: int, index_coding: str = "raw",
+                                dtype: torch.dtype = torch.float64):
+        """MEASURED per-round wire bits: the compressor's payload structure
+        (``wire_cost``, no compute) plus the (d + 1) uncompressed floats
+        of ``dtype`` every single-uplink FedNL variant ships (a gradient-
+        sized vector and one scalar). ``index_coding="entropy"`` charges
+        the index streams ceil(log2 C(d^2, k)). Methods with another
+        layout (FedNL-BC, FedNL-PP-BC) override; a method without a
+        compressor returns its analytic count, its wire being dense
+        floats."""
+        comp = getattr(self, "comp", None)
+        if comp is None:
+            return self.bits_per_round(d)
+        from ..core.compressors import canonical_float_bits
+
+        return (payload_wire_bits(comp, (d, d), index_coding, dtype)
+                + (d + 1) * canonical_float_bits(dtype))
 
     def run(self, x0, n, num_rounds: int, *args, seed: int = 0, **init_kw):
         """``num_rounds`` rounds from x0. Returns (final state,
@@ -142,11 +171,17 @@ def available_methods() -> list[str]:
 
 def make_method(name: str, oracles: Oracles, compressor=None, **params):
     """Construct a registered method by name; ``params`` (alpha, option,
-    mu, tau, p, l_star, model_compressor, ...) go to its factory."""
+    mu, tau, p, l_star, model_compressor, cohort, ...) go to its factory.
+    A compressor param given as a tuple, ``model_compressor=("topk",
+    16)``, is built through the compressor registry."""
     _ensure_registered()
     try:
         factory = _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown method {name!r}; available: "
                        f"{available_methods()}") from None
+    from ..core.compressors import make_compressor
+
+    params = {k: make_compressor(*v) if k.endswith("compressor")
+              and isinstance(v, tuple) else v for k, v in params.items()}
     return factory(oracles, compressor, **params)

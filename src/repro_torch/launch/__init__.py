@@ -1,2 +1,3 @@
-"""Launch drivers of the port: the prefill and serve steps and the
-serving loop (``serve.py``). Training waits for a later slice."""
+"""Launch drivers of the port: the prefill and serve steps, the serving
+loop (``serve.py``) and the sweep CLI (``sweep.py``). Training waits for
+a later slice."""

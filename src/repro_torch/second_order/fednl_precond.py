@@ -25,9 +25,10 @@ the pre-learning H and the current l, as the reference pins.
 
 The kernels run where the tensors are: on a card the CUDA kernels, on
 the CPU their plain versions. Each ``a + c * b`` of the reference is
-``torch.add(a, b, alpha=c)``: one rounding, as XLA fuses it. The
-reference's ``uplink_bits`` needs the wire codec, which the port does
-not have yet; it stays unbound.
+``torch.add(a, b, alpha=c)``: one rounding, as XLA fuses it.
+``uplink_bits`` is the wire cost of one refresh (``wire.wire_cost``'s
+analytic count, from shapes alone), bound in the ``Optimizer`` adapter
+as the reference binds it.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import torch
 
 from ..core.compressors import BlockSparsePayload, BlockTopKThreshold
 from ..kernels.block_topk import diff_topk_payload
-from ..tree import tree_map
+from ..tree import tree_leaves, tree_map
 from .optim import Optimizer
 
 
@@ -170,6 +171,20 @@ class FedNLPrecondOptimizer:
         return _pick(out, 0), state._replace(step=state.step + 1,
                                              mu=_pick(out, 1))
 
+    def uplink_bits(self, params, n_silos: int = 1) -> int:
+        """Host-side wire cost of ONE curvature refresh: every silo ships
+        one Block-Top-K diff payload per parameter tensor (``wire_cost``'s
+        analytic count: k values and k indices per tile of the tensor's
+        2-D block partition). Reads shapes only; call it at setup."""
+        from ..wire.report import wire_cost
+
+        total = 0
+        for p in tree_leaves(params):
+            rep = wire_cost(self.compressor, _shape2d(p.shape),
+                            encoded=False)
+            total += int(rep.analytic_bits)
+        return total * int(n_silos)
+
     def update(self, grads, state: FedNLPrecondState, params,
                observations=None):
         """Learn and step at once. ``observations`` leaves may carry a
@@ -190,7 +205,9 @@ class FedNLPrecondOptimizer:
 
 def fednl_precond(lr: float = 1e-3, **kw) -> Optimizer:
     """``Optimizer`` adapter: ``update`` is bound directly, so the optional
-    ``observations`` reach it; the amortized hooks ride along."""
+    ``observations`` reach it; the amortized hooks and the host-side
+    ``uplink_bits`` ride along."""
     opt = FedNLPrecondOptimizer(lr=lr, **kw)
     return Optimizer(opt.init, opt.update, observe=opt.observe,
-                     refresh=opt.refresh, precondition=opt.precondition)
+                     refresh=opt.refresh, precondition=opt.precondition,
+                     uplink_bits=opt.uplink_bits)

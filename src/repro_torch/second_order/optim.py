@@ -37,9 +37,8 @@ class Optimizer:
     observation per tensor), ``refresh(state, observations) -> state``
     (learn curvature, the expensive phase) and
     ``precondition(grads, state, params) -> (updates, state)`` (the cheap
-    step from stored curvature). ``uplink_bits`` is the reference's
-    wire-cost hook; the port leaves it unbound until it has the wire
-    codec."""
+    step from stored curvature), and ``uplink_bits(params, n_silos=1)
+    -> int``, the host-side wire cost of one curvature refresh."""
 
     init: Callable
     update: Callable

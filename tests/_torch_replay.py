@@ -149,7 +149,7 @@ def _items(method: str, key, rounds: int, n: int, d: int, comp=None,
             if method in ("fednl", "fednl-cr", "fednl-ls"):
                 key, sub = jr.split(key)
                 silos(comp, sub, (d, d))
-            elif method == "fednl-pp":
+            elif method in ("fednl-pp", "fednl-cohort"):
                 key, k_sel, k_comp = jr.split(key, 3)
                 items.append(("active", _active(k_sel, n, tau)))
                 silos(comp, k_comp, (d, d))

@@ -176,6 +176,50 @@ def test_block_scatter_accumulate_kernel_matches_plain(cuda):
     assert torch.equal(got.cpu(), want)
 
 
+def _cohort_round_weights(n, d, dtype, device, seed):
+    """(n,) weights of a ``fednl-cohort`` round on w8a (K = 28 of n, the
+    fl-cross-device deadline at 0.8, beta = 0.5) from the port's own
+    ``round_weights``: 0 for the unsampled, 1 on time, (1 + s)^(-1/2)
+    for a straggler s rounds stale."""
+    from repro_torch.core import CohortFedNLPP, CohortSpec, TopK
+    from repro_torch.core.cohort import CohortFedNLPPState
+    from repro_torch.engine.method import RoundDraws
+
+    co = CohortFedNLPP(None, None, TopK(d), CohortSpec(cohort=28))
+    gen = torch.Generator().manual_seed(seed)
+    state = CohortFedNLPPState(
+        w=torch.zeros(n, d, dtype=dtype, device=device), h_local=None,
+        l_local=None, g_local=None, h_global=None, l_global=None,
+        g_global=None, x=torch.zeros(d, dtype=dtype, device=device), step=9,
+        draws=None, last_round=torch.randint(0, 9, (n,), generator=gen,
+                                             dtype=torch.int32).to(device))
+    active = RoundDraws(seed, device).active(n, 28)
+    return co.round_weights(state, active)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cohort_round_weighted_payloads_match_plain(cuda, dtype):
+    """K2 and K4 on a w8a cohort round's fractionally weighted payloads
+    (142 silos, Top-K k = 300 pairs and Block-Top-K 8 of 128^2 tiles),
+    bit for bit against their plain versions on the CPU."""
+    w = _cohort_round_weights(142, 300, dtype, cuda, seed=11)
+    assert ((w > 0) & (w < 1)).any() and (w == 1).any() and (w == 0).any()
+    gen = torch.Generator().manual_seed(12)
+    v, i = _pairs(142, 300, 300 * 300, gen)
+    v = (v.to(dtype).to(cuda) * w[:, None]).contiguous()
+    got = scatter_accumulate(v, i.to(cuda), (300, 300)).cpu()
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    want = scatter_accumulate_ref(v.cpu(), i, (300, 300))
+    assert torch.equal(got.view(bits), want.view(bits))
+    bv, bi = _pairs(142 * 9, 8, 128 * 128, gen)
+    bv = (bv.to(dtype).reshape(142, 9, 8).to(cuda)
+          * w[:, None, None]).contiguous()
+    bi = bi.reshape(142, 9, 8)
+    got = block_scatter_accumulate(bv, bi.to(cuda), (3, 3), 128).cpu()
+    want = block_scatter_accumulate_ref(bv.cpu(), bi, (3, 3), 128)
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
 def test_wrappers_count_launches_and_reject_bad_input(cuda):
     reset_launches()
     v, i = _pairs(2, 10, 100, torch.Generator().manual_seed(3))

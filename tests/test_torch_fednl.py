@@ -110,10 +110,11 @@ def test_make_method_and_bits_match_reference():
         assert port.init_bits(d) == ref.init_bits(d)
     from repro.engine.method import available_methods as jax_available
 
-    names = ["fednl", "fednl-bc", "fednl-cr", "fednl-ls", "fednl-pp",
-             "fednl-ppbc", "fednl-stoch", "n0", "n0-ls", "newton", "ns"]
+    names = ["fednl", "fednl-bc", "fednl-cohort", "fednl-cr", "fednl-ls",
+             "fednl-pp", "fednl-ppbc", "fednl-stoch", "n0", "n0-ls",
+             "newton", "ns"]
     assert available_methods() == names
-    assert names == sorted(set(jax_available()) - {"fednl-cohort"})
+    assert names == sorted(jax_available())
 
 
 def test_entry_points_default_to_cuda():

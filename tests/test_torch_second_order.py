@@ -183,8 +183,13 @@ def test_fednl_precond_adapter_binds_the_hooks():
     opt = fednl_precond(lr=0.5, k_per_block=4, block=8)
     assert isinstance(opt, Optimizer)
     assert opt.refresh is not None and opt.precondition is not None
-    assert opt.observe is not None and opt.uplink_bits is None
-    p = params_from_numpy(_draw(np.random.default_rng(35)), "cpu")
+    assert opt.observe is not None and opt.uplink_bits is not None
+    tree = _draw(np.random.default_rng(35))
+    with jax.enable_x64(True):
+        want = JaxFedNLPrecond(k_per_block=4, block=8).uplink_bits(
+            tree, n_silos=3)
+    assert opt.uplink_bits(tree, n_silos=3) == want > 0
+    p = params_from_numpy(tree, "cpu")
     state = opt.init(p)
     u, state = opt.update(p, state, p)
     assert state.step == 1

@@ -212,8 +212,8 @@ def test_variants_bits_match_reference():
 def test_registry_has_every_reference_method_but_the_cohort():
     from repro_torch.engine import available_methods
 
-    want = sorted(set(jax_available_methods()) - {"fednl-cohort"})
-    assert available_methods() == want
+    # the cohort is in since the engine slice: the whole registry
+    assert available_methods() == sorted(jax_available_methods())
 
 
 def _reference_states(method, comp_family, level, option):
