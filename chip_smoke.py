@@ -19,11 +19,12 @@ Phases, each failing the run with a non-zero exit:
      cells within and across silos, padding, out-of-range indices,
      blocks 8, 128 and 256; K2's one cell, diagonal, all padding,
      (1, 90,000) row, mirrors outside the matrix, -0.0 init, a silo
-     scaled by 0, hot cells); K2 and K4 also bit for bit on the FedNL
-     variants' traffic: Rand-K's indices at w8a, a FedNL-PP round's
-     payloads with 28 of 142 silos weighted 1 and the rest 0 (equal bit
-     for bit to the 28 alone), and K2 into (1, 300) and (1, 4,096) rows;
-     and a fednl-cohort round's fractionally weighted payloads (K2, K4);
+     scaled by 0, hot cells, a row window no pair lands in); K2 and K4
+     also bit for bit on the FedNL variants' traffic: Rand-K's indices
+     at w8a, a FedNL-PP round's payloads with 28 of 142 silos weighted 1
+     and the rest 0 (equal bit for bit to the 28 alone), and K2 into
+     (1, 300) and (1, 4,096) rows; and a fednl-cohort round's
+     fractionally weighted payloads (K2, K4);
   4. drive FedNL Options 1 and 2 on the w8a stand-in (n=142, m=350,
      d=300, f64) for Top-K (k=d), symmetric Top-K (k=d), Rank-R (1) and
      Block-Top-K (8), 20 rounds each, through ``FedNL.run``; assert the
@@ -61,6 +62,17 @@ Phases, each failing the run with a non-zero exit:
      then the sweep CLI in process on the card. Prints each cell's
      us_per_round and median ms per round, the sweep's wall clock
      against the bare serial runs' and the codec's host ms;
+  4d. multi-device aggregation on w8a: ``run_fednl_sharded`` over a
+     one-rank NCCL group (``launch.mesh.make_host_mesh``; NCCL refuses
+     two ranks on one card, so W > 1 with real collectives is held by the
+     CPU tests on gloo groups) for Top-K k=d Options 1 and 2 and
+     Block-Top-K 8 Option 2, 20 rounds, each equal to the unsharded
+     ``FedNL.run`` bit for bit (K1, K2 and K4 must launch), ms per round
+     of both in turns, one identity reduction's ms; then the sharded
+     server sum window by window
+     (``windowed_scatter_accumulate``) at W = 2 and 4 on w8a's Top-K
+     payloads and the K3 shape's, plain and symmetric, each equal to the
+     unsharded K2 sum bit for bit, timed beside it;
   5. drive the curvature-learning optimizer ``fednl_precond`` (k=2048 per
      128 x 128 tile) over all 14 tensors of qwen2-0.5B (494,032,768
      parameters, bf16, random from --seed) with 4 silos of Fisher
@@ -105,7 +117,18 @@ Phases, each failing the run with a non-zero exit:
      B=2, T=600, card against the CPU port on the same weights (1e-4 of
      each leaf's largest |grad|), no K9 launch; the full qwen2-0.5B in
      bf16 at B=1, T=4,096: ms, peak memory, finite nonzero gradients;
-  11. print the kernel line, the card line, and last the device line.
+  11. (run right after 4d, before the first profiler session) the
+     train step at full width: qwen2-0.5B (bf16, remat, random
+     weights from --seed), ``make_optimizer("fednl", k_per_block=2048)``,
+     ``make_train_step`` with 4 microbatches, 4 silos and a refresh
+     every 2 steps on ``TokenPipeline`` batches of 4 x 4,096 tokens, 3
+     steps: refresh flags [1, 0, 1], H bit for bit unchanged on step 1,
+     finite loss and H, K1 and K4 launched on the refresh steps only, no
+     K9; ms per step, of each refresh and precondition, peak memory; an
+     AdamW step at the same shape; one Hutchinson step (T=512, 2 silos)
+     and one silo's probe draw; a reduced model's 3 fednl steps on the
+     card against the CPU port (1e-4 of each leaf's largest |value|);
+  12. print the kernel line, the card line, and last the device line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -560,8 +583,8 @@ def check_adversarial(dev) -> None:
     out-of-range indices, ragged grids, blocks 8, 128 and 256 (row
     bands); K2's cases (``SCATTER_CASES``: one cell, the diagonal, all
     padding, a (1, 90,000) row, mirrors outside the matrix, -0.0, a silo
-    scaled by 0, hot cells). The norms ||D||^2 to 1e-5 (f32) or 1e-12
-    (f64) relative."""
+    scaled by 0, hot cells, a row window no pair lands in). The norms
+    ||D||^2 to 1e-5 (f32) or 1e-12 (f64) relative."""
     import torch
     from repro_torch.kernels.adversarial import (
         SCATTER_CASES,
@@ -1193,6 +1216,162 @@ def engine_w8a(dev, prob, K, card: str) -> dict:
         "codec_host_ms": codec_ms, "cli_row": lines[1],
         "phase_s": time.perf_counter() - t_phase, "card": card}), flush=True)
     return launches
+
+
+# -- phase 4d: multi-device aggregation on w8a ------------------------------------
+
+# The card is one, and NCCL refuses two ranks on one GPU: the group here
+# is one rank (make_host_mesh's own NCCL group), where every all_reduce
+# is the identity, so each sharded run must equal the unsharded FedNL
+# run bit for bit. Ranks W > 1 with real collectives are held by the CPU
+# tests on gloo groups of 4 (tests/test_torch_federated.py). The row
+# windows of the sharded server sum run here window by window, at W = 2
+# and 4, each a K2 call at (d / W, d).
+SHARDED_RUNS = (("topk", None, 1), ("topk", None, 2), ("blocktopk", 8, 2))
+WINDOW_WORLDS = (2, 4)
+
+
+def sharded_w8a(dev, prob, x0, K, card: str) -> dict:
+    """``run_fednl_sharded`` on a one-rank NCCL mesh for ``SHARDED_RUNS``
+    (the main path: K1, K2 and K4 must launch; counts around those runs
+    alone), each equal to the unsharded ``FedNL.run`` bit for bit; ms per
+    round of both, in turns (parent order: unsharded, sharded, sharded,
+    unsharded). Then ``windowed_scatter_accumulate`` at W = 2 and 4 on
+    w8a's Top-K payloads (plain and symmetric) and on the K3 shape's,
+    each equal to the unsharded K2 sum bit for bit (its launches counted
+    as the paths ``sharded_windows`` and ``sharded_windows_d2048``), with
+    CUDA-event ms of each beside the unsharded call. Returns the paths'
+    launches; the group is destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh()
+    try:
+        require(tuple(mesh.shape) == (1, 1) and dist.get_backend() == "nccl",
+                f"the host mesh is {tuple(mesh.shape)} over "
+                f"{dist.get_backend()}, not one NCCL rank")
+        return _sharded_w8a(dev, prob, x0, K, card, mesh, t_phase)
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_w8a(dev, prob, x0, K, card, mesh, t_phase) -> dict:
+    import torch
+    from repro_torch.core import FedNL, make_compressor, run_fednl_sharded
+    from repro_torch.kernels.scatter_accum import scatter_accumulate
+    from repro_torch.kernels.scatter_accum.sharded import (
+        windowed_scatter_accumulate,
+    )
+
+    d, n = prob["d"], prob["n"]
+
+    def comp_of(family, level):
+        return make_compressor(family, d if level is None else level)
+
+    K.reset_launches()
+    runs = {}
+    for family, level, option in SHARDED_RUNS:
+        _, xs = run_fednl_sharded(prob["data"], comp_of(family, level), mesh,
+                                  x0, ROUNDS, option=option, mu=MU)
+        runs[family, option] = xs
+    torch.cuda.synchronize()
+    launches = counts(K)
+    for name in ("diff_topk_payload", "scatter_accumulate",
+                 "block_scatter_accumulate"):
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the sharded FedNL path")
+    round_ms = {}
+    for family, level, option in SHARDED_RUNS:
+        comp = comp_of(family, level)
+        alg = FedNL(prob["grad"], prob["hess"], comp, option=option, mu=MU)
+        want = alg.run(x0, n, ROUNDS)[1]
+        require(torch.equal(runs[family, option], want),
+                f"sharded {family} option {option} differs from the "
+                f"unsharded run by "
+                f"{float(torch.max(torch.abs(runs[family, option] - want))):.3e}")
+
+        # a round: (a run of ROUNDS - a run of 0 rounds) / ROUNDS
+        def per_round(sharded):
+            def run(rounds):
+                if sharded:
+                    return run_fednl_sharded(prob["data"], comp, mesh, x0,
+                                             rounds, option=option, mu=MU)
+                return alg.run(x0, n, rounds)
+            return (host_ms(lambda: run(ROUNDS))[0]
+                    - host_ms(lambda: run(0))[0]) / ROUNDS
+
+        turns = {"unsharded": [], "sharded": []}
+        for key in ("unsharded", "sharded", "sharded", "unsharded"):
+            turns[key].append(per_round(key == "sharded"))
+        round_ms[f"{family}/option{option}"] = turns
+
+    # the row windows against the unsharded K2 sum
+    diff = prob["hess"](x0) - prob["hess"](prob["xstar"])
+    k3 = k3_payloads(dev, seed=5)
+    inputs = {"w8a": (comp_of("topk", None).compress(diff), (d, d), False),
+              "w8a_sym": (comp_of("topk-sym", None).compress(diff), (d, d),
+                          True),
+              "k3": (k3, (K3_D, K3_D), False),
+              "k3_sym": (k3, (K3_D, K3_D), True)}
+    sums, window_launches = {}, {}
+    for path, keys in (("sharded_windows", ("w8a", "w8a_sym")),
+                       ("sharded_windows_d2048", ("k3", "k3_sym"))):
+        K.reset_launches()
+        for key in keys:
+            pay, shape, sym = inputs[key]
+            for w in WINDOW_WORLDS:
+                sums[key, w] = windowed_scatter_accumulate(
+                    pay.values.contiguous(), pay.indices.contiguous(), shape,
+                    w, symmetric=sym)
+        torch.cuda.synchronize()
+        window_launches[path] = counts(K)
+        got = window_launches[path]["scatter_accumulate"]
+        require(got == len(keys) * sum(WINDOW_WORLDS),
+                f"{path}: scatter_accumulate launched {got} times, not "
+                f"{len(keys) * sum(WINDOW_WORLDS)}")
+    window_ms = {}
+    for key, (pay, shape, sym) in inputs.items():
+        v, i = pay.values.contiguous(), pay.indices.contiguous()
+        whole = scatter_accumulate(v, i, shape, symmetric=sym)
+        row = {"unsharded_ms": time_cuda(
+            lambda: scatter_accumulate(v, i, shape, symmetric=sym))}
+        for w in WINDOW_WORLDS:
+            require(torch.equal(sums[key, w], whole),
+                    f"{key} at W={w}: the windows differ from the unsharded "
+                    f"K2 sum")
+            row[f"W{w}_ms"] = time_cuda(lambda: windowed_scatter_accumulate(
+                v, i, shape, w, symmetric=sym))
+        window_ms[key] = row
+    # one identity all_reduce's wall ms, as _server_reduce issues it (a
+    # clone, the collective, the division): the (d, d) mean and a scalar
+    group = mesh.get_group("data")
+    method = FedNL(None, None, comp_of("topk", None), group=group)
+    reduce_ms = {}
+    for key, t in (("dxd", diff[0]), ("scalar", diff[0, 0, 0])):
+        reps = 200
+        reduce_ms[key] = host_ms(lambda: [method._server_reduce(t)
+                                          for _ in range(reps)])[0] / reps
+    unsharded = {key: statistics.median(t["unsharded"])
+                 for key, t in round_ms.items()}
+    sharded = {key: statistics.median(t["sharded"])
+               for key, t in round_ms.items()}
+    print(f"# sharded FedNL on one NCCL rank: {len(SHARDED_RUNS)} runs x "
+          f"{ROUNDS} rounds bit for bit equal to the unsharded runs; the "
+          f"windows at W = {WINDOW_WORLDS} equal the unsharded K2 sum",
+          flush=True)
+    print(json.dumps({
+        "sharded_round_ms_median": sharded,
+        "unsharded_round_ms_median": unsharded,
+        "sharded_round_ms_turns": round_ms, "window_ms": window_ms,
+        "identity_reduce_ms": reduce_ms,
+        "sharded_launches": {k: launches[k] for k in (
+            "diff_topk_payload", "scatter_accumulate",
+            "block_scatter_accumulate")},
+        "window_launches": {path: got["scatter_accumulate"]
+                            for path, got in window_launches.items()},
+        "phase_s": time.perf_counter() - t_phase, "card": card}), flush=True)
+    return {"fednl_sharded_w8a": launches, **window_launches}
 
 
 # the K3 shape: d = 2,048 in f64, the first width where the TPU package
@@ -1839,7 +2018,7 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
     k2 = inputs["k2"]
     total, by = launches("scatter_accumulate",
                          [path for path in paths
-                          if path != "topk_aggregate_d2048"])
+                          if not path.endswith("d2048")])
     kernels.append(dict(
         name="scatter_accumulate", route="cuda",
         source="src/repro_torch/csrc/scatter_accum.cu",
@@ -1858,7 +2037,8 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
                         "pairs and their mirrors into (300, 300) f64"))
 
     # K3: the same kernels at the TPU's output-tiled shape
-    total, by = launches("scatter_accumulate", ("topk_aggregate_d2048",))
+    total, by = launches("scatter_accumulate",
+                         [path for path in paths if path.endswith("d2048")])
     kernels.append(dict(
         name="scatter_accumulate_tiled", route="cuda",
         source="src/repro_torch/csrc/scatter_accum.cu",
@@ -2420,7 +2600,9 @@ def grad_qwen2(dev, seed: int, K) -> dict:
         return tree_map(lambda a: a.detach().to(device).requires_grad_(True),
                         params)
 
-    model = build_model(get_config("qwen2-0.5b", smoke=True))
+    # without remat, as this phase has measured the backward since PR 16
+    # (phase 11 trains with it)
+    model = build_model(get_config("qwen2-0.5b", smoke=True), use_remat=False)
     cpu_params = model.init_params(torch.Generator().manual_seed(seed))
     gen = torch.Generator().manual_seed(seed + 2)
     tokens = torch.randint(0, model.cfg.vocab, (GRAD_B, GRAD_T), generator=gen)
@@ -2444,7 +2626,7 @@ def grad_qwen2(dev, seed: int, K) -> dict:
         worst = max(worst, gap / scale)
 
     cfg = get_config("qwen2-0.5b")
-    model = build_model(cfg)
+    model = build_model(cfg, use_remat=False)
     params = leaves_of(model.init_params(
         torch.Generator(device=dev).manual_seed(seed)), dev)
     tokens = torch.randint(0, cfg.vocab, (1, TRAIN_T + 1),
@@ -2482,6 +2664,191 @@ def grad_qwen2(dev, seed: int, K) -> dict:
     del params, loss
     torch.cuda.empty_cache()
     return rep
+
+
+# -- phase 11: the train step at full width -----------------------------------------
+
+# qwen2-0.5B's published configuration with random weights, remat on,
+# make_optimizer("fednl", k_per_block=2048: the train driver's
+# --curvature-k default), a batch of 4 sequences at train_4k's T = 4,096
+# (its batch of 256 cut to 4): 4 microbatches, 4 silos of one sequence,
+# a refresh every 2 steps, 3 steps. The Hutchinson step (a double
+# backward per silo) runs once at T = 512, B = n_silos = 2: its graph at
+# T = 4,096 is a later measurement. The reduced model (2 layers, d 64,
+# f32, k = block^2 = 64 so no selection tie can part card and CPU) runs
+# 3 fednl steps on the card and on the CPU port.
+TRAIN_T, TRAIN_B, TRAIN_MB, TRAIN_SILOS = 4096, 4, 4, 4
+TRAIN_REFRESH, TRAIN_STEPS, TRAIN_LR, CURVATURE_K = 2, 3, 3e-4, 2048
+HVP_T, HVP_SILOS = 512, 2
+SMALL_TRAIN = dict(n_layers=2, d_model=64, d_ff=128, vocab=128)
+
+
+def _timed(opt, log: dict):
+    """``opt`` with its refresh and precondition timed into ``log``."""
+    def wrap(name, fn):
+        def call(*args):
+            ms, out = host_ms(lambda: fn(*args))
+            log.setdefault(name, []).append(ms)
+            return out
+        return call
+
+    return dataclasses.replace(opt, refresh=wrap("refresh", opt.refresh),
+                               precondition=wrap("precondition",
+                                                 opt.precondition))
+
+
+def train_qwen2(dev, seed: int, K, card: str) -> dict:
+    """``make_train_step`` at full width: 3 fednl steps (refresh flags
+    [1, 0, 1], H bit for bit unchanged on step 1, finite loss and H; K1
+    and K4 launched on the refresh steps alone, K9 never), the ms of
+    each step, of the refreshes and preconditions inside them, peak
+    memory; an adamw step at the same shape; one Hutchinson step; the
+    reduced model on the card against the CPU port. Returns the
+    launches of the 3 fednl steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.steps import (
+        RademacherProbes,
+        make_optimizer,
+        make_train_step,
+    )
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg, use_remat=True)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    pipe = TokenPipeline(vocab_size=cfg.vocab, seq_len=TRAIN_T,
+                         global_batch=TRAIN_B, seed=seed)
+    log: dict = {}
+    opt = _timed(make_optimizer("fednl", TRAIN_LR, k_per_block=CURVATURE_K),
+                 log)
+    step = make_train_step(model, opt, microbatches=TRAIN_MB,
+                           refresh_every=TRAIN_REFRESH, n_silos=TRAIN_SILOS)
+    state = opt.init(params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    total = {name: 0 for name in counts(K)}
+    per_step = []
+    for i in range(TRAIN_STEPS):
+        batch = pipe.batch(i, device=dev)
+        h_before = [h.clone() for h in tree_leaves(state.h)] if i == 1 else None
+        K.reset_launches()
+        ms, (params, state, m) = host_ms(lambda: step(params, state, batch))
+        got = counts(K)
+        for name, c in got.items():
+            total[name] += c
+        loss = float(m["loss"])
+        require(bool(torch.isfinite(m["loss"])), f"step {i}: loss {loss}")
+        require(all(bool(torch.isfinite(h).all()) for h in tree_leaves(state.h)),
+                f"step {i}: non-finite H")
+        refreshed = m["curv_refreshed"] == 1.0
+        require(refreshed == (i % TRAIN_REFRESH == 0),
+                f"step {i}: curv_refreshed {m['curv_refreshed']}")
+        for name in ("diff_topk_payload", "block_scatter_accumulate"):
+            require((got[name] > 0) == refreshed,
+                    f"step {i} (refresh {refreshed}) launched {name} "
+                    f"{got[name]} times")
+        require(got["flash_attention"] == 0,
+                f"step {i}: the train step launched K9")
+        if h_before is not None:
+            require(all(torch.equal(a, b) for a, b in
+                        zip(h_before, tree_leaves(state.h))),
+                    "H changed on a step without a refresh")
+            del h_before
+        per_step.append({"ms": ms, "loss": loss, "refreshed": refreshed,
+                         "grad_norm": float(m["grad_norm"]),
+                         "k1": got["diff_topk_payload"],
+                         "k4": got["block_scatter_accumulate"]})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state, m, opt, step
+    torch.cuda.empty_cache()
+
+    # the first-order baseline at the same shape
+    opt = make_optimizer("adamw", TRAIN_LR)
+    step = make_train_step(model, opt, microbatches=TRAIN_MB)
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    batch = pipe.batch(0, device=dev)
+    adamw_ms = []
+    for _ in range(2):
+        ms, (params, state, m) = host_ms(lambda: step(params, state, batch))
+        adamw_ms.append(ms)
+    require(bool(torch.isfinite(m["loss"])), "adamw: non-finite loss")
+    adamw_peak = torch.cuda.max_memory_allocated() / 1e9
+    del state, m, opt, step
+    torch.cuda.empty_cache()
+
+    # one Hutchinson step: z * Hz by double backward
+    opt = make_optimizer("fednl", TRAIN_LR, k_per_block=CURVATURE_K,
+                         curvature="hutchinson")
+    step = make_train_step(model, opt, refresh_every=1, n_silos=HVP_SILOS,
+                           hvp=True, probe_seed=seed)
+    state = opt.init(params)
+    batch = TokenPipeline(vocab_size=cfg.vocab, seq_len=HVP_T,
+                          global_batch=HVP_SILOS, seed=seed).batch(0,
+                                                                   device=dev)
+    # one silo's probes alone: 494 M Rademacher draws on the CPU
+    probe_ms = host_ms(lambda: RademacherProbes(seed)(0, 0, params))[0]
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    hvp_ms, (_, state, m) = host_ms(lambda: step(params, state, batch))
+    hvp_launches = counts(K)
+    require(m["curv_refreshed"] == 1.0 and bool(torch.isfinite(m["loss"]))
+            and all(bool(torch.isfinite(h).all())
+                    for h in tree_leaves(state.h))
+            and hvp_launches["diff_topk_payload"] > 0
+            and hvp_launches["flash_attention"] == 0,
+            f"the Hutchinson step: loss {float(m['loss'])}, launches "
+            f"{hvp_launches}")
+    hvp_peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, state, m, opt, step, model
+    torch.cuda.empty_cache()
+
+    # the reduced model: the card against the CPU port, 3 fednl steps
+    small = get_config("qwen2-0.5b").reduced(**SMALL_TRAIN)
+    model = build_model(small, use_remat=True)
+    cpu_params = model.init_params(torch.Generator().manual_seed(seed))
+    out = {}
+    for where in ("cpu", dev):
+        opt = make_optimizer("fednl", 1e-2, k_per_block=64, block=8)
+        step = make_train_step(model, opt, microbatches=2, refresh_every=2,
+                               n_silos=2)
+        p = tree_map(lambda a: a.to(where), cpu_params)
+        state = opt.init(p)
+        spipe = TokenPipeline(vocab_size=small.vocab, seq_len=128,
+                              global_batch=4, seed=seed)
+        for i in range(TRAIN_STEPS):
+            p, state, _ = step(p, state, spipe.batch(i, device=where))
+        out[str(where)] = [t.cpu() for t in tree_leaves(p) + tree_leaves(state.h)]
+    worst = 0.0
+    for got, want in zip(out[str(dev)], out["cpu"]):
+        scale = float(torch.max(torch.abs(want)))
+        gap = float(torch.max(torch.abs(got - want)))
+        require(gap <= 1e-4 * max(scale, 1e-30),
+                f"reduced train step: card and CPU differ by {gap:.3e} of "
+                f"max {scale:.3e} on a {tuple(want.shape)} leaf")
+        worst = max(worst, gap / max(scale, 1e-30))
+
+    refresh_ms, precond_ms = log.get("refresh", []), log.get("precondition", [])
+    rep = {"shape": f"B={TRAIN_B}, T={TRAIN_T}, {cfg.n_layers} layers, {cfg.dtype}, "
+                    f"{TRAIN_MB} microbatches, {TRAIN_SILOS} silos, "
+                    f"refresh every {TRAIN_REFRESH}, k={CURVATURE_K}",
+           "steps": per_step, "refresh_ms": refresh_ms,
+           "precondition_ms": precond_ms, "peak_memory_gb": peak_gb,
+           "adamw_ms": adamw_ms, "adamw_peak_memory_gb": adamw_peak,
+           "hutchinson": {"shape": f"B={HVP_SILOS}, T={HVP_T}, "
+                                   f"{HVP_SILOS} silos",
+                          "ms": hvp_ms, "peak_memory_gb": hvp_peak,
+                          "one_silo_probe_draw_ms": probe_ms,
+                          "k1": hvp_launches["diff_topk_payload"],
+                          "k4": hvp_launches["block_scatter_accumulate"]},
+           "reduced_card_vs_cpu_max_gap_over_leaf_max": worst,
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    print(json.dumps({"train_qwen2": rep}), flush=True)
+    return total
 
 
 def kernel_name(mangled: str) -> str:
@@ -2570,6 +2937,16 @@ def main() -> int:
         paths["fednl_variants_w8a"] = fednl_variants_w8a(dev, prob, x0, K,
                                                          card)
         paths["engine_w8a"] = engine_w8a(dev, prob, K, card)
+        paths.update(sharded_w8a(dev, prob, x0, K, card))
+
+        # -- 11. the train step at full width, before the phases that
+        # profile: a profiler session slows later launches (PERF.md §2)
+        t0 = time.perf_counter()
+        paths["train_qwen2"] = train_qwen2(dev, args.seed, K, card)
+        print(f"# train phase in {time.perf_counter() - t0:.1f} s; launches "
+              f"K1 {paths['train_qwen2']['diff_topk_payload']}, K4 "
+              f"{paths['train_qwen2']['block_scatter_accumulate']}",
+              flush=True)
         paths["topk_aggregate_d2048"], k3_pay = topk_aggregate_k3(dev, K, err)
         k2 = k2_measure(dev, prob, x0, k3_pay)
         pre = precond_qwen2(dev, args.seed, K, err)
@@ -2608,7 +2985,7 @@ def main() -> int:
     except SmokeFailure as exc:
         return fail(str(exc))
 
-    # -- 11. result lines ----------------------------------------------------
+    # -- 12. result lines ----------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

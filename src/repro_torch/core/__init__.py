@@ -47,6 +47,7 @@ from .extensions import (
     StochasticFedNL,
     SubsampledHessian,
 )
+from .federated import ShardDraws, run_fednl_sharded
 from .fednl import FedNL, FedNLState
 from .fednl_bc import FedNLBC, FedNLBCState
 from .fednl_cr import FedNLCR

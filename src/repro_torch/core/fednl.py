@@ -14,7 +14,9 @@ One communication round:
 
 The per-silo state is stacked on a leading silo axis; the server means
 S in payload space (``Compressor.aggregate``). A randomized compressor
-takes each silo's draw from the state's round-draw source.
+takes each silo's draw from the state's round-draw source. With a
+process ``group`` the silo axis holds this rank's silos and each mean
+is reduced over the ranks (``core/federated.py``).
 """
 
 from __future__ import annotations
@@ -41,11 +43,14 @@ class FedNL(MethodBase):
 
     grad_fn: x -> (n, d) per-silo gradients
     hess_fn: x -> (n, d, d) per-silo Hessians
+    group:   a ``torch.distributed`` process group over which the silos
+             are split (the reference's ``axis_name``); None on one
+             process
     """
 
     def __init__(self, grad_fn: Callable, hess_fn: Callable,
                  compressor: Compressor, alpha: float = 1.0, option: int = 1,
-                 mu: float = 0.0):
+                 mu: float = 0.0, group=None):
         if option not in (1, 2):
             raise ValueError(f"option must be 1 or 2, got {option}")
         self.grad_fn = grad_fn
@@ -54,6 +59,10 @@ class FedNL(MethodBase):
         self.alpha = alpha
         self.option = option
         self.mu = mu
+        self.group = group
+
+    def _mean(self, v: torch.Tensor) -> torch.Tensor:
+        return self._server_reduce(torch.mean(v, dim=0))
 
     def init(self, x0: torch.Tensor, n: int,
              h0: Optional[torch.Tensor] = None, seed: int = 0,
@@ -76,9 +85,9 @@ class FedNL(MethodBase):
                                                    silo_draws)
         s_i = self._local_hessians(payloads, shape)
 
-        grad = torch.mean(grads, dim=0)
+        grad = self._mean(grads)
         s_mean = self._server_aggregate(payloads, shape)
-        l_mean = torch.mean(l_i)
+        l_mean = self._mean(l_i)
 
         h_global = state.h_global + self.alpha * s_mean
         h_local = state.h_local + self.alpha * s_i

@@ -86,9 +86,26 @@ def payload_wire_bits(comp, shape, index_coding: str = "raw",
 
 
 class MethodBase:
-    """Shared ``run`` driver plus the payload wire helpers."""
+    """Shared ``run`` driver plus the payload wire helpers.
+
+    ``group`` (a ``torch.distributed`` process group; None on one
+    process) makes the server a reduction over ranks, each holding its
+    own silos: a per-rank mean is summed over the group and divided by
+    its size, the reference's ``pmean`` over the mesh axis."""
 
     traj_field: str = "x"
+    group: Any = None
+
+    def _server_reduce(self, m: torch.Tensor) -> torch.Tensor:
+        """The mean over ranks of this rank's mean ``m``; ``m`` itself on
+        one process."""
+        if self.group is None:
+            return m
+        import torch.distributed as dist
+
+        out = m.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
+        return out / dist.get_world_size(self.group)
 
     def _uplink_diff_payloads(self, h_new, h_old, silo_draws=None):
         """Device side: payloads of D_i = h_new_i - h_old_i and
@@ -110,8 +127,10 @@ class MethodBase:
 
     def _server_aggregate(self, payloads, shape, weights=None):
         """Server side: S = mean_i w_i S_i straight from payload space;
-        ``weights`` (0 for an absent silo) scale the payloads."""
-        return self.comp.aggregate(payloads, shape, weights=weights)
+        ``weights`` (0 for an absent silo) scale the payloads. Across
+        ranks the dense (d, d) mean is then reduced (``group``)."""
+        return self._server_reduce(
+            self.comp.aggregate(payloads, shape, weights=weights))
 
     def measured_bits_per_round(self, d: int, index_coding: str = "raw",
                                 dtype: torch.dtype = torch.float64):

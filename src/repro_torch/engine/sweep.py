@@ -15,8 +15,10 @@ analytic, measured and entropy-coded cumulative-bits curves, the cell's
 tidy row dicts via ``SweepResult.records()``, with the reference's keys
 in its order.
 
-The multi-device path (``mesh=``, the reference's ``shard_map``) is
-ROADMAP item 10 and raises.
+``mesh=`` (a ``DeviceMesh``) runs the plain-FedNL cells through
+``core/federated.py``'s ``run_fednl_sharded``, silos split over the
+mesh's "data" axis, where the axis divides the silo count; every other
+cell takes the serial path, as in the reference.
 """
 
 from __future__ import annotations
@@ -162,17 +164,15 @@ class Sweep:
     ``link`` prices each cell's measured wire bits through the traffic
     model (a ``wire.traffic`` preset name or ``LinkModel``) into the
     ``seconds_per_round`` column; ``link=None`` skips it (NaN).
-    ``mesh=`` (the reference's sharded path) is ROADMAP item 10 and
-    raises ``NotImplementedError``.
+    ``mesh`` (a ``DeviceMesh``) splits the silos of the plain-FedNL
+    cells over its ``axis`` (``problem["data"]`` is then needed).
     """
 
     def __init__(self, specs: Sequence[ExperimentSpec], mesh=None,
-                 link="wan"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Sweep(mesh=...): the sharded sweep is ROADMAP item 10 "
-                "(multi-device aggregation), not ported yet")
+                 axis: str = "data", link="wan"):
         self.specs = list(specs)
+        self.mesh = mesh
+        self.axis = axis
         self.link = link
 
     def run(self, problem, x0=None, draws=None) -> SweepResult:
@@ -203,8 +203,11 @@ class Sweep:
                           else lambda seed, spec=spec: draws(spec, seed))
             _sync(device)
             t0 = time.perf_counter()
-            xs = run_cell(method, x0, n, spec.num_rounds, spec.seeds,
-                          cell_draws)
+            if self.mesh is not None and self._shardable(spec, problem):
+                xs = self._run_sharded(spec, problem, x0, cell_draws)
+            else:
+                xs = run_cell(method, x0, n, spec.num_rounds, spec.seeds,
+                              cell_draws)
             _sync(device)
             wall_us = (time.perf_counter() - t0) * 1e6
             if val is not None:
@@ -245,8 +248,36 @@ class Sweep:
                                      dtype=dtype)
 
 
+    # -- the sharded path (core/federated.py over the mesh's axis) ----------
+
+    def _shardable(self, spec: ExperimentSpec, problem) -> bool:
+        if spec.method != "fednl" or problem.get("data") is None:
+            return False
+        world = self.mesh.size(self.mesh.mesh_dim_names.index(self.axis))
+        return int(problem["n"]) % world == 0
+
+    def _run_sharded(self, spec: ExperimentSpec, problem, x0,
+                     draws) -> torch.Tensor:
+        from ..core.federated import run_fednl_sharded
+
+        comp = build_compressor(spec.compressor, spec.level)
+        p = dict(spec.params)
+        out = []
+        for seed in spec.seeds:
+            # FedNL.__init__'s defaults, so a spec runs the same algorithm
+            # with and without mesh=
+            _, xs = run_fednl_sharded(
+                problem["data"], comp, self.mesh, x0, spec.num_rounds,
+                alpha=p.get("alpha", 1.0), option=p.get("option", 1),
+                mu=p.get("mu", 0.0), axis=self.axis, seed=seed,
+                draws=None if draws is None else draws(seed))
+            out.append(xs)
+        return torch.stack(out)
+
+
 def run_sweep(specs: Sequence[ExperimentSpec], problem, x0=None,
-              mesh=None, link="wan", draws=None) -> SweepResult:
-    """``Sweep(specs, mesh, link).run(problem, x0, draws)``."""
-    return Sweep(specs, mesh=mesh, link=link).run(problem, x0=x0,
-                                                  draws=draws)
+              mesh=None, axis: str = "data", link="wan",
+              draws=None) -> SweepResult:
+    """``Sweep(specs, mesh, axis, link).run(problem, x0, draws)``."""
+    return Sweep(specs, mesh=mesh, axis=axis, link=link).run(
+        problem, x0=x0, draws=draws)

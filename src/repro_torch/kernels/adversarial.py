@@ -25,7 +25,7 @@ SUM_CASES = ("distinct", "repeats", "same_cells")
 # silo scaled by 0; 142 silos on the same hot cells (the w8a pattern)
 SCATTER_CASES = ("one_cell", "diagonal", "all_padding", "out_of_range",
                  "ragged", "flat", "rect_symmetric", "negzero_init",
-                 "zero_silo", "hot_cells")
+                 "zero_silo", "hot_cells", "empty_window")
 
 
 def topk_inputs(case: str, n: int, m: int, cols: int, dtype: torch.dtype,
@@ -105,6 +105,10 @@ def scatter_pairs(case: str, dtype: torch.dtype, seed: int,
         n, k, shape, symmetric = 142, 60, (300, 300), True
     elif case == "one_cell":
         n, k = 6, 700
+    elif case == "empty_window":
+        # a sharded sum's row window that no pair lands in: w8a's 142
+        # silos of k = d pairs, every one remapped to -1, into (75, 300)
+        n, k, shape = 142, 300, (75, 300)
     elif case in ("diagonal", "negzero_init", "zero_silo"):
         symmetric = True
     cells = shape[0] * shape[1]
@@ -115,6 +119,8 @@ def scatter_pairs(case: str, dtype: torch.dtype, seed: int,
     elif case == "diagonal":
         i = torch.randint(0, shape[0], (n, k), generator=gen)
         idx = i * shape[1] + i
+    elif case == "empty_window":
+        idx[:] = -1
     elif case == "all_padding":
         idx[:] = -1
         init = torch.randn(shape, generator=gen, dtype=torch.float64)

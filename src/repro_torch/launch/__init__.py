@@ -1,3 +1,5 @@
-"""Launch drivers of the port: the prefill and serve steps, the serving
-loop (``serve.py``) and the sweep CLI (``sweep.py``). Training waits for
-a later slice."""
+"""Launch drivers of the port: the train, prefill and serve steps
+(``steps.py``), the train driver (``train.py``), the serving loop
+(``serve.py``), the sweep CLI (``sweep.py``), meshes over
+``torch.distributed`` (``mesh.py``), the sharding rules
+(``sharding.py``) and the assigned input shapes (``shapes.py``)."""

@@ -15,7 +15,13 @@ one after another (``engine.sweep``). The start is x* + 0.05 N(0, I)
 with the normal drawn from ``torch.Generator().manual_seed(1)``: it
 differs from the reference's ``PRNGKey(1)`` draw, and so do the
 problem's data, drawn from ``torch.Generator`` seeded 0. ``--sharded``
-is ROADMAP item 10 (multi-device aggregation) and raises.
+splits the plain-FedNL cells' silos over the ranks of
+``launch.mesh.make_host_mesh()``: one rank when started alone, all of
+them under ``torchrun``.
+
+    # the sharded path, over every rank torchrun starts
+    torchrun --nproc-per-node 4 -m repro_torch.launch.sweep --problem a1a \
+        --method fednl --compressor topk --levels 123 --sharded --device cpu
 """
 
 from __future__ import annotations
@@ -53,7 +59,8 @@ def main(argv=None) -> int:
     ap.add_argument("--records", action="store_true",
                     help="emit full (cell, seed, round) tidy records")
     ap.add_argument("--sharded", action="store_true",
-                    help="the multi-device path (ROADMAP item 10; raises)")
+                    help="split FedNL's silos over the host mesh's "
+                         "data axis")
     ap.add_argument("--link", default="wan",
                     help="traffic-model link preset for the "
                          "seconds_per_round column (datacenter | wan | "
@@ -61,10 +68,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: the sharded sweep is ROADMAP item 10 (multi-device "
-            "aggregation), not ported yet")
 
     import torch
 
@@ -101,11 +104,16 @@ def main(argv=None) -> int:
                         dtype=dtype)
     x0 = prob["xstar"] + 0.05 * noise.to(dev)
     link = None if args.link in ("none", "") else args.link
-    res = Sweep(specs, link=link).run(prob, x0=x0)
+    mesh = None
+    if args.sharded:
+        from .mesh import make_host_mesh
+
+        mesh = make_host_mesh(device=dev)
+    res = Sweep(specs, mesh=mesh, link=link).run(prob, x0=x0)
 
     rows = (res.records() if args.records
             else res.summary(target=args.target))
-    if not rows:
+    if not rows or (mesh is not None and mesh.get_rank() != 0):
         return 0
     cols = list(rows[0])
     print(",".join(cols))

@@ -1,9 +1,10 @@
 """Shared building blocks: initializers, norms, RoPE, masks and the loss,
 the counterparts of ``src/repro/models/common.py``.
 
-The reference's sharding hooks have no counterpart yet: the port runs on
-one card, so ``shard_act`` would be the identity (ROADMAP Queue A
-item 10 brings the mesh). Initializers draw from an explicit
+The reference's sharding hooks (``shard_act``) have no counterpart:
+the rules are ported as specs (``launch/sharding.py``), and on one card
+each is replication, so the model applies none (laying tensors out over
+several cards is ROADMAP item 10b). Initializers draw from an explicit
 ``torch.Generator`` and put the weights on its device.
 """
 

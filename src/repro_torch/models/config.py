@@ -48,6 +48,12 @@ class ModelConfig:
     def tdtype(self) -> torch.dtype:
         return {"bfloat16": torch.bfloat16, "float32": torch.float32}[self.dtype]
 
+    @property
+    def supports_long_decode(self) -> bool:
+        """True if a 524k-token decode state is sub-quadratic or windowed
+        (the dense family: only with a sliding window)."""
+        return self.sliding_window is not None
+
     def reduced(self, n_layers: int = 2, d_model: int = 256, d_ff: int = 512,
                 vocab: int = 512) -> "ModelConfig":
         """Smoke-test variant of the same family, as the reference's."""

@@ -5,8 +5,12 @@ and loss, and single-token decode against a KV cache, the counterparts of
 Parameters are the reference's tree of plain tensors: the layers are
 stacked on a leading axis in ``layers[0]`` (the dense family's period is
 one layer), and the layer loop is a Python loop over that axis, where
-the reference scans. The other families (moe, hybrid, ssm, encdec, vlm)
-wait for ROADMAP Queue A item 12.
+the reference scans. With ``use_remat`` (the default, as the
+reference's) each layer runs under ``torch.utils.checkpoint`` while
+autograd records, so the backward keeps one (B, T, d) input per layer
+and recomputes the rest; a call without a gradient runs the layers
+directly. The other families (moe, hybrid, ssm, encdec, vlm) wait for
+ROADMAP Queue A item 12.
 """
 
 from __future__ import annotations
@@ -14,9 +18,10 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..tree import tree_map
+from ..tree import tree_leaves, tree_map
 from . import attention as attn
 from . import mlp as ff
 from .common import apply_norm, cross_entropy, embed_init, norm_params
@@ -58,9 +63,10 @@ def _layer(tree, i: int):
 class Model:
     """Functional model wrapper: params are explicit trees."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, use_remat: bool = True):
         require_ported(cfg)
         self.cfg = cfg
+        self.use_remat = use_remat
 
     # -- init ------------------------------------------------------------------
 
@@ -91,8 +97,15 @@ class Model:
         """Logits (B, T, V) of ``batch["tokens"]`` and the auxiliary loss
         (0 for the dense family), as the reference returns them."""
         x = params["embed"][batch["tokens"]]
+        remat = (self.use_remat and torch.is_grad_enabled()
+                 and any(t.requires_grad for t in tree_leaves(params)))
         for i in range(self.cfg.n_layers):
-            x = _layer_forward(_layer(params["layers"][0], i), x, self.cfg)
+            p = _layer(params["layers"][0], i)
+            if remat:
+                x = checkpoint(_layer_forward, p, x, self.cfg,
+                               use_reentrant=False)
+            else:
+                x = _layer_forward(p, x, self.cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return self._logits(params, x), aux
 
@@ -121,5 +134,5 @@ class Model:
         return self._logits(params, x), cache
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ModelConfig, use_remat: bool = True) -> Model:
+    return Model(cfg, use_remat=use_remat)

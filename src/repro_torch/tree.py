@@ -24,3 +24,10 @@ def tree_leaves(tree) -> list[Any]:
     out: list[Any] = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with ``leaves`` (in ``tree_leaves``'s order)
+    in place of its own."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)

@@ -270,11 +270,51 @@ def test_labels_and_spec_build():
     assert Lazy is CohortSpec
 
 
-def test_mesh_and_sharded_raise_naming_item_10():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Sweep([ExperimentSpec("fednl", "topk", 4)], mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.main(["--device", "cpu", "--sharded"])
+def test_sweep_on_a_one_rank_mesh_equals_the_serial_sweep():
+    """``Sweep(mesh=make_host_mesh())`` on a one-rank gloo group: the
+    FedNL cells go through ``run_fednl_sharded``, the others take the
+    serial path; every cell equals the serial sweep bit for bit."""
+    from _torch_dist import one_rank_group
+    from repro_torch.launch.mesh import make_host_mesh
+
+    prob = torch_problem()
+    specs = [ExperimentSpec("fednl", "topk", 123, params=dict(option=2),
+                            seeds=(0, 1), num_rounds=3),
+             ExperimentSpec("fednl", "randk", 123, params=dict(option=1,
+                                                               mu=MU),
+                            num_rounds=3),
+             ExperimentSpec("fednl-pp", "topk", 123, params=dict(tau=TAU),
+                            num_rounds=3)]
+    serial = Sweep(specs, link=None).run(prob)
+    with one_rank_group():
+        sweep = Sweep(specs, mesh=make_host_mesh(device="cpu"), link=None)
+        assert [sweep._shardable(s, prob) for s in specs] == [True, True,
+                                                               False]
+        sharded = sweep.run(prob)
+    for a, b in zip(sharded.cells, serial.cells):
+        assert np.array_equal(a.xs, b.xs), a.spec.label
+        assert np.array_equal(a.gaps, b.gaps)
+
+
+def test_cli_sharded_prints_the_serial_summary(capsys):
+    """``--sharded --device cpu`` on one rank prints the summary of the
+    CLI without it, ``us_per_round`` aside."""
+    from _torch_dist import one_rank_group
+
+    args = ["--problem", "a1a", "--method", "fednl", "--compressor", "topk",
+            "--levels", "123", "--seeds", "0", "--rounds", "3", "--option",
+            "2", "--target", "1e-6", "--device", "cpu"]
+    assert cli.main(args) == 0
+    plain = capsys.readouterr().out.strip().splitlines()
+    with one_rank_group():
+        assert cli.main(args + ["--sharded"]) == 0
+    sharded = capsys.readouterr().out.strip().splitlines()
+    header = plain[0].split(",")
+    assert sharded[0] == plain[0] and len(sharded) == len(plain) == 2
+    skip = header.index("us_per_round")
+    for a, b in zip(sharded[1:], plain[1:]):
+        a, b = a.split(","), b.split(",")
+        assert a[:skip] + a[skip + 1:] == b[:skip] + b[skip + 1:]
 
 
 def _header(capsys) -> list:
