@@ -112,6 +112,29 @@ Phases, each failing the run with a non-zero exit:
      at B=2, T=640 (the K9 branch) within a stated bf16 tolerance;
      ``generate`` for batch 4, prompt 64, 32 greedy tokens, held to the
      forward's argmax, and timed by the serving CLI in its own process;
+  9b. (its profiled part runs before phase 9 and its decode loops after
+     it, so that every profile comes before every decode loop: a
+     profiler session records few launches, or none, after a million of
+     them) starcoder2-3b serving at full width and depth (bf16,
+     random weights from --seed; head dim 128, sliding window 4,096): K9
+     with its window against the windowed plain version on all 24 heads
+     at T=4,000 with a window of 300 (one that starts mid-tile) in bf16
+     and f32, and on heads 0 and 23 of layer 0's inputs at T=32,768 with
+     the real window in bf16 and f32; ``make_prefill`` at B=1, T=32,768
+     (K9's wgmma route once per layer, 30, with the window; never the
+     FFMA route), its ms, peak memory and device time by kernel group;
+     K9's windowed times beside its bound, the plain version, SDPA with
+     a window mask and the same call without the window; greedy
+     ``generate`` (batch 2, prompt 16, 8 tokens) held to the forward's
+     argmax; decode == forward at B=2, T=640 on the reduced config
+     (window 16, the K9 branch) in f32 (FFMA, 2e-3) and bf16 (wgmma);
+  9c. (split around phase 9 as 9b) minicpm3-4b serving at full width and depth
+     (bf16, random weights; MLA, which takes no K9): layer 0's chunked
+     MLA path against ``_mla_attend`` under the whole causal mask at
+     T=4,096 (bf16 within 4 bf16 steps, f32 to 1e-4 of the largest
+     output); ``make_prefill`` at B=1, T=4,096 through the chunked path
+     (no K9 launch), its ms, peak memory and device time by group;
+     decode == forward at B=2, T=64; greedy ``generate`` as in 9b;
   10. the loss's gradient above 512 tokens (the forward's
      ``_sdpa_chunked`` branch under autograd): reduced qwen2 in f32 at
      B=2, T=600, card against the CPU port on the same weights (1e-4 of
@@ -128,7 +151,9 @@ Phases, each failing the run with a non-zero exit:
      AdamW step at the same shape; one Hutchinson step (T=512, 2 silos)
      and one silo's probe draw; a reduced model's 3 fednl steps on the
      card against the CPU port (1e-4 of each leaf's largest |value|);
-  12. print the kernel line, the card line, and last the device line.
+  12. print what the profiler failed to record (each such figure timed
+     by CUDA events instead, or not measured), the kernel line, the card
+     line, and last the device line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -169,11 +194,16 @@ SILOS, K_PER_BLOCK, BLOCK, STEPS = 4, 2048, 128, 3
 # sequence on one card; decode == forward at a length that takes K9
 PREFILL_T, CHECK_T, DECODE_B, DECODE_T = 32768, 4000, 2, 640
 GEN_B, GEN_PROMPT, GEN_N = 4, 64, 32
+# greedy generate at full width in phases 9b and 9c
+SMALL_GEN_B, SMALL_GEN_PROMPT, SMALL_GEN_N = 2, 16, 8
 # bf16 logits of decode and forward round at other places (decode's
 # scores and softmax weights are bf16, K9 keeps them in f32; the GEMMs
 # take other shapes): they must agree within 8 bf16 steps of the largest
 # logit, and their argmax at 80 % of the positions
 DECODE_TOL, ARGMAX_AGREE = 8 * 2.0 ** -7, 0.8
+# MLA's chunked path and the whole mask in bf16: the same sums in other
+# GEMM shapes, within 4 bf16 steps of the largest output
+BF16_CHUNK_STEPS = 4
 # H100 SXM peaks (NVIDIA data sheet, dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f64": 34e12, "f32": 67e12, "bf16": 989e12}
@@ -224,7 +254,11 @@ def device_ms(fn, kernel: str, reps: int = 20, tries: int = 6) -> float:
     launches, tools/decode_profile.py) a session may record only some of
     the launches, or none: the time is averaged over the launches
     recorded, and the tries go on until one session (``profiled``)
-    records them all; the run fails when no try names such a kernel."""
+    records them all. Where no try names such a kernel (a session can
+    record no device event at all, even early in the run), the calls are
+    timed by CUDA events instead (``time_cuda``: one launch a call, so
+    the kernel's run plus any gap between launches), and the miss is
+    printed and kept in ``PROFILER_MISSES``."""
     fn()
     per_launch, rows = None, []
     for _ in range(tries):
@@ -237,9 +271,21 @@ def device_ms(fn, kernel: str, reps: int = 20, tries: int = 6) -> float:
                 break
     if per_launch is not None:
         return per_launch
-    raise SmokeFailure(f"the profiler saw no kernel named like {kernel!r} in "
-                       f"{tries} tries; device rows: "
-                       f"{[e.key[:80] for e in rows]}")
+    ms = time_cuda(fn, reps=reps, warmup=1)
+    profiler_miss(f"no session of {tries} recorded a kernel named like "
+                  f"{kernel!r} (device rows of the last: "
+                  f"{[e.key[:80] for e in rows]}); CUDA events instead: "
+                  f"{ms} ms a call")
+    return ms
+
+
+# what the profiler failed to record, and what was measured instead
+PROFILER_MISSES: list[str] = []
+
+
+def profiler_miss(note: str) -> None:
+    PROFILER_MISSES.append(note)
+    print(f"# profiler miss: {note}", flush=True)
 
 
 def profiled(fn, reps: int = 1) -> tuple[float, list]:
@@ -2244,18 +2290,26 @@ def kernel_line(dev, prob, x0, paths: dict, inputs: dict, err: dict) -> list:
 # -- phase 9: qwen2-0.5B serving, prefill through K9 -------------------------
 
 
-def sdpa(q, k, v):
+def sdpa(q, k, v, window=None):
     """PyTorch's causal attention over (B, H, T, hd), fused backends only:
-    the library yardstick of K9's time and of its bf16 error."""
+    the library yardstick of K9's time and of its bf16 error. With a
+    sliding ``window``, a boolean (T, T) mask of i - window < j <= i (the
+    flash backend takes no mask, so the efficient or cuDNN one runs)."""
+    import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                       SDPBackend.CUDNN_ATTENTION]):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        if window is None:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        t = q.shape[-2]
+        i = torch.arange(t, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
-def check_flash(q, k, v, heads, err: dict, what: str) -> None:
+def check_flash(q, k, v, heads, err: dict, what: str, window=None) -> None:
     """K9 against its plain version on ``heads``, one head at a time
     (the plain version's (T, T) scores of one head fit the card at any
     T of the path). f32 (the FFMA route) to 2e-5. bf16 (the wgmma route,
@@ -2263,7 +2317,8 @@ def check_flash(q, k, v, heads, err: dict, what: str) -> None:
     on the same bf16 inputs, not rounded: max error within 2 * 2^-8 of
     the head's max |oracle|, mean error within 1.5 x SDPA's on the same
     head, each row's max error within 4 * 2^-8 of its own max |oracle|
-    (``bf16_attention_check``); the worst ratios go to ``err``."""
+    (``bf16_attention_check``); the worst ratios go to ``err``. With a
+    sliding ``window``, K9, its plain version and SDPA all take it."""
     import torch
     from repro_torch.kernels.flash_attention import (
         bf16_attention_check,
@@ -2271,23 +2326,25 @@ def check_flash(q, k, v, heads, err: dict, what: str) -> None:
         flash_attention_ref,
     )
 
-    out = flash_attention(q, k, v)
+    out = flash_attention(q, k, v, window=window)
     n_rep = q.shape[2] // k.shape[2]
     for b in range(q.shape[0]):
         for h in heads:
             qh, kh, vh = q[b, :, h], k[b, :, h // n_rep], v[b, :, h // n_rep]
             got = out[b, :, h]
             if q.dtype == torch.float32:
-                want = flash_attention_ref(qh[None], kh[None], vh[None])[0]
+                want = flash_attention_ref(qh[None], kh[None], vh[None],
+                                           window)[0]
                 e = float(torch.max(torch.abs(got - want)))
                 require(e <= 2e-5, f"flash_attention off its plain version by "
                         f"{e:.2e} ({what}, head {h})")
                 err["flash_attention"] = max(err["flash_attention"], e)
             else:
                 want = flash_attention_ref(qh[None].float(), kh[None].float(),
-                                           vh[None].float())[0]
+                                           vh[None].float(), window)[0]
                 r = bf16_attention_check(got, want, sdpa(
-                    qh[None, None], kh[None, None], vh[None, None])[0, 0])
+                    qh[None, None], kh[None, None], vh[None, None],
+                    window)[0, 0])
                 require(r["ok"], f"flash_attention (bf16) off the f32 oracle "
                         f"({what}, head {h}): {json.dumps(r)}")
                 worst = err.setdefault("flash_attention_bf16", {
@@ -2394,6 +2451,153 @@ def flash_kernel_entry(q, k, v, err: dict) -> dict:
     return entry
 
 
+def window_pairs(t: int, window: int) -> int:
+    """(query, key) pairs a causal pass with a sliding window computes:
+    sum over i < t of min(i + 1, window)."""
+    if t <= window:
+        return t * (t + 1) // 2
+    return window * t - window * (window - 1) // 2
+
+
+def param_count(shapes) -> int:
+    import math
+
+    from repro_torch.tree import tree_leaves
+
+    return sum(math.prod(s.shape) for s in tree_leaves(shapes))
+
+
+def decode_vs_forward(model, params, toks, dev, K) -> dict:
+    """Teacher-forced forward logits against token-by-token decode logits
+    at every position, and the launches of the forward."""
+    import torch
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+
+    b, t = toks.shape
+    K.reset_launches()
+    fwd = make_prefill(model)(params, {"tokens": toks})
+    launches = counts(K)
+    serve = make_serve_step(model)
+    cache = model.init_cache(b, t, dev)
+    worst = torch.zeros((), device=dev)
+    agree = torch.zeros((), dtype=torch.int64, device=dev)
+    for p in range(t):
+        lg, cache = serve(params, cache, toks[:, p:p + 1], p)
+        worst = torch.maximum(worst, (lg[:, 0].float() - fwd[:, p].float())
+                              .abs().max())
+        agree += (lg[:, 0].argmax(-1) == fwd[:, p].argmax(-1)).sum()
+    scale = float(fwd.float().abs().max())
+    return {"shape": f"B={b}, T={t}, {model.cfg.dtype}",
+            "max_abs_gap": float(worst), "max_abs_logit": scale,
+            "gap_in_bf16_steps_of_max": float(worst) / (scale * 2.0 ** -7),
+            "argmax_agreement": int(agree) / (b * t), "launches": launches}
+
+
+def greedy_vs_forward(arch: str, params, seed: int, dev, K,
+                      batch: int = SMALL_GEN_B, prompt: int = SMALL_GEN_PROMPT,
+                      n: int = SMALL_GEN_N) -> dict:
+    """``generate`` at full width (``batch`` sequences, a ``prompt``-token
+    prompt, ``n`` greedy tokens) and its tokens against the teacher-forced
+    forward's argmax."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import build_model
+
+    K.reset_launches()
+    seqs = generate(arch, smoke=False, batch=batch, prompt_len=prompt, gen=n,
+                    seed=seed, greedy=True, device=dev, params=params)
+    launches = counts(K)
+    vocab = get_config(arch).vocab
+    require(seqs.shape == (batch, prompt + n)
+            and int(seqs.min()) >= 0 and int(seqs.max()) < vocab,
+            f"{arch}: generate returned misshapen or out-of-range tokens")
+    fwd = make_prefill(build_model(get_config(arch)))(
+        params, {"tokens": seqs[:, :-1]})
+    picked = fwd[:, prompt - 1:].argmax(-1)
+    agree = float((picked == seqs[:, prompt:]).float().mean())
+    require(agree >= ARGMAX_AGREE, f"{arch}: generate's greedy tokens match "
+            f"the forward's argmax at {agree:.3f} of positions")
+    return {"shape": f"batch {batch}, prompt {prompt}, {n} greedy",
+            "greedy_vs_forward_argmax": agree, "launches": launches}
+
+
+def prefill_report(model, params, batch, K, k9_layers: int) -> dict:
+    """A bf16 prefill: host ms of a first call and two more, launches, peak
+    memory, and the device time by kernel group from one profiled call.
+    K9 must launch ``k9_layers`` times by its wgmma route and never by
+    its FFMA one, by the counters and by the profile (a session may drop
+    records, ``device_ms``: up to six sessions). Where no session records
+    a device event at all, the counters alone show K9's launches and the
+    device time by group is reported as not measured."""
+    import torch
+    from repro_torch.launch.steps import make_prefill
+
+    prefill = make_prefill(model)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    K.reset_launches()
+    first_ms, logits = host_ms(lambda: prefill(params, batch))
+    launches = counts(K)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(launches["flash_attention:wgmma"] == k9_layers
+            and launches["flash_attention"] == k9_layers
+            and launches["flash_attention:ffma"] == 0,
+            f"the {model.cfg.name} prefill launched K9 "
+            f"{launches['flash_attention']} times "
+            f"({launches['flash_attention:wgmma']} by its wgmma route), not "
+            f"{k9_layers} times by the wgmma route")
+    b, t = batch["tokens"].shape
+    require(logits.shape == (b, t, model.cfg.vocab)
+            and logits.dtype == torch.bfloat16, "prefill logits misshapen")
+    require(all(bool(torch.isfinite(c).all()) for c in logits.split(2048, 1)),
+            "non-finite prefill logits")
+    del logits
+    ms = []
+    for _ in range(2):
+        one, out = host_ms(lambda: prefill(params, batch))
+        del out
+        ms.append(one)
+    for _ in range(6):
+        wall, rows = profile_rows(lambda: prefill(params, batch))
+        seen = {route: sum(n for name, _, n in rows if symbol in name)
+                for route, symbol in (("wgmma", "flash_attention_kernel_wgmma"),
+                                      ("ffma", "flash_attention_kernel<"))}
+        if rows and seen["wgmma"] == k9_layers:
+            break
+    report = {"shape": f"B={b}, T={t}, bf16, {model.cfg.n_layers} layers",
+              "first_ms": first_ms, "ms": ms, "peak_memory_gb": peak_gb,
+              "held_before_gb": held_gb, "launches": launches,
+              "profile_wall_ms": wall}
+    if not rows:
+        # no session recorded a device event: the counters above alone
+        # show K9's launches, and the device time by group is not measured
+        profiler_miss(f"the {model.cfg.name} prefill: no session of 6 "
+                      f"recorded a device event; K9's launches by the "
+                      f"counters only, device time by group not measured")
+        return {**report, "device_ms_by_group": "not measured"}
+    require(seen == {"wgmma": k9_layers, "ffma": 0},
+            f"the prefill's profile shows K9 launches {seen}, not "
+            f"{k9_layers} of the wgmma kernel and none of the FFMA one")
+    busy = sum(one for _, one, _ in rows)
+    groups = {"flash_attention (K9)": 0.0, "GEMM": 0.0, "other": 0.0}
+    for name, one, _ in rows:
+        if "flash_attention_kernel" in name:
+            groups["flash_attention (K9)"] += one
+        elif any(w in name.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")):
+            groups["GEMM"] += one
+        else:
+            groups["other"] += one
+    k9_ms = groups["flash_attention (K9)"]
+    return {**report, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall),
+            "device_ms_by_group": groups, "k9_profile_launches": seen,
+            "k9_share_of_device": k9_ms / busy,
+            "k9_device_ms_per_launch": k9_ms / max(k9_layers, 1),
+            "top_device_ms": [[name[:70], one] for name, one, _ in rows[:10]]}
+
+
 def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
     """qwen2-0.5B at full width and depth (bf16, random weights from
     ``seed``): K9 against its plain version, ``make_prefill`` at
@@ -2402,8 +2606,6 @@ def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
     the kernel line."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import generate
-    from repro_torch.launch.steps import make_prefill, make_serve_step
     from repro_torch.models import attention as attn
     from repro_torch.models import build_model
     from repro_torch.models.common import apply_norm, apply_rope
@@ -2442,69 +2644,15 @@ def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
           f"layer 0 at T={PREFILL_T} (bf16)", flush=True)
 
     # 2. prefill: B=1, T=32,768, the whole model
-    prefill = make_prefill(model)
-    batch = {"tokens": tokens}
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held_gb = torch.cuda.memory_allocated() / 1e9
-    K.reset_launches()
-    first_ms, logits = host_ms(lambda: prefill(params, batch))
-    prefill_launches = counts(K)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    require(prefill_launches["flash_attention:wgmma"] == cfg.n_layers
-            and prefill_launches["flash_attention"] == cfg.n_layers,
-            f"prefill launched K9 {prefill_launches['flash_attention']} times "
-            f"({prefill_launches['flash_attention:wgmma']} by its wgmma route), "
-            f"not once per layer")
-    require(prefill_launches["flash_attention:ffma"] == 0,
-            "the bf16 prefill took K9's FFMA route")
-    require(logits.shape == (1, PREFILL_T, cfg.vocab)
-            and logits.dtype == torch.bfloat16, "prefill logits misshapen")
-    require(all(bool(torch.isfinite(c).all()) for c in logits.split(2048, 1)),
-            "non-finite prefill logits")
-    del logits
-    prefill_ms = []
-    for _ in range(2):
-        ms, out = host_ms(lambda: prefill(params, batch))
-        del out
-        prefill_ms.append(ms)
-    # the profile must see the wgmma symbol once per layer and the FFMA
-    # symbol never; a session may drop records (device_ms), so up to six
-    for _ in range(6):
-        wall, rows = profile_rows(lambda: prefill(params, batch))
-        seen = {route: sum(n for name, _, n in rows if symbol in name)
-                for route, symbol in (("wgmma", "flash_attention_kernel_wgmma"),
-                                      ("ffma", "flash_attention_kernel<"))}
-        if seen["wgmma"] == cfg.n_layers:
-            break
-    require(seen == {"wgmma": cfg.n_layers, "ffma": 0},
-            f"the prefill's profile shows K9 launches {seen}, not "
-            f"{cfg.n_layers} of the wgmma kernel and none of the FFMA one")
-    busy = sum(ms for _, ms, _ in rows)
-    groups = {"flash_attention (K9)": 0.0, "GEMM": 0.0, "other": 0.0}
-    for name, ms, _ in rows:
-        if "flash_attention_kernel" in name:
-            groups["flash_attention (K9)"] += ms
-        elif any(w in name.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")):
-            groups["GEMM"] += ms
-        else:
-            groups["other"] += ms
+    prefill_rep = prefill_report(model, params, {"tokens": tokens}, K,
+                                 cfg.n_layers)
+    prefill_launches = prefill_rep["launches"]
     xf = torch.randn((1, PREFILL_T, cfg.d_model), generator=g, device=dev
                      ).to(torch.bfloat16)
     with torch.no_grad():
-        logits_ms = time_cuda(lambda: model._logits(params, xf), reps=5)
+        prefill_rep["logits_ms"] = time_cuda(lambda: model._logits(params, xf),
+                                             reps=5)
     del xf
-    prefill_rep = {
-        "shape": f"B=1, T={PREFILL_T}, bf16, {cfg.n_layers} layers", "first_ms": first_ms,
-        "ms": prefill_ms, "peak_memory_gb": peak_gb,
-        "held_before_gb": held_gb,
-        "launches": prefill_launches, "profile_wall_ms": wall,
-        "device_busy_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall),
-        "device_ms_by_group": groups, "k9_profile_launches": seen,
-        "k9_share_of_device": groups["flash_attention (K9)"] / busy,
-        "k9_device_ms_per_launch": groups["flash_attention (K9)"] / cfg.n_layers,
-        "logits_ms": logits_ms,
-        "top_device_ms": [[name[:70], ms] for name, ms, _ in rows[:10]]}
     print(json.dumps({"prefill_qwen2": prefill_rep}), flush=True)
     entry = flash_kernel_entry(*flash_in, err)
     del flash_in
@@ -2512,60 +2660,29 @@ def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
     # 3. decode == forward at full width, on the K9 branch
     toks = torch.randint(0, cfg.vocab, (DECODE_B, DECODE_T), generator=gen,
                          device=dev)
-    serve = make_serve_step(model)
-    K.reset_launches()
-    fwd = prefill(params, {"tokens": toks})
-    cache = model.init_cache(DECODE_B, DECODE_T, dev)
-    worst = torch.zeros((), device=dev)
-    agree = torch.zeros((), dtype=torch.int64, device=dev)
-    for p in range(DECODE_T):
-        lg, cache = serve(params, cache, toks[:, p:p + 1], p)
-        worst = torch.maximum(worst, (lg[:, 0].float() - fwd[:, p].float())
-                              .abs().max())
-        agree += (lg[:, 0].argmax(-1) == fwd[:, p].argmax(-1)).sum()
-    decode_launches = counts(K)
+    decode_rep = decode_vs_forward(model, params, toks, dev, K)
+    decode_launches = decode_rep["launches"]
     require(decode_launches["flash_attention:wgmma"] == cfg.n_layers,
             f"the T={DECODE_T} forward did not take the K9 branch in every layer")
-    scale = float(fwd.float().abs().max())
-    agree_share = int(agree) / (DECODE_B * DECODE_T)
-    decode_rep = {"shape": f"B={DECODE_B}, T={DECODE_T}", "max_abs_gap":
-                  float(worst), "max_abs_logit": scale,
-                  "gap_in_bf16_steps_of_max": float(worst) / (scale * 2.0 ** -7),
-                  "argmax_agreement": agree_share}
     print(json.dumps({"decode_vs_forward_qwen2": decode_rep}), flush=True)
-    require(float(worst) <= DECODE_TOL * scale,
-            f"decode and forward logits differ by {float(worst):.3e} > "
-            f"{DECODE_TOL} x max |logit| {scale:.3e}")
-    require(agree_share >= ARGMAX_AGREE,
-            f"decode and forward argmax agree at {agree_share:.3f} of positions")
-    del fwd, cache, lg
+    require(decode_rep["max_abs_gap"] <= DECODE_TOL * decode_rep["max_abs_logit"],
+            f"decode and forward logits differ: {decode_rep}")
+    require(decode_rep["argmax_agreement"] >= ARGMAX_AGREE,
+            f"decode and forward argmax agree too rarely: {decode_rep}")
 
-    # 4. generate: batch 4, prompt 64, 32 greedy tokens
-    K.reset_launches()
-    seqs = generate("qwen2-0.5b", smoke=False, batch=GEN_B,
-                    prompt_len=GEN_PROMPT, gen=GEN_N, seed=seed, greedy=True,
-                    device=dev, params=params)
-    gen_launches = counts(K)
-    require(seqs.shape == (GEN_B, GEN_PROMPT + GEN_N)
-            and int(seqs.min()) >= 0 and int(seqs.max()) < cfg.vocab,
-            "generate returned misshapen or out-of-range tokens")
-    # the greedy tokens against the teacher-forced forward's argmax
-    fwd = prefill(params, {"tokens": seqs[:, :-1]})
-    picked = fwd[:, GEN_PROMPT - 1:].argmax(-1)
-    gen_agree = float((picked == seqs[:, GEN_PROMPT:]).float().mean())
-    require(gen_agree >= ARGMAX_AGREE, f"generate's greedy tokens match the "
-            f"forward's argmax at {gen_agree:.3f} of positions")
-    del params, fwd
+    # 4. generate: batch 4, prompt 64, 32 greedy tokens; then the decode
+    # loop's speed as a user meets it: the serving CLI on the card, in a
+    # fresh process (this one holds profiler state and the earlier phases'
+    # tensors)
+    gen_rep = greedy_vs_forward("qwen2-0.5b", params, seed, dev, K, GEN_B,
+                                GEN_PROMPT, GEN_N)
+    del params
     torch.cuda.empty_cache()
-    # the decode loop's speed as a user meets it: the serving CLI on the
-    # card, in a fresh process (this one holds profiler state and the
-    # earlier phases' tensors)
-    gen_rep = {"shape": f"batch {GEN_B}, prompt {GEN_PROMPT}, {GEN_N} greedy",
-               "greedy_vs_forward_argmax": gen_agree, **serve_cli_times(seed)}
+    gen_rep.update(serve_cli_times(seed))
     print(json.dumps({"generate_qwen2": gen_rep}), flush=True)
     paths = {"prefill_qwen2": prefill_launches,
              "decode_vs_forward_qwen2": decode_launches,
-             "generate_qwen2": gen_launches}
+             "generate_qwen2": gen_rep["launches"]}
     by = {path: n["flash_attention"] for path, n in paths.items()
           if n["flash_attention"]}
     routes = {r: sum(n[f"flash_attention:{r}"] for n in paths.values())
@@ -2575,6 +2692,313 @@ def serve_qwen2(dev, seed: int, K, err: dict) -> dict:
              "launches": sum(by.values()), "launches_by_path": by,
              "launches_by_route": routes, **entry}
     return dict(paths=paths, kernel=entry)
+
+
+# -- phase 9b: starcoder2-3b serving, the sliding window through K9 ---------------
+
+# starcoder2-3b's prefill at prefill_32k's sequence, one sequence; K9's
+# windowed checks at a ragged T with a window that starts mid-tile; decode
+# == forward on the reduced config (window 16) past its window, on the K9
+# branch
+SC_T, SC_CHECK_T, SC_CHECK_WINDOW = 32768, 4000, 300
+SC_DECODE_B, SC_DECODE_T = 2, 640
+
+
+def window_kernel_fields(q, k, v, window: int, werr: dict) -> dict:
+    """K9's windowed figures on starcoder2-3b's layer-0 prefill inputs
+    (bf16, the wgmma route): ms, device ms, bound, plain and library ms;
+    the same call without the window and the f32 FFMA route beside."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+    )
+
+    b, t, h, hd = q.shape
+    n_rep = h // k.shape[2]
+    pairs = window_pairs(t, window)
+    flops = 4 * b * h * hd * pairs
+    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                       {"bf16": flops})
+
+    def plain_all_heads():
+        for head in range(h):
+            flash_attention_ref(q[0, :, head][None],
+                                k[0, :, head // n_rep][None],
+                                v[0, :, head // n_rep][None], window)
+
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(n_rep, dim=2).transpose(1, 2) for x in (k, v))
+    dev_ms = device_ms(lambda: flash_attention(q, k, v, window=window),
+                       "flash_attention_kernel_wgmma", reps=10)
+    causal_dev_ms = device_ms(lambda: flash_attention(q, k, v),
+                              "flash_attention_kernel_wgmma", reps=5)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    out = dict(
+        window_shape=f"starcoder2-3b layer 0 prefill: q ({b}, {t}, {h}, {hd}), "
+                     f"k and v ({b}, {t}, {k.shape[2]}, {hd}) bf16, window "
+                     f"{window}, bq=bk=128",
+        window_max_abs_err=werr["flash_attention_bf16"]["max_abs_err"],
+        window_bf16_check={key: val for key, val in
+                           werr["flash_attention_bf16"].items()
+                           if key != "max_abs_err"},
+        window_f32_max_abs_err=werr["flash_attention"],
+        window_max_abs_err_is=f"bf16 (wgmma) against the f32 oracle, all {h} "
+                              f"heads at T={SC_CHECK_T} with window "
+                              f"{SC_CHECK_WINDOW} and heads 0, {h - 1} at "
+                              f"T={t} with window {window}; f32 (FFMA) "
+                              f"against the plain version on the same heads",
+        window_ms=time_cuda(lambda: flash_attention(q, k, v, window=window),
+                            reps=10),
+        window_device_ms=dev_ms, window_tflops=flops / dev_ms / 1e9,
+        window_pairs=pairs,
+        window_bound_ms=b_ms, window_bound_by=b_by,
+        window_plain_ms=time_cuda(plain_all_heads, reps=1, warmup=1),
+        window_library_ms=time_cuda(lambda: sdpa(qt, kt, vt, window), reps=5,
+                                    warmup=1),
+        window_library_call="scaled_dot_product_attention with a boolean "
+                            "(T, T) window mask, efficient or cuDNN backend, "
+                            "KV heads expanded beforehand",
+        window_causal_device_ms=causal_dev_ms,
+        window_causal_bound_ms=bound(0, {"bf16": 4 * b * h * hd * t * (t + 1)
+                                         / 2})[0],
+        window_ffma_f32_ms=time_cuda(
+            lambda: flash_attention(q32, k32, v32, window=window), reps=2,
+            warmup=1),
+        window_ffma_f32_device_ms=device_ms(
+            lambda: flash_attention(q32, k32, v32, window=window),
+            "flash_attention_kernel<", reps=2))
+    del q32, k32, v32, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_starcoder2(dev, seed: int, K) -> dict:
+    """starcoder2-3b at full width and depth (bf16, random weights from
+    ``seed``; window 4,096, head dim 128): K9 with its window against the
+    windowed plain version and ``make_prefill`` at T = 32,768 through 30
+    windowed K9 launches, profiled. Returns the prefill's counts, K9's
+    windowed figures for the kernel line, and the weights for
+    ``decode_starcoder2``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.starcoder2_3b import param_shapes
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    from repro_torch.models.common import apply_norm, apply_rope
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("starcoder2-3b")
+    w, h, kvh, hd = cfg.sliding_window, cfg.n_heads, cfg.kv_heads, cfg.hd
+    require((w, h, kvh, hd, cfg.n_layers) == (4096, 24, 2, 128, 30),
+            f"starcoder2-3b's config changed: {cfg}")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init_params(gen)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    require(n_params == param_count(param_shapes()),
+            f"starcoder2-3b has {n_params} parameters, not param_shapes()'s")
+
+    # 1. K9 with a window against its plain version: all heads at a ragged
+    # T with a window starting mid-tile (bf16 and f32), then the first and
+    # last head of layer 0's inputs at T = 32,768 with the real window
+    werr = {"flash_attention": 0.0}
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((1, SC_CHECK_T, n, hd), generator=g, device=dev)
+                   .to(dtype) for n in (h, kvh, kvh))
+        check_flash(q, k, v, range(h), werr, f"T={SC_CHECK_T} {dtype}",
+                    window=SC_CHECK_WINDOW)
+    tokens = torch.randint(0, cfg.vocab, (1, SC_T), generator=gen, device=dev)
+    lp = tree_map(lambda a: a[0], params["layers"][0])
+    with torch.no_grad():
+        x = apply_norm(params["embed"][tokens], lp["norm1"], cfg.norm)
+        q, k, v = attn._qkv(lp["mixer"], x, cfg)
+        pos = torch.arange(SC_T, device=dev)[None]
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    del x, pos
+    check_flash(q, k, v, (0, h - 1), werr, f"layer 0 at T={SC_T}", window=w)
+    check_flash(*(x.float() for x in (q, k, v)), (0, h - 1), werr,
+                f"layer 0 at T={SC_T}, f32", window=w)
+    print(f"# K9 with a window matches its plain version: {h} heads at "
+          f"T={SC_CHECK_T} window {SC_CHECK_WINDOW} (f32 max abs err "
+          f"{werr['flash_attention']:.2e}; bf16 against the f32 oracle "
+          f"{json.dumps(werr['flash_attention_bf16'])}), heads 0 and {h - 1} "
+          f"of layer 0 at T={SC_T} window {w}", flush=True)
+
+    # 2. prefill: B=1, T=32,768, the whole model; K9's windowed figures
+    rep = prefill_report(model, params, {"tokens": tokens}, K, cfg.n_layers)
+    launches = rep["launches"]
+    print(json.dumps({"prefill_starcoder2": rep}), flush=True)
+    fields = window_kernel_fields(q, k, v, w, werr)
+    del q, k, v, tokens
+    torch.cuda.empty_cache()
+    print(f"# starcoder2-3b prefill phase in "
+          f"{time.perf_counter() - t_phase:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return dict(paths={"prefill_starcoder2": launches}, window=fields,
+                params=params)
+
+
+def decode_starcoder2(dev, seed: int, K, params) -> dict:
+    """Phase 9b's decode loops, run after every profiling phase: greedy
+    ``generate`` at full width on ``params``, and decode == forward past
+    the window on the K9 branch, on the reduced config (window 16) in f32
+    (the FFMA route, to 2e-3) and bf16 (the wgmma route, within
+    DECODE_TOL). Returns the counts per path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    gen_rep = greedy_vs_forward("starcoder2-3b", params, seed, dev, K)
+    print(json.dumps({"generate_starcoder2": gen_rep}), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    small = get_config("starcoder2-3b", smoke=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    dec = {}
+    for dtype in ("float32", "bfloat16"):
+        scfg = dataclasses.replace(small, dtype=dtype)
+        smodel = build_model(scfg)
+        sparams = smodel.init_params(
+            torch.Generator(device=dev).manual_seed(seed))
+        toks = torch.randint(0, scfg.vocab, (SC_DECODE_B, SC_DECODE_T),
+                             generator=gen, device=dev)
+        r = decode_vs_forward(smodel, sparams, toks, dev, K)
+        route = "ffma" if dtype == "float32" else "wgmma"
+        require(r["launches"][f"flash_attention:{route}"] == scfg.n_layers
+                and r["launches"]["flash_attention"] == scfg.n_layers,
+                f"the reduced starcoder2 forward ({dtype}, T={SC_DECODE_T}) "
+                f"did not take K9's {route} route in every layer")
+        if dtype == "float32":
+            require(r["max_abs_gap"] <= 2e-3 * max(1.0, r["max_abs_logit"]),
+                    f"starcoder2 decode and forward (f32) differ: {r}")
+            require(r["argmax_agreement"] >= ARGMAX_AGREE,
+                    f"starcoder2 decode and forward (f32) argmax: {r}")
+        else:
+            require(r["max_abs_gap"] <= DECODE_TOL * r["max_abs_logit"],
+                    f"starcoder2 decode and forward (bf16) differ: {r}")
+        dec[dtype] = r
+    print(json.dumps({"decode_vs_forward_starcoder2": dec}), flush=True)
+    print(f"# starcoder2-3b decode phase in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"decode_vs_forward_starcoder2_f32": dec["float32"]["launches"],
+            "decode_vs_forward_starcoder2_bf16": dec["bfloat16"]["launches"],
+            "generate_starcoder2": gen_rep["launches"]}
+
+
+# -- phase 9c: minicpm3-4b serving, MLA --------------------------------------------
+
+# minicpm3-4b's prefill at train_4k's sequence, one sequence (T = 32,768
+# would hold 128 chunks x 62 layers of 1.3 GB f32 scores); decode ==
+# forward at a short T (62 host-bound layers a step)
+MC_T, MC_DECODE_B, MC_DECODE_T = 4096, 2, 64
+
+
+def serve_minicpm3(dev, seed: int, K) -> dict:
+    """minicpm3-4b at full width and depth (bf16, random weights from
+    ``seed``; MLA, which takes no K9): layer 0's chunked path against
+    ``_mla_attend`` under the whole causal mask (bf16 and f32), and
+    ``make_prefill`` at B=1, T=4,096 through the chunked MLA path,
+    profiled. Returns the prefill's counts and the weights for
+    ``decode_minicpm3``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.minicpm3_4b import param_shapes
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    from repro_torch.models.common import apply_norm, causal_mask
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("minicpm3-4b")
+    require(cfg.attn_type == "mla" and cfg.n_layers == 62,
+            f"minicpm3-4b's config changed: {cfg}")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init_params(gen)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    require(n_params == param_count(param_shapes()),
+            f"minicpm3-4b has {n_params} parameters, not param_shapes()'s")
+    tokens = torch.randint(0, cfg.vocab, (1, MC_T), generator=gen, device=dev)
+
+    # 1. layer 0: the chunked path against the whole causal mask
+    lp = tree_map(lambda a: a[0], params["layers"][0])
+    chunk_gap = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        mixer = tree_map(lambda a: a.to(c.tdtype), lp["mixer"])
+        with torch.no_grad():
+            x = apply_norm(params["embed"][tokens], lp["norm1"], cfg.norm)
+            parts = attn._mla_qk(mixer, x.to(c.tdtype),
+                                 torch.arange(MC_T, device=dev)[None], c)
+            got = attn._mla_attend_chunked(mixer, *parts, c)
+            want = attn._mla_attend(mixer, *parts,
+                                    causal_mask(MC_T, device=dev), c)
+        gap = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        limit = (BF16_CHUNK_STEPS * 2.0 ** -7 if dtype == "bfloat16"
+                 else 1e-4) * scale
+        require(gap <= limit, f"minicpm3-4b layer 0 ({dtype}): the chunked "
+                f"MLA path is {gap:.3e} off the whole mask's (limit "
+                f"{limit:.3e})")
+        chunk_gap[dtype] = {"max_abs_gap": gap, "max_abs_out": scale,
+                            "limit": limit}
+        del x, parts, got, want, mixer
+    torch.cuda.empty_cache()
+
+    # 2. prefill: B=1, T=4,096, no K9
+    rep = prefill_report(model, params, {"tokens": tokens}, K, 0)
+    rep["layer0_chunked_vs_whole_mask"] = chunk_gap
+    print(json.dumps({"prefill_minicpm3": rep}), flush=True)
+
+    require(rep["launches"]["flash_attention"] == 0,
+            "the minicpm3-4b prefill launched K9")
+    print(f"# minicpm3-4b prefill phase in "
+          f"{time.perf_counter() - t_phase:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return dict(paths={"prefill_minicpm3": rep["launches"]}, params=params)
+
+
+def decode_minicpm3(dev, seed: int, K, params) -> dict:
+    """Phase 9c's decode loops, run after every profiling phase: decode ==
+    forward at B=2, T=64 at full width, and greedy ``generate``; no K9
+    launch. Returns the counts per path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config("minicpm3-4b")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    toks = torch.randint(0, cfg.vocab, (MC_DECODE_B, MC_DECODE_T),
+                         generator=gen, device=dev)
+    dec = decode_vs_forward(build_model(cfg), params, toks, dev, K)
+    require(dec["max_abs_gap"] <= DECODE_TOL * dec["max_abs_logit"],
+            f"minicpm3-4b decode and forward logits differ: {dec}")
+    require(dec["argmax_agreement"] >= ARGMAX_AGREE,
+            f"minicpm3-4b decode and forward argmax: {dec}")
+    print(json.dumps({"decode_vs_forward_minicpm3": dec}), flush=True)
+    gen_rep = greedy_vs_forward("minicpm3-4b", params, seed, dev, K)
+    print(json.dumps({"generate_minicpm3": gen_rep}), flush=True)
+    paths = {"decode_vs_forward_minicpm3": dec["launches"],
+             "generate_minicpm3": gen_rep["launches"]}
+    require(not any(n["flash_attention"] for n in paths.values()),
+            "an MLA path launched K9")
+    del params
+    torch.cuda.empty_cache()
+    print(f"# minicpm3-4b decode phase in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
 
 
 # -- phase 10: the loss's gradient above 512 tokens ------------------------------
@@ -2969,13 +3393,33 @@ def main() -> int:
         kernels = kernel_line(dev, prob, x0, paths, inputs, err)
         del pre, hu, inputs, k3_pay
 
-        # -- 9. qwen2-0.5B serving --------------------------------------------
+        # -- 9b, 9c, 9. starcoder2-3b, minicpm3-4b and qwen2-0.5B serving:
+        # every profile before every decode loop (a profiler session
+        # records few launches, or none, after a million of them)
+        sc = serve_starcoder2(dev, args.seed, K)
+        mc = serve_minicpm3(dev, args.seed, K)
         t0 = time.perf_counter()
         sv = serve_qwen2(dev, args.seed, K, err)
         paths.update(sv["paths"])
-        kernels.append(sv["kernel"])
         print(f"# qwen2-0.5B serving phase in {time.perf_counter() - t0:.1f} s; "
               f"launches {json.dumps(sv['paths'])}", flush=True)
+        sc["paths"].update(decode_starcoder2(dev, args.seed, K,
+                                             sc.pop("params")))
+        mc["paths"].update(decode_minicpm3(dev, args.seed, K,
+                                           mc.pop("params")))
+        # K9's entry: qwen2's paths and figures, then starcoder2's windowed
+        k9 = sv["kernel"]
+        for path, n in {**sc["paths"], **mc["paths"]}.items():
+            paths[path] = n
+            if n["flash_attention"]:
+                k9["launches_by_path"][path] = n["flash_attention"]
+                for r in k9["launches_by_route"]:
+                    k9["launches_by_route"][r] += n[f"flash_attention:{r}"]
+        k9["launches"] = sum(k9["launches_by_path"].values())
+        k9["window_launches"] = sc["paths"]["prefill_starcoder2"][
+            "flash_attention"]
+        k9.update(sc["window"])
+        kernels.append(k9)
 
         # -- 10. the loss's gradient above 512 tokens -------------------------
         t0 = time.perf_counter()
@@ -2986,6 +3430,7 @@ def main() -> int:
         return fail(str(exc))
 
     # -- 12. result lines ----------------------------------------------------
+    print(json.dumps({"profiler_misses": PROFILER_MISSES}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 // Causal flash attention forward in f32: out = softmax(q k^T / sqrt(hd),
 // causal) v, with online-softmax statistics, over q (B, T, H, hd) and k, v
-// (B, T, KV, hd), head h reading KV head h / (H / KV). bf16 inputs take
-// the tensor-core kernel in flash_attention_wgmma.cu.
+// (B, T, KV, hd), head h reading KV head h / (H / KV); with a sliding
+// window W > 0, query i attends to keys j with i - W < j <= i. bf16 inputs
+// take the tensor-core kernel in flash_attention_wgmma.cu.
 //
 // Replaces the TPU kernel flash_attention_kernel
 // (src/repro/kernels/flash_attention/kernel.py, body _flash_kernel) for
@@ -17,7 +18,9 @@
 // T = 32,768 against 0.26 GB of f32 q, k, v and out; this kernel runs on
 // the f32 FFMA pipes (67 TFLOP/s peak).
 // Design: one block of 256 threads (16 x 16) per (batch*head, BQ-row query
-// tile), the tiles of the longest causal walks launched first. The scaled
+// tile), the tiles of the longest walks launched first (with a window,
+// every tile past the window walks as far: the order stays longest first,
+// with ties). The scaled
 // q tile is kept transposed in dynamic shared memory; each key tile is
 // loaded transposed into one buffer, the BQ x BK scores are computed as
 // an (BQ/16) x (BK/16) register tile per thread (rows ty + 16 i, columns
@@ -28,7 +31,14 @@
 // its (BQ/16) x (hd/16) accumulator with the rows of its scores, so the
 // row statistics never leave the thread. Only key tiles holding a key <=
 // the tile's last query are walked (for any BQ, BK: the reference's
-// (qi*bq)//bk + 1 drops keys when bq > bk); a ragged T is masked, its
+// (qi*bq)//bk + 1 drops keys when bq > bk), and with a window only from
+// the tile holding key q0 - W + 1, the first that the tile's first query
+// sees; the window's edge tile is masked like the diagonal one. The walk
+// runs forward, so with a window a row's first tile can be all masked
+// (keys <= row - W): its scores of -1e30 then weigh 1 each while the
+// row's max is -1e30, and the first real key's rescale
+// exp(-1e30 - m) = 0 clears them exactly; every row's own key is in the
+// walk, so none ends there. A ragged T is masked, its
 // padded rows read as zeros and are never written. Inputs are read
 // through their batch, sequence and head strides (the last dim must be
 // contiguous); the output is a contiguous (B, T, H, hd).
@@ -59,7 +69,7 @@ flash_attention_kernel(const T* __restrict__ q, Strides sq,
                        const T* __restrict__ k, Strides sk,
                        const T* __restrict__ v, Strides sv,
                        T* __restrict__ o, int seq, int heads, int n_rep,
-                       float scale) {
+                       int window, float scale) {
   constexpr int RM = BQ / 16, CN = BK / 16, DN = HD / 16;
   constexpr int QLD = BQ + 1, KLD = BK + 1, PLD = BK + 1;
   extern __shared__ float smem[];
@@ -89,7 +99,9 @@ flash_attention_kernel(const T* __restrict__ q, Strides sq,
 
   const int q_last = min(q0 + BQ, seq) - 1;
   const int n_kt = q_last / BK + 1;  // key tiles holding a key <= q_last
-  for (int kt = 0; kt < n_kt; ++kt) {
+  // the first key tile holding a key in q0's window
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the last tile's p and v reads are done
     for (int i = tid; i < BK * HD; i += kThreads) {
@@ -116,8 +128,8 @@ flash_attention_kernel(const T* __restrict__ q, Strides sq,
         for (int j = 0; j < CN; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
     }
 
-    // causal and ragged mask, then the online softmax of each row; a row
-    // lives in the 16 lanes of one half-warp
+    // causal, window and ragged mask, then the online softmax of each
+    // row; a row lives in the 16 lanes of one half-warp
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int qi = q0 + ty + 16 * i;
@@ -125,7 +137,8 @@ flash_attention_kernel(const T* __restrict__ q, Strides sq,
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
         const int kj = k0 + tx + 16 * j;
-        if (kj > qi || kj >= seq) s[i][j] = -1e30f;
+        if (kj > qi || kj >= seq || (window > 0 && kj <= qi - window))
+          s[i][j] = -1e30f;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -183,7 +196,7 @@ flash_attention_kernel(const T* __restrict__ q, Strides sq,
 
 template <typename T, int HD, int BQ, int BK>
 int launch(const T* q, Strides sq, const T* k, Strides sk, const T* v,
-           Strides sv, T* o, int B, int seq, int H, int KV,
+           Strides sv, T* o, int B, int seq, int H, int KV, int window,
            cudaStream_t stream) {
   constexpr int smem =
       static_cast<int>(smem_floats<HD, BQ, BK>() * sizeof(float));
@@ -195,20 +208,20 @@ int launch(const T* q, Strides sq, const T* k, Strides sk, const T* v,
   // 1/sqrt(hd) rounded once to f32, as the reference's Python scale
   const float scale = static_cast<float>(1.0 / std::sqrt(double(HD)));
   kernel<<<grid, kThreads, smem, stream>>>(q, sq, k, sk, v, sv, o, seq, H,
-                                           H / KV, scale);
+                                           H / KV, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const T* q, Strides sq, const T* k, Strides sk, const T* v,
              Strides sv, T* o, int B, int seq, int H, int KV, int hd, int bq,
-             int bk, cudaStream_t stream) {
-  if (B * H > 65535 || KV <= 0 || H % KV != 0)
+             int bk, int window, cudaStream_t stream) {
+  if (B * H > 65535 || KV <= 0 || H % KV != 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
 #define FLASH_CASE(HD_, BQ_, BK_)                                        \
   if (hd == HD_ && bq == BQ_ && bk == BK_)                               \
     return launch<T, HD_, BQ_, BK_>(q, sq, k, sk, v, sv, o, B, seq, H, KV, \
-                                    stream);
+                                    window, stream);
   FLASH_CASE(64, 128, 128)
   FLASH_CASE(64, 128, 64)
   FLASH_CASE(64, 64, 128)
@@ -226,17 +239,18 @@ int dispatch(const T* q, Strides sq, const T* k, Strides sk, const T* v,
 extern "C" {
 
 // out (B, T, H, hd) contiguous = causal attention of f32 q over k, v;
-// each input by its batch, sequence and head strides (elements).
+// each input by its batch, sequence and head strides (elements); window
+// 0 for none, else the keys each query sees.
 #define FLASH_ENTRY(NAME, T)                                                  \
   int NAME(const T* q, long long sqb, long long sqt, long long sqh,           \
            const T* k, long long skb, long long skt, long long skh,           \
            const T* v, long long svb, long long svt, long long svh, T* o,     \
-           int B, int seq, int H, int KV, int hd, int bq, int bk,             \
+           int B, int seq, int H, int KV, int hd, int bq, int bk, int window, \
            cudaStream_t stream) {                                             \
     if (B == 0 || seq == 0 || H == 0) return 0;                               \
     return dispatch<T>(q, Strides{sqb, sqt, sqh}, k, Strides{skb, skt, skh},  \
                        v, Strides{svb, svt, svh}, o, B, seq, H, KV, hd, bq,   \
-                       bk, stream);                                           \
+                       bk, window, stream);                                   \
   }
 FLASH_ENTRY(flash_attention_f32, float)
 #undef FLASH_ENTRY

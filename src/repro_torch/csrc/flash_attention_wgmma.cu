@@ -1,6 +1,7 @@
 // Causal flash attention forward for bf16 on Hopper's tensor cores:
 // out = softmax(q k^T / sqrt(hd), causal) v over q (B, T, H, hd) and k, v
-// (B, T, KV, hd), head h reading KV head h / (H / KV).
+// (B, T, KV, hd), head h reading KV head h / (H / KV); with a sliding
+// window W > 0, query i attends to keys j with i - W < j <= i.
 //
 // Replaces the TPU kernel flash_attention_kernel
 // (src/repro/kernels/flash_attention/kernel.py:53, body _flash_kernel) for
@@ -17,7 +18,9 @@
 //
 // Design (FlashAttention-3's shape, without its overlap inside one
 // warpgroup): one block per (batch*head, BQ-row query tile), the longest
-// causal walks launched first; BQ/64 consumer warpgroups of 64 query rows
+// walks launched first (with a window, every tile past the window walks
+// as far: the order stays longest first, with ties); BQ/64 consumer
+// warpgroups of 64 query rows
 // and one producer warp. The producer loads the q tile once and streams
 // the K and V tiles (BK x hd) through a ring of kStages slots by TMA
 // (cp.async.bulk.tensor, 128-byte swizzle, rows past T filled with zeros)
@@ -26,13 +29,20 @@
 // mbarriers hand the slots over. Each consumer warpgroup computes
 // S = q K^T by wgmma m64nBKk16 (both operands K-major in shared memory, f32
 // accumulators in registers), masks only the tiles that cross its
-// diagonal, keeps the online softmax (m, l) of its two rows per thread in
+// diagonal or its rows' window edge, keeps the online softmax (m, l) of
+// its two rows per thread in
 // registers with exp2 on a log2(e)-folded scale, rounds P to bf16 in
 // registers (S's accumulator fragment is the A fragment of the next
 // product) and adds P V by wgmma m64nHDk16 (A from registers, V MN-major
 // in shared memory: the transpose bit). The sum l is taken over the f32
 // P. The output acc / max(l, 1e-30) is rounded to bf16 once and written to
-// a contiguous (B, T, H, hd), rows >= T skipped. hd 128 rows (256 bytes,
+// a contiguous (B, T, H, hd), rows >= T skipped. The key tiles are walked
+// from the diagonal down to the tile holding key q0 - W + 1, the first
+// that the tile's first query sees (to 0 without a window); a warpgroup
+// skips a tile whose keys all come after its rows or all lie before its
+// rows' windows. So the first tile a warpgroup adds holds each of its
+// rows' own key, and a row's max is a real score from then on: a masked
+// score of -1e30 weighs exactly 0. hd 128 rows (256 bytes,
 // over the swizzle's 128) are loaded as two 64-column boxes, and the wgmma
 // descriptors step from one box to the next.
 
@@ -268,7 +278,8 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
                              __nv_bfloat16* __restrict__ o, int seq,
-                             int heads, int n_rep, float scale_log2) {
+                             int heads, int n_rep, int window,
+                             float scale_log2) {
   using C = Tiles<HD, BQ, BK>;
   constexpr int S = C::kStages;
   constexpr int NS = BK / 2;   // score accumulators per thread
@@ -283,7 +294,10 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int q_last = min(q0 + BQ, seq) - 1;
-  const int n_kt = q_last / BK + 1;  // key tiles holding a key <= q_last
+  const int kt_end = q_last / BK + 1;  // key tiles holding a key <= q_last
+  // the first key tile holding a key in q0's window
+  const int kt0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int n_kt = kt_end - kt0;  // walked from kt_end - 1 down to kt0
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -305,7 +319,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (int x = 0; x < C::kBoxes; ++x)
         tma_load_4d(qs + x * BQ * 128, &tm_q, &q_full, x * 64, q0, h, b);
       for (int i = 0; i < n_kt; ++i) {
-        const int s = i % S, k0 = (n_kt - 1 - i) * BK;
+        const int s = i % S, k0 = (kt_end - 1 - i) * BK;
         mbar_wait(&empty[s], ((i / S) & 1) ^ 1);  // round 0 passes at once
         unsigned char* kt = ks + s * C::kTileBytes;
         unsigned char* vt = vs + s * C::kTileBytes;
@@ -334,10 +348,12 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
   mbar_wait(&q_full, 0);
   for (int i = 0; i < n_kt; ++i) {
-    const int s = i % S, k0 = (n_kt - 1 - i) * BK;
+    const int s = i % S, k0 = (kt_end - 1 - i) * BK;
     const uint32_t parity = (i / S) & 1;
     mbar_wait(&full_k[s], parity);
-    if (k0 > row0 + 63) {  // every key of the tile comes after every row
+    // every key of the tile comes after every row, or lies before every
+    // row's window
+    if (k0 > row0 + 63 || (window > 0 && k0 + BK - 1 <= row0 - window)) {
       if (lane == 0) mbar_arrive(&empty[s]);
       continue;
     }
@@ -356,14 +372,17 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait_all();
     fence_regs(sc);
 
-    if (k0 + BK - 1 > row0) {  // the tile crosses the diagonal: mask
+    // the tile crosses the diagonal or the window's edge of some row: mask
+    const bool edge = window > 0 && k0 <= row0 + 63 - window;
+    if (k0 + BK - 1 > row0 || edge) {
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = k0 + 8 * j + c0 + e;
-          if (col > r0) sc[4 * j + e] = -1e30f;
-          if (col > r0 + 8) sc[4 * j + 2 + e] = -1e30f;
+          if (col > r0 || (edge && col <= r0 - window)) sc[4 * j + e] = -1e30f;
+          if (col > r0 + 8 || (edge && col <= r0 + 8 - window))
+            sc[4 * j + 2 + e] = -1e30f;
         }
     }
 
@@ -495,7 +514,7 @@ bool make_map(CUtensorMap* map, const void* x, int B, int T, int N, int hd,
 
 template <int HD, int BQ, int BK>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-           __nv_bfloat16* o, int B, int seq, int H, int KV,
+           __nv_bfloat16* o, int B, int seq, int H, int KV, int window,
            cudaStream_t stream) {
   using C = Tiles<HD, BQ, BK>;
   auto kernel = flash_attention_kernel_wgmma<HD, BQ, BK>;
@@ -507,7 +526,7 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
   const float scale_log2 =
       static_cast<float>(1.4426950408889634 / std::sqrt(double(HD)));
   kernel<<<grid, C::kThreads, C::kSmem, stream>>>(mq, mk, mv, o, seq, H,
-                                                  H / KV, scale_log2);
+                                                  H / KV, window, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -516,15 +535,17 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
 extern "C" {
 
 // out (B, T, H, hd) contiguous = causal attention of bf16 q over k, v;
-// each input by its batch, sequence and head strides (elements).
+// each input by its batch, sequence and head strides (elements); window
+// 0 for none, else the keys each query sees.
 int flash_attention_bf16(const __nv_bfloat16* q, long long sqb, long long sqt,
                          long long sqh, const __nv_bfloat16* k, long long skb,
                          long long skt, long long skh, const __nv_bfloat16* v,
                          long long svb, long long svt, long long svh,
                          __nv_bfloat16* o, int B, int seq, int H, int KV,
-                         int hd, int bq, int bk, cudaStream_t stream) {
+                         int hd, int bq, int bk, int window,
+                         cudaStream_t stream) {
   if (B == 0 || seq == 0 || H == 0) return 0;
-  if (B * H > 65535 || KV <= 0 || H % KV != 0)
+  if (B * H > 65535 || KV <= 0 || H % KV != 0 || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, B, seq, H, hd, sqb, sqt, sqh, bq) ||
@@ -533,7 +554,7 @@ int flash_attention_bf16(const __nv_bfloat16* q, long long sqb, long long sqt,
     return static_cast<int>(cudaErrorInvalidValue);
 #define FLASH_CASE(HD_, BQ_, BK_)                                              \
   if (hd == HD_ && bq == BQ_ && bk == BK_)                                     \
-    return launch<HD_, BQ_, BK_>(mq, mk, mv, o, B, seq, H, KV, stream);
+    return launch<HD_, BQ_, BK_>(mq, mk, mv, o, B, seq, H, KV, window, stream);
   FLASH_CASE(64, 128, 128)
   FLASH_CASE(64, 128, 64)
   FLASH_CASE(64, 64, 128)

@@ -109,8 +109,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
+# q, k, v and out by their strides; B, T, H, KV, hd, bq, bk, the window
+# (0: none) and the stream
 _FLASH_ARGS = [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _P, _I, _I, _I,
-               _I, _I, _I, _I, _P]
+               _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
     "block_topk": {
         **{f"diff_topk_payload_{t}": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _I,

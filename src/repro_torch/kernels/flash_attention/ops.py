@@ -1,4 +1,5 @@
-"""Causal flash attention (forward), ``flash_attention``.
+"""Causal flash attention (forward), ``flash_attention``, optionally over
+a sliding window (starcoder2's 4,096 keys).
 
 On CUDA tensors it launches a kernel chosen by the inputs' type, never by
 what is available: bf16 takes the tensor-core kernel in
@@ -23,6 +24,10 @@ _BY_DTYPE = {
     torch.bfloat16: ("wgmma", "flash_attention_wgmma", "flash_attention_bf16"),
     torch.float32: ("ffma", "flash_attention", "flash_attention_f32")}
 TILES = (64, 128)
+# bq = bk = 128 serves both head dims: at hd 128 the wgmma kernel holds
+# 64 f32 output and 64 score accumulators per thread in 165 registers, no
+# spill (ptxas on sm_90a, printed by chip_smoke.py's build), and two K/V
+# stages fit its shared memory
 HEAD_DIMS = (64, 128)
 # TMA reads the bf16 inputs: their address and strides must be multiples
 # of 16 bytes
@@ -69,21 +74,28 @@ def tma_strides(shape, strides, data_ptr: int) -> tuple[int, int, int]:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bq: int = 128, bk: int = 128) -> torch.Tensor:
+                    bq: int = 128, bk: int = 128,
+                    window: int | None = None) -> torch.Tensor:
     """Causal attention over q (B, T, H, hd) and k, v (B, T, KV, hd),
-    where head h reads KV head h // (H / KV). Scores, softmax statistics
-    and sums in f32; the result (B, T, H, hd) in q's type. ``bq`` and
-    ``bk`` are the kernel's query and key tiles (64 or 128 each); any T
-    is taken, the ragged last tile masked. On a card, bf16 runs on the
-    tensor cores with P rounded to bf16 before P V, f32 on the CUDA
-    cores (``route``)."""
+    where head h reads KV head h // (H / KV); with a sliding ``window``
+    query i attends to keys j with i - window < j <= i, and the kernel
+    walks only the key tiles the window reaches. Scores, softmax
+    statistics and sums in f32; the result (B, T, H, hd) in q's type.
+    ``bq`` and ``bk`` are the kernel's query and key tiles (64 or 128
+    each); any T is taken, the ragged last tile masked. On a card, bf16
+    runs on the tensor cores with P rounded to bf16 before P V, f32 on
+    the CUDA cores (``route``)."""
     _check(q, k, v)
     if bq not in TILES or bk not in TILES:
         raise ValueError(f"flash_attention: tiles bq={bq}, bk={bk} must be "
                          f"in {TILES}")
+    if window is not None and (isinstance(window, bool)
+                               or not isinstance(window, int) or window < 1):
+        raise ValueError(f"flash_attention: window must be None or an int "
+                         f">= 1, got {window!r}")
     devices = {q.device, k.device, v.device}
     if devices == {torch.device("cpu")}:
-        return gqa_flash_attention_ref(q, k, v)
+        return gqa_flash_attention_ref(q, k, v, window)
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"flash_attention: q, k and v must lie on one CUDA "
                          f"device, got {sorted(map(str, devices))}")
@@ -108,7 +120,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with _cuda.on(q.device):
         err = fn(q.data_ptr(), *strides[0], k.data_ptr(), *strides[1],
                  v.data_ptr(), *strides[2], out.data_ptr(), b, t, h,
-                 k.shape[2], hd, bq, bk, _cuda.stream())
+                 k.shape[2], hd, bq, bk, window or 0, _cuda.stream())
     _cuda.check(err, f"flash_attention ({kind})")
     _cuda.count("flash_attention", kind)
     return out

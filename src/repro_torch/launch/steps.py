@@ -85,7 +85,9 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
                     hvp: bool = False, probe_seed: int = 0, probes=None):
     """``microbatches > 1`` splits the global batch and accumulates the
     gradients in f32 over the pieces, one piece's activations alive at a
-    time; the sum is divided and cast to each parameter's dtype.
+    time; the sum is divided and cast to each parameter's dtype. A batch
+    that ``microbatches`` does not divide raises ``ValueError`` (the
+    reference's reshape raises too).
 
     Second-order optimizers (``optimizer.refresh`` set: fednl) get a
     curvature phase: every ``refresh_every`` steps, by
@@ -134,6 +136,10 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
         return optimizer.refresh(state, tree_unflatten(params, stack))
 
     def train_step(params, opt_state, batch):
+        b0 = tree_leaves(batch)[0].shape[0]
+        if b0 % microbatches:
+            raise ValueError(f"global batch {b0} must divide into "
+                             f"microbatches={microbatches}")
         if microbatches == 1:
             loss, _, g = value_and_grad(model, params, batch)
             loss = loss.detach()
@@ -158,7 +164,6 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
 
         refreshed = 0.0
         if second_order:
-            b0 = tree_leaves(batch)[0].shape[0]
             if b0 % n_silos:
                 raise ValueError(
                     f"global batch {b0} must divide into n_silos={n_silos}")

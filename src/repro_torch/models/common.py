@@ -11,6 +11,8 @@ several cards is ROADMAP item 10b). Initializers draw from an explicit
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import torch
 
 # ---------------------------------------------------------------------------
@@ -91,17 +93,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def causal_mask(t: int, device=None) -> torch.Tensor:
-    """(t, t) bool, True = attendable. Sliding windows wait for ROADMAP
-    Queue A item 12."""
+def causal_mask(t: int, window: Optional[int] = None,
+                device=None) -> torch.Tensor:
+    """(t, t) bool, True = attendable: query i sees key j <= i, and with
+    a sliding window only the last ``window`` of them, i - window < j."""
     i = torch.arange(t, device=device)[:, None]
     j = torch.arange(t, device=device)[None, :]
-    return j <= i
+    mask = j <= i
+    if window is not None:
+        mask = mask & (j > i - window)
+    return mask
 
 
-def decode_mask(cache_len: int, pos: int, device=None) -> torch.Tensor:
-    """(cache_len,) bool for one query at absolute position ``pos``."""
-    return torch.arange(cache_len, device=device) <= pos
+def decode_mask(cache_len: int, pos: int, window: Optional[int] = None,
+                device=None) -> torch.Tensor:
+    """(cache_len,) bool for one query at absolute position ``pos``,
+    windowed as ``causal_mask``."""
+    j = torch.arange(cache_len, device=device)
+    mask = j <= pos
+    if window is not None:
+        mask = mask & (j > pos - window)
+    return mask
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

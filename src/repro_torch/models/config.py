@@ -1,7 +1,8 @@
 """Architecture configuration: the port's copy of the reference's
-``ModelConfig`` (``src/repro/models/config.py``), with the fields of the
-dense decoder family. The other families (MoE, MLA, Mamba, xLSTM,
-encoder-decoder, VLM) and their fields wait for ROADMAP Queue A item 12.
+``ModelConfig`` and ``MLAConfig`` (``src/repro/models/config.py``), with
+the fields of the dense decoder family: GQA with an optional sliding
+window, or MLA. The other families (MoE, Mamba, xLSTM, encoder-decoder,
+VLM) and their fields wait for ROADMAP Queue A item 12.
 """
 
 from __future__ import annotations
@@ -12,6 +13,15 @@ from typing import Optional
 import torch
 
 NOT_PORTED = "not ported yet (ROADMAP Queue A item 12)"
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_dim: int = 64
+    qk_rope_dim: int = 32
+    v_head_dim: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,11 +36,12 @@ class ModelConfig:
     vocab: int
     head_dim: Optional[int] = None  # default d_model // n_heads
     # attention
-    attn_type: str = "gqa"
+    attn_type: str = "gqa"         # gqa | mla
     rope: bool = True
     rope_theta: float = 10000.0
     qkv_bias: bool = False         # qwen2
-    sliding_window: Optional[int] = None
+    sliding_window: Optional[int] = None  # starcoder2: 4096
+    mla: Optional[MLAConfig] = None
     # mlp
     mlp_type: str = "swiglu"       # swiglu | gelu
     # norm & misc
@@ -60,6 +71,10 @@ class ModelConfig:
         heads = max(2, min(4, self.n_heads))
         kv = max(1, min(heads, self.kv_heads if self.kv_heads < self.n_heads
                         else heads))
+        mla = None
+        if self.mla is not None:
+            mla = MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_dim=32,
+                            qk_rope_dim=16, v_head_dim=32)
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
@@ -70,6 +85,7 @@ class ModelConfig:
             d_ff=d_ff,
             vocab=vocab,
             head_dim=d_model // heads,
+            mla=mla,
             sliding_window=16 if self.sliding_window else None,
             dtype="float32",
         )
@@ -79,7 +95,5 @@ def require_ported(cfg: ModelConfig) -> None:
     """Raise for a configuration the port cannot run yet."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r}: {NOT_PORTED}")
-    if cfg.attn_type != "gqa":
+    if cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(f"{cfg.attn_type} attention: {NOT_PORTED}")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(f"sliding-window attention: {NOT_PORTED}")

@@ -9,13 +9,14 @@ the reference scans. With ``use_remat`` (the default, as the
 reference's) each layer runs under ``torch.utils.checkpoint`` while
 autograd records, so the backward keeps one (B, T, d) input per layer
 and recomputes the rest; a call without a gradient runs the layers
-directly. The other families (moe, hybrid, ssm, encdec, vlm) wait for
-ROADMAP Queue A item 12.
+directly. A layer's mixer is GQA or MLA by ``cfg.attn_type``
+(``MIXERS``). The other families (moe, hybrid, ssm, encdec, vlm) wait
+for ROADMAP Queue A item 12.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -30,17 +31,30 @@ from .config import ModelConfig, require_ported
 Params = Dict[str, Any]
 
 
+class Mixer(NamedTuple):
+    init: Callable
+    forward: Callable
+    decode: Callable
+    init_cache: Callable
+
+
+MIXERS = {"gqa": Mixer(attn.gqa_init, attn.gqa_forward, attn.gqa_decode,
+                       attn.gqa_init_cache),
+          "mla": Mixer(attn.mla_init, attn.mla_forward, attn.mla_decode,
+                       attn.mla_init_cache)}
+
+
 def _layer_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     dt, dev = cfg.tdtype, gen.device
     return {"norm1": norm_params(cfg.d_model, cfg.norm, dt, dev),
-            "mixer": attn.gqa_init(gen, cfg),
+            "mixer": MIXERS[cfg.attn_type].init(gen, cfg),
             "norm2": norm_params(cfg.d_model, cfg.norm, dt, dev),
             "ffn": ff.mlp_init(gen, cfg)}
 
 
 def _layer_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = apply_norm(x, p["norm1"], cfg.norm)
-    y, _ = attn.gqa_forward(p["mixer"], h, cfg)
+    y, _ = MIXERS[cfg.attn_type].forward(p["mixer"], h, cfg)
     x = x + y
     h2 = apply_norm(x, p["norm2"], cfg.norm)
     return x + ff.mlp_forward(p["ffn"], h2, cfg)
@@ -49,7 +63,7 @@ def _layer_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 def _layer_decode(p: Params, x: torch.Tensor, cache: dict, pos: int,
                   cfg: ModelConfig):
     h = apply_norm(x, p["norm1"], cfg.norm)
-    y, cache = attn.gqa_decode(p["mixer"], h, cache, pos, cfg)
+    y, cache = MIXERS[cfg.attn_type].decode(p["mixer"], h, cache, pos, cfg)
     x = x + y
     h2 = apply_norm(x, p["norm2"], cfg.norm)
     return x + ff.mlp_forward(p["ffn"], h2, cfg), cache
@@ -116,9 +130,10 @@ class Model:
     # -- serving -----------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int, device=None) -> dict:
-        """Per-layer KV caches stacked over the layers, as the reference's."""
+        """Per-layer KV caches (latent caches for MLA) stacked over the
+        layers, as the reference's."""
         dev = resolve_device(device)
-        c = attn.gqa_init_cache(self.cfg, batch, max_len, dev)
+        c = MIXERS[self.cfg.attn_type].init_cache(self.cfg, batch, max_len, dev)
         return {"blocks": [tree_map(
             lambda a: a.expand((self.cfg.n_layers,) + a.shape).contiguous(), c)]}
 

@@ -424,20 +424,25 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, tiles, dtype):
         _assert_bf16_close(got, q, k, v)
 
 
-def _sdpa_head(q, k, v):
+def _sdpa_head(q, k, v, window=None):
+    if window is None:
+        return F.scaled_dot_product_attention(
+            q[None, None], k[None, None], v[None, None], is_causal=True)[0, 0]
+    i = torch.arange(q.shape[0], device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
     return F.scaled_dot_product_attention(q[None, None], k[None, None],
-                                          v[None, None], is_causal=True)[0, 0]
+                                          v[None, None], attn_mask=mask)[0, 0]
 
 
-def _assert_bf16_close(got, q, k, v):
+def _assert_bf16_close(got, q, k, v, window=None):
     n_rep = q.shape[2] // k.shape[2]
     for b in range(q.shape[0]):
         for h in range(q.shape[2]):
             qh, kh, vh = q[b, :, h], k[b, :, h // n_rep], v[b, :, h // n_rep]
             oracle = flash_attention_ref(qh[None].float(), kh[None].float(),
-                                         vh[None].float())[0]
+                                         vh[None].float(), window)[0]
             r = bf16_attention_check(got[b, :, h], oracle,
-                                     _sdpa_head(qh, kh, vh))
+                                     _sdpa_head(qh, kh, vh, window))
             assert r["ok"], (b, h, r)
 
 
@@ -457,6 +462,71 @@ def test_flash_attention_bf16_wgmma_matches_oracle(cuda, shape, tiles):
     got = flash_attention(q, k, v, *tiles)
     assert ROUTES["flash_attention"] == {"wgmma": 1, "ffma": 0}
     _assert_bf16_close(got, q, k, v)
+
+
+@pytest.mark.parametrize("window", [1, 16, 100, 300])
+@pytest.mark.parametrize("shape", [
+    (1, 1000, 14, 2, 64),     # ragged T, qwen2's GQA
+    (2, 700, 4, 2, 128),      # hd 128, starcoder2's head dim
+])
+@pytest.mark.parametrize("tiles", [(128, 128), (128, 64), (64, 128),
+                                   (64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_windowed_kernel_matches_plain(cuda, dtype, tiles,
+                                                       shape, window):
+    """Both kernels with a sliding window through the existing entry
+    points and routes: f32 to 1e-5 of the windowed plain version, bf16 to
+    the windowed f32 oracle beside SDPA with the window mask. Windows of
+    100 and 300 start mid-tile, so the FFMA kernel's first tile is all
+    masked for some rows; a window of 1 keeps only the diagonal."""
+    q, k, v = (x.to(cuda, dtype) for x in _attention_inputs(*shape, seed=14))
+    reset_launches()
+    got = flash_attention(q, k, v, *tiles, window=window)
+    route = "ffma" if dtype == torch.float32 else "wgmma"
+    assert ROUTES["flash_attention"][route] == 1 == LAUNCHES["flash_attention"]
+    if dtype == torch.float32:
+        want = gqa_flash_attention_ref(q, k, v, window)
+        assert float((got - want).abs().max()) <= 1e-5
+    else:
+        _assert_bf16_close(got, q, k, v, window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_window_as_wide_as_t_is_causal(cuda, dtype):
+    """A window of T or more walks every key tile the causal call walks:
+    the same output bit for bit."""
+    q, k, v = (x.to(cuda, dtype)
+               for x in _attention_inputs(1, 600, 4, 2, 128, seed=15))
+    causal = flash_attention(q, k, v)
+    for window in (600, 4096):
+        assert torch.equal(flash_attention(q, k, v, window=window), causal)
+
+
+def test_windowed_prefill_launches_the_wgmma_kernel(cuda):
+    """The reduced starcoder2 (window 16) in bf16 past the K9 branch runs
+    the wgmma kernel once per layer, with the window, equal to the plain
+    forward on the same weights within the bf16 tolerance of the logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("starcoder2-3b", smoke=True),
+                              dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (1, 640), device=cuda)
+    reset_launches()
+    logits = make_prefill(model)(params, {"tokens": tokens})
+    assert ROUTES["flash_attention"] == {"wgmma": cfg.n_layers, "ffma": 0}
+    cpu = make_prefill(model)(_to_cpu(params), {"tokens": tokens.cpu()})
+    gap = float((logits.float().cpu() - cpu.float()).abs().max())
+    assert gap <= 8 * 2.0 ** -7 * float(cpu.float().abs().max())
+
+
+def _to_cpu(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda a: a.cpu(), tree)
 
 
 def test_flash_attention_bf16_reads_strided_inputs(cuda):

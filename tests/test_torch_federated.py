@@ -76,12 +76,13 @@ QWEN = "qwen2-0.5b"
 
 @pytest.fixture(autouse=True)
 def no_activation_sharder():
-    """Run the JAX package without a mesh sharder and put back whatever
-    was installed: a test elsewhere on the same worker may leave one."""
-    saved = (jax_common._ACT_CONSTRAINT, jax_common._LAYER_PARAM_CONSTRAINT)
+    """Run the JAX package without a mesh sharder, and leave none: a test
+    elsewhere on the same worker may leave one (the reference's
+    ``launch.train.train`` called in process does), and the reference's
+    tests that run after expect none."""
     jax_common.set_activation_sharder(None, None)
     yield
-    jax_common.set_activation_sharder(*saved)
+    jax_common.set_activation_sharder(None, None)
 
 
 @functools.lru_cache(maxsize=None)

@@ -45,12 +45,13 @@ BF16_STEPS = 4 * 2.0 ** -7
 
 @pytest.fixture(autouse=True)
 def no_activation_sharder():
-    """Run the JAX model without a mesh sharder and put back whatever
-    was installed: a test elsewhere on the same worker may leave one."""
-    saved = (jax_common._ACT_CONSTRAINT, jax_common._LAYER_PARAM_CONSTRAINT)
+    """Run the JAX model without a mesh sharder, and leave none: a test
+    elsewhere on the same worker may leave one (the reference's
+    ``launch.train.train`` called in process does), and the reference's
+    tests that run after expect none."""
     jax_common.set_activation_sharder(None, None)
     yield
-    jax_common.set_activation_sharder(*saved)
+    jax_common.set_activation_sharder(None, None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,12 +102,11 @@ def test_config_matches_reference():
 
 def test_unported_configs_raise():
     with pytest.raises(KeyError, match="item 12"):
-        get_config("starcoder2-3b")
+        get_config("granite-moe-1b-a400m")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
     cfg = get_config("qwen2-0.5b", smoke=True)
-    for change in (dict(sliding_window=16), dict(attn_type="mla"),
-                   dict(family="moe")):
+    for change in (dict(family="moe"),):
         with pytest.raises(NotImplementedError, match="item 12"):
             require_ported(dataclasses.replace(cfg, **change))
         with pytest.raises(NotImplementedError, match="item 12"):

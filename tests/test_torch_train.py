@@ -50,12 +50,13 @@ TINY = dict(n_layers=1, d_model=64, d_ff=128, vocab=128)
 
 @pytest.fixture(autouse=True)
 def no_activation_sharder():
-    """Run the JAX model without a mesh sharder and put back whatever
-    was installed: a test elsewhere on the same worker may leave one."""
-    saved = (jax_common._ACT_CONSTRAINT, jax_common._LAYER_PARAM_CONSTRAINT)
+    """Run the JAX model without a mesh sharder, and leave none: a test
+    elsewhere on the same worker may leave one (the reference's
+    ``launch.train.train`` called in process does), and the reference's
+    tests that run after expect none."""
     jax_common.set_activation_sharder(None, None)
     yield
-    jax_common.set_activation_sharder(*saved)
+    jax_common.set_activation_sharder(None, None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -217,6 +218,35 @@ def test_microbatch_accumulation_equivalence():
     np.testing.assert_allclose(float(m4["grad_norm"]),
                                float(jm4["grad_norm"]), rtol=1e-4)
     _close_per_leaf(p4, jp4)
+
+
+def test_microbatches_must_divide_the_batch():
+    """A batch of 6 does not split into 4 microbatches: the port raises
+    ``ValueError`` before any step work, where it used to drop the last 2
+    rows; the reference's reshape raises too. The parameters and the
+    optimizer state are left as they were."""
+    jmodel, jparams, model, params = _tiny()
+    jb, b = _batch(b=6)
+    for name in ("adamw", "fednl"):
+        opt = make_optimizer(name, 1e-3)
+        state = opt.init(params)
+        before = [p.clone() for p in tree_leaves(params)]
+        with pytest.raises(ValueError, match="microbatches=4"):
+            make_train_step(model, opt, microbatches=4, n_silos=2)(
+                params, state, b)
+        assert all(torch.equal(p, q)
+                   for p, q in zip(tree_leaves(params), before))
+        assert int(state.step) == 0
+    jopt = jax_make_optimizer("adamw", 1e-3)
+    with pytest.raises(TypeError, match="reshape"):
+        jax_make_train_step(jmodel, jopt, microbatches=4)(
+            jparams, jopt.init(jparams), jb)
+    # 6 rows in 2 or 3 microbatches still run
+    opt = make_optimizer("adamw", 1e-3)
+    for parts in (2, 3):
+        _, _, m = make_train_step(model, opt, microbatches=parts)(
+            params, opt.init(params), b)
+        assert np.isfinite(float(m["loss"]))
 
 
 def test_first_order_path_unchanged():
