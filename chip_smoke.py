@@ -135,6 +135,32 @@ Phases, each failing the run with a non-zero exit:
      output); ``make_prefill`` at B=1, T=4,096 through the chunked path
      (no K9 launch), its ms, peak memory and device time by group;
      decode == forward at B=2, T=64; greedy ``generate`` as in 9b;
+  9d-9g. (their profiled parts run before phase 9b, their decode loops
+     after phase 9's) the MoE, encoder-decoder and VLM families at full
+     width (bf16, random weights from --seed), each with K9 against its
+     plain version at the model's head counts (every head at T=4,000 in
+     bf16 and f32, the first and last head of layer 0's prefill inputs in
+     bf16), ``make_prefill`` at B=1 through one wgmma launch of K9 a
+     decoder layer (counters and profile), its ms, peak memory and device
+     time by kernel group, and K9's device ms on layer 0 beside its bound
+     and SDPA: 9d granite-moe-1b-a400m (1.33 B parameters; T=32,768, n_rep
+     2, hd 64) with layer 0's ``moe_forward`` in bf16 against f32 on the
+     same tensors (equal routes) and the card's f32 against the CPU
+     port's, and the device time by part (router, dispatch and combine,
+     experts, attention) from layer 0 at the prefill's shape; 9e
+     grok-1-314b cut to 8 of 64 layers (56.2 GB; T=4,096, n_rep 6, hd
+     128) likewise; 9f whisper-tiny whole (4 + 4 layers; 1,500 frames,
+     decoder T=32,768, n_rep 1) with the encoder and the cross-attention
+     in bf16 against f32; 9g llava-next-34b with all 60 layers (68.8 GB,
+     drawn layer by layer into the stacked weights; T=4,096 = 2,880
+     patches and 1,216 tokens, n_rep 7). After phase 9: greedy
+     ``generate`` of granite and whisper (batch 2) and llava (batch 1,
+     text alone, its weights drawn again), each held to the serve step
+     teacher-forced on its tokens; the card's granite decode in f32
+     against the CPU port's at the published capacity; decode == forward
+     for reduced granite with capacity_factor = E / top_k (nothing
+     dropped; f32, T=640, FFMA) and for whisper with the encoder's memory
+     in its cache (bf16, T=640, wgmma);
   10. the loss's gradient above 512 tokens (the forward's
      ``_sdpa_chunked`` branch under autograd): reduced qwen2 in f32 at
      B=2, T=600, card against the CPU port on the same weights (1e-4 of
@@ -151,6 +177,13 @@ Phases, each failing the run with a non-zero exit:
      AdamW step at the same shape; one Hutchinson step (T=512, 2 silos)
      and one silo's probe draw; a reduced model's 3 fednl steps on the
      card against the CPU port (1e-4 of each leaf's largest |value|);
+  11b. (right after 11) the MoE train step at full width: granite-moe-
+     1b-a400m as phase 11 (fednl k=2,048, 4 microbatches, 4 silos, 4 x
+     4,096 tokens, a refresh every 2 steps, 3 steps): K1 once per tensor
+     on the refresh steps (the 4-D expert leaves and the f32 router among
+     them), K4 launched, no K9, the loss the cross-entropy plus 0.01 x the
+     aux loss; the reduced model's gradient at B=2, T=600 in f32 on the
+     card against the CPU port (1e-4 of each leaf's largest |grad|);
   12. print what the profiler failed to record (each such figure timed
      by CUDA events instead, or not measured), the kernel line, the card
      line, and last the device line.
@@ -161,6 +194,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import os
 import re
@@ -2467,18 +2501,25 @@ def param_count(shapes) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(shapes))
 
 
-def decode_vs_forward(model, params, toks, dev, K) -> dict:
+def decode_vs_forward(model, params, toks, dev, K, frames=None) -> dict:
     """Teacher-forced forward logits against token-by-token decode logits
-    at every position, and the launches of the forward."""
+    at every position, and the launches of the forward. An
+    encoder-decoder's forward takes ``frames`` and its decode cache the
+    encoder's output on them."""
     import torch
     from repro_torch.launch.steps import make_prefill, make_serve_step
 
     b, t = toks.shape
+    batch = {"tokens": toks} if frames is None else {"tokens": toks,
+                                                     "frames": frames}
     K.reset_launches()
-    fwd = make_prefill(model)(params, {"tokens": toks})
+    fwd = make_prefill(model)(params, batch)
     launches = counts(K)
     serve = make_serve_step(model)
     cache = model.init_cache(b, t, dev)
+    if frames is not None:
+        with torch.no_grad():
+            cache["enc"] = model._encode(params, frames)
     worst = torch.zeros((), device=dev)
     agree = torch.zeros((), dtype=torch.int64, device=dev)
     for p in range(t):
@@ -2549,6 +2590,7 @@ def prefill_report(model, params, batch, K, k9_layers: int) -> dict:
             f"({launches['flash_attention:wgmma']} by its wgmma route), not "
             f"{k9_layers} times by the wgmma route")
     b, t = batch["tokens"].shape
+    t += model.cfg.vision_tokens          # a VLM's patches come first
     require(logits.shape == (b, t, model.cfg.vocab)
             and logits.dtype == torch.bfloat16, "prefill logits misshapen")
     require(all(bool(torch.isfinite(c).all()) for c in logits.split(2048, 1)),
@@ -3001,6 +3043,460 @@ def decode_minicpm3(dev, seed: int, K, params) -> dict:
     return paths
 
 
+# -- phases 9d-9g: the MoE, encoder-decoder and VLM families through K9 ----------
+
+# granite-moe-1b-a400m and whisper-tiny at prefill_32k's sequence (batch 32
+# cut to 1); grok-1-314b (64 layers cut to 8: 56.2 GB of bf16 weights) and
+# llava-next-34b (all 60 layers, 68.8 GB: 2,880 patches and 1,216 tokens)
+# at train_4k's sequence, one sequence. Their decode loops run after
+# phase 9's (``decode_new_families``): every profile before every decode
+# loop.
+MOE_T, GROK_T, GROK_LAYERS, WHISPER_T, LLAVA_T = 32768, 4096, 8, 32768, 4096
+# decode == forward: whisper at full width, reduced granite with room for
+# every token (capacity_factor = E / top_k); the card's decode against the
+# CPU port's at granite's published capacity, in f32
+NEW_DECODE_B, NEW_DECODE_T, MOE_CPU_DECODE_T = 2, 640, 16
+# layer 0's MoE on the card: bf16 against f32 on the same tensors, and the
+# card's f32 against the CPU port's on the first tokens
+MOE_CHECK_T, MOE_CPU_CHECK_T = 4096, 1024
+
+
+def layer0_attention_inputs(model, params, batch):
+    """Layer 0's q, k, v of a prefill (the embedded inputs, norm1, the
+    projections and RoPE where the model has it) and its layer tree."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import apply_norm, apply_rope
+    from repro_torch.tree import tree_map
+
+    cfg = model.cfg
+    lp = tree_map(lambda a: a[0], params["layers"][0])
+    with torch.no_grad():
+        x = model._embed_inputs(params, batch)
+        q, k, v = attn._qkv(lp["mixer"], apply_norm(x, lp["norm1"], cfg.norm),
+                            cfg)
+        if cfg.rope:
+            pos = torch.arange(x.shape[1], device=x.device)[None]
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+    return (q, k, v), x, lp
+
+
+def k9_shape_fields(q, k, v, kerr: dict, heads_checked: str) -> dict:
+    """K9 on one layer's prefill inputs (bf16, the wgmma route): device ms
+    against its bound (operations at the bf16 rate) and SDPA's time, with
+    the worst bf16 errors of the checks made on this model."""
+    b, t, h, hd = q.shape
+    n_rep = h // k.shape[2]
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    flops = 4 * b * h * hd * t * (t + 1) / 2
+    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                       {"bf16": flops})
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(n_rep, dim=2).transpose(1, 2) for x in (k, v))
+    dev_ms = device_ms(lambda: flash_attention(q, k, v),
+                       "flash_attention_kernel_wgmma", reps=5)
+    out = dict(shape=f"q ({b}, {t}, {h}, {hd}), k and v ({b}, {t}, "
+                     f"{k.shape[2]}, {hd}) bf16, n_rep {n_rep}",
+               ms=time_cuda(lambda: flash_attention(q, k, v), reps=5),
+               device_ms=dev_ms, tflops=flops / dev_ms / 1e9,
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=time_cuda(lambda: sdpa(qt, kt, vt), reps=5),
+               max_abs_err=kerr["flash_attention_bf16"]["max_abs_err"],
+               bf16_check={key: val for key, val in
+                           kerr["flash_attention_bf16"].items()
+                           if key != "max_abs_err"},
+               f32_max_abs_err=kerr["flash_attention"],
+               checked=heads_checked)
+    del qt, kt, vt
+    return out
+
+
+def check_k9_at(q, k, v, dev, seed: int, what: str) -> tuple[dict, str]:
+    """K9 against its plain version at a model's head counts: every head
+    on random inputs at T = CHECK_T in bf16 and f32, then the first and
+    last head of layer 0's prefill inputs (``q, k, v``) in bf16."""
+    import torch
+
+    h, kvh, hd = q.shape[2], k.shape[2], q.shape[3]
+    kerr = {"flash_attention": 0.0}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for dtype in (torch.bfloat16, torch.float32):
+        rq, rk, rv = (torch.randn((1, CHECK_T, n, hd), generator=g, device=dev)
+                      .to(dtype) for n in (h, kvh, kvh))
+        check_flash(rq, rk, rv, range(h), kerr, f"{what} T={CHECK_T} {dtype}")
+        del rq, rk, rv
+    check_flash(q, k, v, (0, h - 1), kerr, f"{what} layer 0 at "
+                f"T={q.shape[1]}")
+    checked = (f"all {h} heads at T={CHECK_T} (bf16 and f32), heads 0 and "
+               f"{h - 1} of layer 0 at T={q.shape[1]} (bf16)")
+    print(f"# K9 matches its plain version for {what}: {checked}; "
+          f"{json.dumps(kerr)}", flush=True)
+    return kerr, checked
+
+
+def moe_groups(lp, x, cfg, k9_ms: float) -> dict:
+    """Device ms of one MoE layer's parts at the prefill's shape, by CUDA
+    events on layer 0 (the profiler cannot tell the dispatch and combine
+    GEMMs from the experts'), each part the function ``moe_forward``
+    calls: the router (``route_groups``: f32 logits, ``_route``),
+    dispatch and combine (``dispatch_tokens`` and ``combine_tokens``),
+    the experts (``run_experts``), and attention (the projections and
+    K9's device ms); each also times the model's depth."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import mlp
+
+    p = lp["ffn"]
+    with torch.no_grad():
+        groups, _ = mlp.group_tokens(x, cfg)
+
+        def router():
+            return mlp.route_groups(p, groups, cfg)
+
+        dispatch, combine, _ = router()
+        xin = mlp.dispatch_tokens(dispatch, groups)
+
+        def experts():
+            return mlp.run_experts(p, xin, cfg)
+
+        xout = experts()
+
+        def dispatch_and_combine():
+            mlp.dispatch_tokens(dispatch, groups)
+            return mlp.combine_tokens(combine, xout)
+
+        def projections():
+            q, _, _ = attn._qkv(lp["mixer"], x, cfg)
+            return q.reshape(x.shape[0], x.shape[1], -1) @ lp["mixer"]["wo"]
+
+        per_layer = {"router": time_cuda(router, reps=3, warmup=1),
+                     "dispatch_and_combine": time_cuda(dispatch_and_combine,
+                                                       reps=3, warmup=1),
+                     "experts": time_cuda(experts, reps=3, warmup=1),
+                     "attention_projections": time_cuda(projections, reps=3,
+                                                        warmup=1),
+                     "attention_k9_device": k9_ms}
+    gsz = groups.shape[1]
+    del dispatch, combine, xin, xout, groups
+    torch.cuda.empty_cache()
+    return {"per_layer_ms": per_layer,
+            "model_ms": {key: val * cfg.n_layers
+                         for key, val in per_layer.items()},
+            "capacity": mlp.capacity(cfg, gsz), "group": gsz,
+            "groups": -(-x.shape[0] * x.shape[1] // gsz)}
+
+
+def moe_layer_check(lp, x, cfg) -> dict:
+    """Layer 0's ``moe_forward`` on the card in bf16 against the same
+    computation in f32 on the same tensors (the router reads f32 logits
+    of the same values, so the routes are equal: the aux losses must be
+    bit for bit), within DECODE_TOL of the largest output; then the card's
+    f32 against the CPU port's on the first tokens, to 1e-5."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import mlp
+    from repro_torch.tree import tree_map
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda a: a.float(), lp["ffn"])
+    with torch.no_grad():
+        y, aux = mlp.moe_forward(lp["ffn"], x, cfg)
+        y32, aux32 = mlp.moe_forward(p32, x.float(), cfg32)
+        gap = float((y.float() - y32).abs().max())
+        scale = float(y32.abs().max())
+        require(torch.equal(aux, aux32), f"{cfg.name} layer 0: bf16 and f32 "
+                f"routes differ (aux {float(aux)} against {float(aux32)})")
+        require(gap <= DECODE_TOL * scale, f"{cfg.name} layer 0's MoE in "
+                f"bf16 is {gap:.3e} off f32 (max {scale:.3e})")
+        xs = x[:, :MOE_CPU_CHECK_T].float()
+        card, _ = mlp.moe_forward(p32, xs, cfg32)
+        cpu, _ = mlp.moe_forward(tree_map(lambda a: a.cpu(), p32), xs.cpu(),
+                                 cfg32)
+        cpu_gap = float((card.cpu() - cpu).abs().max())
+        cpu_scale = float(cpu.abs().max())
+        require(cpu_gap <= 1e-5 * cpu_scale, f"{cfg.name} layer 0's MoE: "
+                f"card and CPU differ by {cpu_gap:.3e} (max {cpu_scale:.3e})")
+    del p32, y, y32, card, cpu
+    torch.cuda.empty_cache()
+    return {"shape": f"(1, {x.shape[1]}, {cfg.d_model}) bf16 against f32",
+            "max_abs_gap": gap, "max_abs_out": scale,
+            "gap_in_bf16_steps_of_max": gap / (scale * 2.0 ** -7),
+            "aux": float(aux),
+            "card_vs_cpu_f32": {"tokens": MOE_CPU_CHECK_T,
+                                "max_abs_gap": cpu_gap,
+                                "max_abs_out": cpu_scale}}
+
+
+def serve_family(dev, seed: int, K, arch: str, t: int, layers=None) -> dict:
+    """One model at full width (bf16, random weights from ``seed``; depth
+    cut to ``layers`` where given): K9 at its head counts against the
+    plain version, ``make_prefill`` at B=1 and T = ``t`` through one K9
+    launch a decoder layer, profiled; K9's figures on layer 0; for MoE
+    layer 0's ``moe_forward`` against f32 and the time by part; for
+    whisper the encoder's and the cross-attention's bf16 against f32.
+    Returns the prefill's counts, K9's figures and the weights."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import add_modality_inputs
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    from repro_torch.models.common import apply_norm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    full_layers = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    mod = importlib.import_module(
+        f"repro_torch.configs.{arch.replace('-', '_')}")
+    model = build_model(cfg)
+    held = torch.cuda.memory_allocated()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    require(n_params == param_count(mod.param_shapes(cfg)),
+            f"{arch} has {n_params} parameters, not param_shapes()'s")
+    # over what the earlier models' kept weights hold
+    weights_gb = (torch.cuda.memory_allocated() - held) / 1e9
+    init_peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    t_text = t - cfg.vision_tokens
+    batch = add_modality_inputs({"tokens": torch.randint(
+        0, cfg.vocab, (1, t_text), generator=gen, device=dev)}, cfg, 0)
+    (q, k, v), x, lp = layer0_attention_inputs(model, params, batch)
+    kerr, checked = check_k9_at(q, k, v, dev, seed + 6, arch)
+    rep = {"config": f"{cfg.n_layers} of {full_layers} layers, d "
+                     f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads, "
+                     f"hd {cfg.hd}", "parameters": n_params,
+           "weights_gb": weights_gb, "init_peak_gb": init_peak_gb}
+    if cfg.moe is not None:
+        with torch.no_grad():
+            h2 = apply_norm(x[:, :MOE_CHECK_T], lp["norm2"], cfg.norm)
+        rep["layer0_moe_vs_f32"] = moe_layer_check(lp, h2, cfg)
+        del h2
+    if cfg.family == "encdec":
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = tree_map(lambda a: a.float(), params)
+        with torch.no_grad():
+            mem = model._encode(params, batch["frames"])
+            mem32 = build_model(cfg32)._encode(p32, batch["frames"].float())
+            hx = apply_norm(x[:, :MOE_CHECK_T], lp["norm_x"], cfg.norm)
+            cross = attn.cross_forward(lp["cross"], hx, mem, cfg)
+            cross32 = attn.cross_forward(
+                tree_map(lambda a: a.float(), lp["cross"]), hx.float(),
+                mem.float(), cfg32)
+        gaps = {}
+        for name, got, want in (("encoder", mem, mem32),
+                                ("cross_attention", cross, cross32)):
+            gap = float((got.float() - want).abs().max())
+            scale = float(want.abs().max())
+            require(gap <= DECODE_TOL * scale, f"whisper's {name} in bf16 is "
+                    f"{gap:.3e} off f32 (max {scale:.3e})")
+            gaps[name] = {"max_abs_gap": gap, "max_abs_out": scale}
+        rep["bf16_vs_f32"] = gaps
+        del p32, mem, mem32, hx, cross, cross32
+    del x
+    torch.cuda.empty_cache()
+    pre = prefill_report(model, params, batch, K, cfg.n_layers)
+    k9 = k9_shape_fields(q, k, v, kerr, checked)
+    if cfg.moe is not None:
+        with torch.no_grad():
+            x = apply_norm(model._embed_inputs(params, batch), lp["norm2"],
+                           cfg.norm)
+        pre["moe_groups"] = moe_groups(lp, x, cfg, k9["device_ms"])
+        del x
+    del q, k, v, batch
+    torch.cuda.empty_cache()
+    rep["prefill"] = pre
+    print(json.dumps({f"prefill_{arch}": rep}), flush=True)
+    print(f"# {arch} prefill phase in {time.perf_counter() - t_phase:.1f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    return dict(paths={f"prefill_{arch}": pre["launches"]}, k9=k9,
+                params=params)
+
+
+def serve_new_families(dev, seed: int, K) -> dict:
+    """Phases 9d-9g's profiled parts: granite-moe-1b-a400m (T = 32,768),
+    grok-1-314b cut to 8 layers (T = 4,096), whisper-tiny (T = 32,768
+    over 1,500 frames) and llava-next-34b (T = 4,096: 2,880 patches and
+    1,216 tokens). grok-1's and llava's weights are freed at once;
+    granite's and whisper's are kept for ``decode_new_families``."""
+    import torch
+
+    out = {"paths": {}, "k9": {}, "params": {}}
+    for arch, t, layers, keep in (
+            ("granite-moe-1b-a400m", MOE_T, None, True),
+            ("grok-1-314b", GROK_T, GROK_LAYERS, False),
+            ("whisper-tiny", WHISPER_T, None, True),
+            ("llava-next-34b", LLAVA_T, None, False)):
+        r = serve_family(dev, seed, K, arch, t, layers)
+        out["paths"].update(r["paths"])
+        out["k9"][arch] = r["k9"]
+        if keep:
+            out["params"][arch] = r["params"]
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def greedy_vs_decode(arch: str, params, seed: int, dev, K, batch: int,
+                     prompt: int, n: int) -> dict:
+    """``generate`` at full width, and its tokens against the argmax of
+    the serve step teacher-forced on them with the same cache (for
+    whisper the same encoder memory, handed to both): the check for the
+    models whose forward is not the decode's yardstick (MoE drops tokens
+    by group; whisper's memory; llava's forward takes patches)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    cache = model.init_cache(batch, prompt + n, dev)
+    memory = None
+    if cfg.family == "encdec":
+        g = torch.Generator(device=dev).manual_seed(seed + 8)
+        memory = cache["enc"] = (torch.randn(cache["enc"].shape, generator=g,
+                                             device=dev).to(cfg.tdtype) * 0.02)
+    K.reset_launches()
+    seqs = generate(arch, smoke=False, batch=batch, prompt_len=prompt, gen=n,
+                    seed=seed, greedy=True, device=dev, params=params,
+                    memory=memory)
+    launches = counts(K)
+    require(seqs.shape == (batch, prompt + n) and int(seqs.min()) >= 0
+            and int(seqs.max()) < cfg.vocab,
+            f"{arch}: generate returned misshapen or out-of-range tokens")
+    serve = make_serve_step(model)
+    picked = []
+    for pos in range(prompt + n - 1):
+        lg, cache = serve(params, cache, seqs[:, pos:pos + 1], pos)
+        if pos >= prompt - 1:
+            picked.append(lg[:, 0].argmax(-1))
+    agree = float((torch.stack(picked, 1) == seqs[:, prompt:]).float().mean())
+    require(agree >= ARGMAX_AGREE, f"{arch}: generate's greedy tokens match "
+            f"the teacher-forced decode's argmax at {agree:.3f}")
+    return {"shape": f"batch {batch}, prompt {prompt}, {n} greedy",
+            "greedy_vs_decode_argmax": agree, "launches": launches}
+
+
+def decode_new_families(dev, seed: int, K, kept: dict) -> dict:
+    """Phases 9d, 9f and 9g's decode loops, after every profiling phase:
+    greedy ``generate`` of granite (batch 2), whisper (batch 2) and
+    llava-next-34b (batch 1, text alone; its weights drawn again);
+    decode == forward for whisper at full width with the encoder's
+    memory (bf16, T = 640, the K9 branch) and for reduced granite with
+    capacity_factor = E / top_k (f32, T = 640: nothing dropped); the
+    card's decode against the CPU port's at granite's published capacity
+    in f32. Returns the counts per path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.launch.train import add_modality_inputs
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    paths = {}
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+
+    # granite: generate; the card's f32 decode against the CPU port's
+    granite = "granite-moe-1b-a400m"
+    params = kept.pop(granite)
+    rep = greedy_vs_decode(granite, params, seed, dev, K, SMALL_GEN_B,
+                           SMALL_GEN_PROMPT, SMALL_GEN_N)
+    paths["generate_granite"] = rep.pop("launches")
+    cfg32 = dataclasses.replace(get_config(granite), dtype="float32")
+    model32 = build_model(cfg32)
+    toks = torch.randint(0, cfg32.vocab, (NEW_DECODE_B, MOE_CPU_DECODE_T),
+                         generator=gen, device=dev)
+    logits = {}
+    for where in (dev, "cpu"):
+        p = tree_map(lambda a: a.to(where, torch.float32), params)
+        cache = model32.init_cache(NEW_DECODE_B, MOE_CPU_DECODE_T, where)
+        serve = make_serve_step(model32)
+        out = []
+        for pos in range(MOE_CPU_DECODE_T):
+            lg, cache = serve(p, cache, toks[:, pos:pos + 1].to(where), pos)
+            out.append(lg[:, 0].cpu())
+        logits[str(where)] = torch.stack(out, 1)
+        del p, cache
+    del params
+    torch.cuda.empty_cache()
+    gap = float((logits[str(dev)] - logits["cpu"]).abs().max())
+    scale = float(logits["cpu"].abs().max())
+    require(gap <= 1e-4 * scale, f"granite's f32 decode: card and CPU differ "
+            f"by {gap:.3e} (max {scale:.3e})")
+    rep["card_vs_cpu_f32_decode"] = {
+        "shape": f"B={NEW_DECODE_B}, {MOE_CPU_DECODE_T} steps, published "
+                 f"capacity", "max_abs_gap": gap, "max_abs_logit": scale}
+    small = get_config(granite, smoke=True)
+    small = dataclasses.replace(small, moe=dataclasses.replace(
+        small.moe, capacity_factor=small.moe.num_experts / small.moe.top_k))
+    smodel = build_model(small)
+    sparams = smodel.init_params(torch.Generator(device=dev).manual_seed(seed))
+    toks = torch.randint(0, small.vocab, (NEW_DECODE_B, NEW_DECODE_T),
+                         generator=gen, device=dev)
+    r = decode_vs_forward(smodel, sparams, toks, dev, K)
+    require(r["launches"]["flash_attention:ffma"] == small.n_layers,
+            "the reduced granite forward did not take K9's FFMA route")
+    require(r["max_abs_gap"] <= 2e-3 * max(1.0, r["max_abs_logit"])
+            and r["argmax_agreement"] >= ARGMAX_AGREE,
+            f"reduced granite (nothing dropped): decode and forward differ: "
+            f"{r}")
+    paths["decode_vs_forward_granite_reduced"] = r.pop("launches")
+    rep["decode_vs_forward_reduced_no_drop"] = r
+    print(json.dumps({"decode_granite": rep}), flush=True)
+
+    # whisper: decode == forward with the encoder's memory; generate
+    whisper = "whisper-tiny"
+    params = kept.pop(whisper)
+    cfg = get_config(whisper)
+    model = build_model(cfg)
+    toks = torch.randint(0, cfg.vocab, (NEW_DECODE_B, NEW_DECODE_T),
+                         generator=gen, device=dev)
+    frames = add_modality_inputs({"tokens": toks}, cfg, 1)["frames"]
+    r = decode_vs_forward(model, params, toks, dev, K, frames=frames)
+    require(r["launches"]["flash_attention:wgmma"] == cfg.n_layers,
+            "whisper's T=640 forward did not take K9 in every layer")
+    require(r["max_abs_gap"] <= DECODE_TOL * r["max_abs_logit"]
+            and r["argmax_agreement"] >= ARGMAX_AGREE,
+            f"whisper decode and forward differ: {r}")
+    paths["decode_vs_forward_whisper"] = r.pop("launches")
+    rep = {"decode_vs_forward": r}
+    rep.update(greedy_vs_decode(whisper, params, seed, dev, K, SMALL_GEN_B,
+                                SMALL_GEN_PROMPT, SMALL_GEN_N))
+    paths["generate_whisper"] = rep.pop("launches")
+    del params
+    print(json.dumps({"decode_whisper": rep}), flush=True)
+
+    # llava-next-34b: its weights again (68.8 GB), text-only generate
+    llava = "llava-next-34b"
+    torch.cuda.empty_cache()
+    params = build_model(get_config(llava)).init_params(
+        torch.Generator(device=dev).manual_seed(seed))
+    rep = greedy_vs_decode(llava, params, seed, dev, K, 1, SMALL_GEN_PROMPT,
+                           SMALL_GEN_N)
+    paths["generate_llava"] = rep.pop("launches")
+    del params
+    torch.cuda.empty_cache()
+    print(json.dumps({"decode_llava": rep}), flush=True)
+    print(f"# MoE, encoder-decoder and VLM decode phase in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
+
+
 # -- phase 10: the loss's gradient above 512 tokens ------------------------------
 
 # the reduced model's check and the full model's backward at train_4k's
@@ -3138,7 +3634,7 @@ def train_qwen2(dev, seed: int, K, card: str) -> dict:
         make_train_step,
     )
     from repro_torch.models import build_model
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
 
     t_phase = time.perf_counter()
     cfg = get_config("qwen2-0.5b")
@@ -3232,7 +3728,39 @@ def train_qwen2(dev, seed: int, K, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # the reduced model: the card against the CPU port, 3 fednl steps
-    small = get_config("qwen2-0.5b").reduced(**SMALL_TRAIN)
+    worst = reduced_steps_card_vs_cpu(
+        get_config("qwen2-0.5b").reduced(**SMALL_TRAIN), dev, seed)
+
+    refresh_ms, precond_ms = log.get("refresh", []), log.get("precondition", [])
+    rep = {"shape": f"B={TRAIN_B}, T={TRAIN_T}, {cfg.n_layers} layers, {cfg.dtype}, "
+                    f"{TRAIN_MB} microbatches, {TRAIN_SILOS} silos, "
+                    f"refresh every {TRAIN_REFRESH}, k={CURVATURE_K}",
+           "steps": per_step, "refresh_ms": refresh_ms,
+           "precondition_ms": precond_ms, "peak_memory_gb": peak_gb,
+           "adamw_ms": adamw_ms, "adamw_peak_memory_gb": adamw_peak,
+           "hutchinson": {"shape": f"B={HVP_SILOS}, T={HVP_T}, "
+                                   f"{HVP_SILOS} silos",
+                          "ms": hvp_ms, "peak_memory_gb": hvp_peak,
+                          "one_silo_probe_draw_ms": probe_ms,
+                          "k1": hvp_launches["diff_topk_payload"],
+                          "k4": hvp_launches["block_scatter_accumulate"]},
+           "reduced_card_vs_cpu_max_gap_over_leaf_max": worst,
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    print(json.dumps({"train_qwen2": rep}), flush=True)
+    return total
+
+
+def reduced_steps_card_vs_cpu(small, dev, seed: int) -> float:
+    """3 fednl steps of a reduced model (f32, B=4, T=128, 2 microbatches,
+    2 silos, a refresh every 2 steps) on the card and on the CPU port
+    from the same weights: every parameter and H leaf within 1e-4 of the
+    CPU's largest |value| on it. Returns the worst gap over that max."""
+    import torch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
     model = build_model(small, use_remat=True)
     cpu_params = model.init_params(torch.Generator().manual_seed(seed))
     out = {}
@@ -3252,26 +3780,236 @@ def train_qwen2(dev, seed: int, K, card: str) -> dict:
         scale = float(torch.max(torch.abs(want)))
         gap = float(torch.max(torch.abs(got - want)))
         require(gap <= 1e-4 * max(scale, 1e-30),
-                f"reduced train step: card and CPU differ by {gap:.3e} of "
-                f"max {scale:.3e} on a {tuple(want.shape)} leaf")
+                f"reduced {small.name} train step: card and CPU differ by "
+                f"{gap:.3e} of max {scale:.3e} on a {tuple(want.shape)} leaf")
         worst = max(worst, gap / max(scale, 1e-30))
+    return worst
 
-    refresh_ms, precond_ms = log.get("refresh", []), log.get("precondition", [])
-    rep = {"shape": f"B={TRAIN_B}, T={TRAIN_T}, {cfg.n_layers} layers, {cfg.dtype}, "
-                    f"{TRAIN_MB} microbatches, {TRAIN_SILOS} silos, "
-                    f"refresh every {TRAIN_REFRESH}, k={CURVATURE_K}",
-           "steps": per_step, "refresh_ms": refresh_ms,
-           "precondition_ms": precond_ms, "peak_memory_gb": peak_gb,
-           "adamw_ms": adamw_ms, "adamw_peak_memory_gb": adamw_peak,
-           "hutchinson": {"shape": f"B={HVP_SILOS}, T={HVP_T}, "
-                                   f"{HVP_SILOS} silos",
-                          "ms": hvp_ms, "peak_memory_gb": hvp_peak,
-                          "one_silo_probe_draw_ms": probe_ms,
-                          "k1": hvp_launches["diff_topk_payload"],
-                          "k4": hvp_launches["block_scatter_accumulate"]},
-           "reduced_card_vs_cpu_max_gap_over_leaf_max": worst,
+
+# -- phase 11b: the MoE train step at full width -------------------------------------
+
+# granite-moe-1b-a400m's published configuration with random weights, as
+# phase 11: fednl k = 2,048, 4 microbatches, 4 silos, train_4k's T = 4,096
+# with its batch of 256 cut to 4, a refresh every 2 steps, 3 steps; the
+# reduced model's gradient above 512 tokens on the card against the CPU
+# port (f32, B = 2, T = 600), as phase 10
+MOE_GRAD_B, MOE_GRAD_T = 2, 600
+
+
+# rows of a tensor that K1's plain version takes at a time (a band of
+# whole tile rows: its payloads are the kernel's tiles in that band)
+REF_BAND_ROWS = 1024 * BLOCK
+
+
+def refresh_checks(inputs: dict) -> dict:
+    """K1 and K4 on one refresh's inputs ({name: (silo-stacked
+    observations, H)}), each tensor as the refresh gives it to them:
+    K1's payloads bit for bit against ``diff_topk_payload_ref`` per silo
+    and band of tile rows, its ||D||^2 to 1e-5; K4's sum of those
+    payloads bit for bit against ``block_scatter_accumulate_ref`` on CPU
+    copies (in stream order there, as the kernel adds; atomics on the
+    card). These launches are not the path's."""
+    import torch
+    from repro_torch.kernels.block_topk import (
+        diff_topk_payload,
+        diff_topk_payload_ref,
+    )
+    from repro_torch.kernels.scatter_accum import (
+        block_scatter_accumulate,
+        block_scatter_accumulate_ref,
+    )
+    from repro_torch.second_order.fednl_precond import _shape2d
+
+    out = {}
+    for name, (obs, h) in inputs.items():
+        shape2 = _shape2d(h.shape)
+        n = obs.shape[0]
+        o2, h2 = obs.reshape((n,) + shape2), h.reshape(shape2)
+        v, i, sq = diff_topk_payload(o2, h2, CURVATURE_K, BLOCK)
+        grid = tuple(-(-x // BLOCK) for x in shape2)
+        rel_sq = 0.0
+        for s in range(n):
+            sq_want = 0.0
+            for r0 in range(0, shape2[0], REF_BAND_ROWS):
+                r1 = min(r0 + REF_BAND_ROWS, shape2[0])
+                t0, t1 = r0 // BLOCK * grid[1], -(-r1 // BLOCK) * grid[1]
+                want = diff_topk_payload_ref(o2[s:s + 1, r0:r1], h2[r0:r1],
+                                             CURVATURE_K, BLOCK)
+                require(torch.equal(v[s:s + 1, t0:t1], want[0])
+                        and torch.equal(i[s:s + 1, t0:t1], want[1]),
+                        f"granite's refresh: diff_topk_payload differs from "
+                        f"its plain version on {name} {tuple(h.shape)}, "
+                        f"silo {s}, rows {r0}:{r1}")
+                sq_want += float(want[2][0])
+                del want
+            rel = abs(float(sq[s]) - sq_want) / sq_want
+            require(rel <= 1e-5, f"granite's refresh: diff_topk_payload's "
+                    f"||D||^2 on {name} is off by {rel:.2e}")
+            rel_sq = max(rel_sq, rel)
+        got = block_scatter_accumulate(v, i, grid, BLOCK)
+        want = block_scatter_accumulate_ref(v.cpu(), i.cpu(), grid, BLOCK)
+        require(torch.equal(got.cpu(), want), f"granite's refresh: "
+                f"block_scatter_accumulate differs from its plain version "
+                f"on {name} {tuple(h.shape)}")
+        out[name] = {"shape": list(h.shape), "silos": n,
+                     "tiles_per_silo": grid[0] * grid[1],
+                     "payloads_and_sum": "bitwise", "sq_norm_rel": rel_sq}
+        del v, i, sq, got, want
+    torch.cuda.empty_cache()
+    print(f"# granite's refresh: K1 and K4 match their plain versions on "
+          f"layers[0].ffn's wi and router: {json.dumps(out)}", flush=True)
+    return out
+
+
+def train_granite(dev, seed: int, K, card: str) -> dict:
+    """``make_train_step`` on granite-moe-1b-a400m at full width: refresh
+    flags [1, 0, 1], H bit for bit unchanged on step 1, finite loss and
+    H; K1 and K4 launched on the refresh steps alone, K1 once per tensor
+    (the 4-D expert leaves and the f32 router among them), K9 never; the
+    loss is the cross-entropy plus 0.01 times the layers' aux loss; ms per
+    step, peak memory; K1 and K4 on the last refresh's inputs of the
+    expert wi leaf and the router against their plain versions; the
+    reduced model's 3 fednl steps and its gradient at T = 600 on the card
+    against the CPU port. Returns the launches of the 3 steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import cross_entropy
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config("granite-moe-1b-a400m")
+    model = build_model(cfg, use_remat=True)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    n_leaves = len(tree_leaves(params))
+    pipe = TokenPipeline(vocab_size=cfg.vocab, seq_len=TRAIN_T,
+                         global_batch=TRAIN_B, seed=seed)
+    log: dict = {}
+    opt = _timed(make_optimizer("fednl", TRAIN_LR, k_per_block=CURVATURE_K),
+                 log)
+    kept: dict = {}
+    refresh = opt.refresh
+
+    def keep_inputs(state, obs):
+        """The refresh, keeping the last one's observations and H of
+        layers[0].ffn's expert wi and router for the kernels' checks."""
+        if kept.get("want"):
+            o, h = obs["layers"][0]["ffn"], state.h["layers"][0]["ffn"]
+            kept["inputs"] = {name: (o[name], h[name])
+                              for name in ("wi", "router")}
+        return refresh(state, obs)
+
+    opt = dataclasses.replace(opt, refresh=keep_inputs)
+    step = make_train_step(model, opt, microbatches=TRAIN_MB,
+                           refresh_every=TRAIN_REFRESH, n_silos=TRAIN_SILOS)
+    state = opt.init(params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    total = {name: 0 for name in counts(K)}
+    per_step = []
+    for i in range(TRAIN_STEPS):
+        batch = pipe.batch(i, device=dev)
+        h_before = [h.clone() for h in tree_leaves(state.h)] if i == 1 else None
+        kept["want"] = i == TRAIN_STEPS - 1
+        K.reset_launches()
+        ms, (params, state, m) = host_ms(lambda: step(params, state, batch))
+        got = counts(K)
+        for name, c in got.items():
+            total[name] += c
+        refreshed = m["curv_refreshed"] == 1.0
+        require(bool(torch.isfinite(m["loss"])), f"granite step {i}: loss "
+                f"{float(m['loss'])}")
+        require(all(bool(torch.isfinite(h).all()) for h in tree_leaves(state.h)),
+                f"granite step {i}: non-finite H")
+        require(refreshed == (i % TRAIN_REFRESH == 0),
+                f"granite step {i}: curv_refreshed {m['curv_refreshed']}")
+        require(got["diff_topk_payload"] == (n_leaves if refreshed else 0)
+                and (got["block_scatter_accumulate"] > 0) == refreshed,
+                f"granite step {i} (refresh {refreshed}) launched K1 "
+                f"{got['diff_topk_payload']} times for {n_leaves} tensors, "
+                f"K4 {got['block_scatter_accumulate']}")
+        require(got["flash_attention"] == 0,
+                f"granite step {i}: the train step launched K9")
+        if h_before is not None:
+            require(all(torch.equal(a, b) for a, b in
+                        zip(h_before, tree_leaves(state.h))),
+                    "granite: H changed on a step without a refresh")
+            del h_before
+        per_step.append({"ms": ms, "loss": float(m["loss"]),
+                         "refreshed": refreshed,
+                         "grad_norm": float(m["grad_norm"]),
+                         "k1": got["diff_topk_payload"],
+                         "k4": got["block_scatter_accumulate"]})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    experts_h = state.h["layers"][0]["ffn"]["wi"]
+    require(experts_h.dim() == 4 and bool((experts_h != 0).any()),
+            "granite: the expert leaves' curvature was not learned")
+    del state, m, opt, step, experts_h
+    torch.cuda.empty_cache()
+
+    # the loss holds the aux term: cross-entropy + router_aux_weight * aux
+    one = {key: val[:1] for key, val in pipe.batch(0, device=dev).items()}
+    with torch.no_grad():
+        logits, aux = model.forward(params, one)
+        ce = cross_entropy(logits, one["targets"])
+        loss = model.loss_fn(params, one)
+    want = ce + cfg.moe.router_aux_weight * aux
+    require(float(aux) > 0 and abs(float(loss) - float(want))
+            <= 1e-6 * abs(float(want)),
+            f"granite's loss {float(loss)} is not the cross-entropy "
+            f"{float(ce)} + {cfg.moe.router_aux_weight} x aux {float(aux)}")
+    del params, model, logits
+    torch.cuda.empty_cache()
+    require("inputs" in kept, "granite: the last step did not refresh")
+    kernels = refresh_checks(kept.pop("inputs"))
+
+    # the reduced model: the card against the CPU port, 3 fednl steps
+    steps_gap = reduced_steps_card_vs_cpu(
+        get_config("granite-moe-1b-a400m").reduced(**SMALL_TRAIN), dev, seed)
+
+    # the reduced model's gradient above 512 tokens: card against CPU
+    small = get_config("granite-moe-1b-a400m", smoke=True)
+    smodel = build_model(small, use_remat=True)
+    cpu_params = smodel.init_params(torch.Generator().manual_seed(seed))
+    tokens = torch.randint(0, small.vocab, (MOE_GRAD_B, MOE_GRAD_T),
+                           generator=torch.Generator().manual_seed(seed + 2))
+    sbatch = {"tokens": tokens, "targets": tokens.roll(-1, dims=1)}
+    grads = {}
+    for where in ("cpu", dev):
+        leaves = tree_map(lambda a: a.detach().to(where).requires_grad_(True),
+                          cpu_params)
+        K.reset_launches()
+        smodel.loss_fn(leaves, {key: x.to(where) for key, x in sbatch.items()}
+                       ).backward()
+        require(K.LAUNCHES["flash_attention"] == 0,
+                f"reduced granite under autograd launched K9 on {where}")
+        grads[str(where)] = [leaf.grad.cpu() for leaf in tree_leaves(leaves)]
+    worst = 0.0
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        scale = float(torch.max(torch.abs(want)))
+        gap = float(torch.max(torch.abs(got - want)))
+        require(scale > 0 and gap <= 1e-4 * scale,
+                f"reduced granite: card and CPU gradients differ by "
+                f"{gap:.3e} of max |grad| {scale:.3e} on a "
+                f"{tuple(want.shape)} leaf")
+        worst = max(worst, gap / scale)
+    rep = {"shape": f"B={TRAIN_B}, T={TRAIN_T}, {cfg.n_layers} layers, "
+                    f"{cfg.dtype}, {TRAIN_MB} microbatches, {TRAIN_SILOS} "
+                    f"silos, refresh every {TRAIN_REFRESH}, k={CURVATURE_K}",
+           "tensors": n_leaves, "steps": per_step,
+           "refresh_ms": log.get("refresh", []),
+           "precondition_ms": log.get("precondition", []),
+           "peak_memory_gb": peak_gb,
+           "loss_terms": {"cross_entropy": float(ce), "aux": float(aux),
+                          "loss": float(loss)},
+           "refresh_kernels_vs_plain": kernels,
+           "reduced_steps_card_vs_cpu_max_gap_over_leaf_max": steps_gap,
+           "reduced_grad": {"shape": f"B={MOE_GRAD_B}, T={MOE_GRAD_T}, f32",
+                            "max_gap_over_leaf_max_grad": worst},
            "phase_s": time.perf_counter() - t_phase, "card": card}
-    print(json.dumps({"train_qwen2": rep}), flush=True)
+    print(json.dumps({"train_granite": rep}), flush=True)
     return total
 
 
@@ -3371,6 +4109,12 @@ def main() -> int:
               f"K1 {paths['train_qwen2']['diff_topk_payload']}, K4 "
               f"{paths['train_qwen2']['block_scatter_accumulate']}",
               flush=True)
+        t0 = time.perf_counter()
+        paths["train_granite"] = train_granite(dev, args.seed, K, card)
+        print(f"# MoE train phase in {time.perf_counter() - t0:.1f} s; "
+              f"launches K1 {paths['train_granite']['diff_topk_payload']}, "
+              f"K4 {paths['train_granite']['block_scatter_accumulate']}",
+              flush=True)
         paths["topk_aggregate_d2048"], k3_pay = topk_aggregate_k3(dev, K, err)
         k2 = k2_measure(dev, prob, x0, k3_pay)
         pre = precond_qwen2(dev, args.seed, K, err)
@@ -3393,9 +4137,14 @@ def main() -> int:
         kernels = kernel_line(dev, prob, x0, paths, inputs, err)
         del pre, hu, inputs, k3_pay
 
-        # -- 9b, 9c, 9. starcoder2-3b, minicpm3-4b and qwen2-0.5B serving:
-        # every profile before every decode loop (a profiler session
-        # records few launches, or none, after a million of them)
+        # -- 9d-9g, 9b, 9c, 9. the MoE, encoder-decoder and VLM families,
+        # starcoder2-3b, minicpm3-4b and qwen2-0.5B serving: every profile
+        # before every decode loop (a profiler session records few
+        # launches, or none, after a million of them)
+        t0 = time.perf_counter()
+        nf = serve_new_families(dev, args.seed, K)
+        print(f"# MoE, encoder-decoder and VLM prefill phases in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         sc = serve_starcoder2(dev, args.seed, K)
         mc = serve_minicpm3(dev, args.seed, K)
         t0 = time.perf_counter()
@@ -3407,9 +4156,12 @@ def main() -> int:
                                              sc.pop("params")))
         mc["paths"].update(decode_minicpm3(dev, args.seed, K,
                                            mc.pop("params")))
-        # K9's entry: qwen2's paths and figures, then starcoder2's windowed
+        nf["paths"].update(decode_new_families(dev, args.seed, K,
+                                               nf.pop("params")))
+        # K9's entry: qwen2's paths and figures, then starcoder2's
+        # windowed ones, then the four new models' head counts
         k9 = sv["kernel"]
-        for path, n in {**sc["paths"], **mc["paths"]}.items():
+        for path, n in {**sc["paths"], **mc["paths"], **nf["paths"]}.items():
             paths[path] = n
             if n["flash_attention"]:
                 k9["launches_by_path"][path] = n["flash_attention"]
@@ -3419,6 +4171,7 @@ def main() -> int:
         k9["window_launches"] = sc["paths"]["prefill_starcoder2"][
             "flash_attention"]
         k9.update(sc["window"])
+        k9["new_shapes"] = nf["k9"]
         kernels.append(k9)
 
         # -- 10. the loss's gradient above 512 tokens -------------------------

@@ -7,7 +7,7 @@ model card) — the latent KV cache is the arch's distinguishing feature.
 
 from __future__ import annotations
 
-from . import MLAConfig, ModelConfig, dense_param_shapes
+from . import MLAConfig, ModelConfig, model_param_shapes
 
 CONFIG = ModelConfig(
     name="minicpm3-4b",
@@ -31,5 +31,5 @@ CONFIG = ModelConfig(
 
 def param_shapes(cfg: ModelConfig = CONFIG) -> dict:
     """The parameter tree of the reference's ``init_params`` for this
-    model, as ``ParamShape`` leaves (``dense_param_shapes``)."""
-    return dense_param_shapes(cfg)
+    model, as ``ParamShape`` leaves (``model_param_shapes``)."""
+    return model_param_shapes(cfg)

@@ -6,7 +6,7 @@ GQA + RoPE + sliding window 4096.
 
 from __future__ import annotations
 
-from . import ModelConfig, dense_param_shapes
+from . import ModelConfig, model_param_shapes
 
 CONFIG = ModelConfig(
     name="starcoder2-3b",
@@ -28,5 +28,5 @@ CONFIG = ModelConfig(
 
 def param_shapes(cfg: ModelConfig = CONFIG) -> dict:
     """The parameter tree of the reference's ``init_params`` for this
-    model, as ``ParamShape`` leaves (``dense_param_shapes``)."""
-    return dense_param_shapes(cfg)
+    model, as ``ParamShape`` leaves (``model_param_shapes``)."""
+    return model_param_shapes(cfg)

@@ -5,8 +5,9 @@ the counterpart of ``src/repro/launch/serve.py``.
       --batch 4 --prompt-len 64 --gen 32 --greedy
 
 runs the full model on the card (``--smoke`` for the reduced one,
-``--device cpu`` for the CPU). Weights, prompt and sampling all come
-from one ``torch.Generator`` seeded by ``--seed``.
+``--device cpu`` for the CPU). Weights, prompt, an encoder-decoder's
+memory and sampling all come from one ``torch.Generator`` seeded by
+``--seed``. A VLM serves text alone, as in the reference.
 """
 
 from __future__ import annotations
@@ -31,11 +32,15 @@ def _sync(dev: torch.device) -> None:
 def generate(arch: str, smoke: bool = True, batch: int = 4,
              prompt_len: int = 16, gen: int = 16, seed: int = 0,
              temperature: float = 1.0, greedy: bool = False, device=None,
-             params=None) -> torch.Tensor:
+             params=None, memory=None) -> torch.Tensor:
     """(batch, prompt_len + gen) token ids: a random prompt, then ``gen``
     greedy or temperature-sampled tokens. ``params`` replaces the drawn
-    weights (a test hands in the reference's; the KV cache takes their
-    type). Prints the host time of the prompt and of the decode loop."""
+    weights (a test hands in the reference's; the KV cache takes the
+    type of their embeddings, not of an MoE's f32 router). For an
+    encoder-decoder, the cache's encoder memory (batch, enc_seq, d) is
+    ``memory``, or else N(0, 1) * 0.02 drawn after the prompt, as in the
+    reference. Prints the host time of the prompt and of the decode
+    loop."""
     cfg = get_config(arch, smoke=smoke)
     if params is not None:
         dtype = str(params["embed"].dtype).removeprefix("torch.")
@@ -49,6 +54,10 @@ def generate(arch: str, smoke: bool = True, batch: int = 4,
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
                            device=dev)
     cache = model.init_cache(batch, prompt_len + gen, dev)
+    if cfg.family == "encdec":
+        cache["enc"] = (torch.randn(cache["enc"].shape, generator=g,
+                                    device=dev).to(cfg.tdtype) * 0.02
+                        if memory is None else memory.to(dev, cfg.tdtype))
 
     # the prompt goes in token by token through the serve path, as in the
     # reference (a fused prefill is the fast path)

@@ -6,10 +6,13 @@
   decode_32k     seq 32768,   global_batch 128   (serve step, 1 token)
   long_500k      seq 524288,  global_batch 1     (serve step, 1 token)
 
+For VLM the text length is seq_len - vision_tokens, so that the whole
+sequence has the assigned length; for audio (whisper) the encoder
+consumes the stubbed (B, enc_seq, d) frame embeddings and the decoder
+runs the assigned sequence.
+
 The stand-ins are tensors on the ``meta`` device, the port's
 counterpart of ``jax.ShapeDtypeStruct``: shape and dtype, no storage.
-The port runs the dense family, so batches hold tokens and targets only
-(the VLM and encoder-decoder inputs wait for ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -46,8 +49,16 @@ def sds(shape, dtype) -> torch.Tensor:
 def token_batch_specs(cfg: ModelConfig, shape: InputShape) -> dict:
     """Stand-ins of a train or prefill batch."""
     b, t = shape.global_batch, shape.seq_len
-    return {"tokens": sds((b, t), torch.int32),
-            "targets": sds((b, t), torch.int32)}
+    batch = {}
+    t_text = t
+    if cfg.family == "vlm":
+        t_text = t - cfg.vision_tokens
+        batch["patches"] = sds((b, cfg.vision_tokens, cfg.d_model), cfg.tdtype)
+    if cfg.family == "encdec":
+        batch["frames"] = sds((b, cfg.enc_seq, cfg.d_model), cfg.tdtype)
+    batch["tokens"] = sds((b, t_text), torch.int32)
+    batch["targets"] = sds((b, t_text), torch.int32)
+    return batch
 
 
 def decode_input_specs(cfg: ModelConfig, shape: InputShape, model) -> dict:

@@ -5,8 +5,11 @@ steps of ``make_train_step`` on the card (``--device cpu`` off it).
         --smoke --steps 50 --optimizer fednl
 
 ``--smoke`` (the default) trains the reduced config, ``--full`` the
-published one. The mesh is ``make_host_mesh()`` over the ranks of the
-process group (one when started alone), and each rank on its data axis
+published one. A VLM's batch gets patch embeddings and an
+encoder-decoder's frame embeddings (``add_modality_inputs``), and a
+VLM's text is ``--seq`` less the patches long. The mesh is
+``make_host_mesh()`` over the ranks of the process group (one when
+started alone), and each rank on its data axis
 plays one FedNL silo for the curvature observations: on one card,
 ``n_silos`` is 1. The sharding rules give every tensor's placement on
 that mesh; on one card each is replication, and laying tensors out over
@@ -19,6 +22,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from ..checkpoint import save as save_ckpt
@@ -43,6 +47,27 @@ def _require_replicated(mesh, specs) -> None:
             raise NotImplementedError(
                 "training over a mesh of more than one rank lays tensors out "
                 "across cards: ROADMAP item 10b, not ported yet")
+
+
+def add_modality_inputs(batch: dict, cfg, step: int) -> dict:
+    """``batch`` with the stubbed modality inputs of ``cfg``'s family,
+    N(0, 1) * 0.02 in the model's dtype on the tokens' device: a VLM's
+    ``patches`` (B, vision_tokens, d), an encoder-decoder's ``frames``
+    (B, enc_seq, d). Drawn from a generator seeded by ``step`` (the
+    reference folds the step into a JAX key; torch cannot reproduce
+    those draws)."""
+    modality = {"vlm": ("patches", cfg.vision_tokens),
+                "encdec": ("frames", cfg.enc_seq)}.get(cfg.family)
+    if modality is None:
+        return batch
+    key, length = modality
+    dev = batch["tokens"].device
+    seed = np.random.SeedSequence([1234, int(step)]).generate_state(
+        1, np.uint64)[0]
+    gen = torch.Generator(device=dev).manual_seed(int(seed) >> 1)
+    x = torch.randn((batch["tokens"].shape[0], length, cfg.d_model),
+                    generator=gen, device=dev)
+    return {**batch, key: x.to(cfg.tdtype) * 0.02}
 
 
 def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
@@ -88,14 +113,15 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
               f"({n_silos} silo(s), refresh_every={refresh_every})",
               flush=True)
 
-    pipe = TokenPipeline(vocab_size=cfg.vocab, seq_len=seq,
+    t_text = seq - (cfg.vision_tokens if cfg.family == "vlm" else 0)
+    pipe = TokenPipeline(vocab_size=cfg.vocab, seq_len=t_text,
                          global_batch=batch, seed=seed)
     history = []
     refreshes = 0
     t0 = time.time()
     for i in range(steps):
-        params, opt_state, metrics = step_fn(params, opt_state,
-                                             pipe.batch(i, device=dev))
+        b = add_modality_inputs(pipe.batch(i, device=dev), cfg, i)
+        params, opt_state, metrics = step_fn(params, opt_state, b)
         history.append(float(metrics["loss"]))
         refreshes += int(metrics["curv_refreshed"])
         if i % log_every == 0 or i == steps - 1:

@@ -1,8 +1,9 @@
 """Attention: GQA (RoPE, QKV bias, sliding window) and MLA (MiniCPM3's
 multi-head latent attention with decoupled RoPE), with the prefill
-forward and single-token decode against a KV cache, the counterparts of
-``src/repro/models/attention.py``. Cross-attention waits for ROADMAP
-Queue A item 12.
+forward and single-token decode against a KV cache, and the
+encoder-decoder's two full (non-causal) attentions, whisper's encoder
+self-attention and the decoder's cross-attention over the encoder's
+memory, the counterparts of ``src/repro/models/attention.py``.
 
 Cache layouts:
   GQA: {"k": (B, S, KV, hd), "v": (B, S, KV, hd)}
@@ -154,6 +155,38 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, pos: int,
     out = _sdpa(q, cache["k"], cache["v"], mask, cfg.n_heads // cfg.kv_heads)
     y = out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"]
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Full attention (whisper): no RoPE, every key attended, through the plain
+# ``_sdpa`` at any length, as the reference (K9 is causal only)
+# ---------------------------------------------------------------------------
+
+
+def encoder_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder's self-attention (``transformer.py``'s non-causal
+    branch of the reference): every frame attends to every frame."""
+    require_ported(cfg)
+    b, t, _ = x.shape
+    q, k, v = _qkv(p, x, cfg)
+    mask = torch.ones((t, t), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask, cfg.n_heads // cfg.kv_heads)
+    return out.reshape(b, t, -1) @ p["wo"]
+
+
+def cross_forward(p: dict, x: torch.Tensor, memory: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Full attention of x (B, T, d) over the encoder's memory (B, S, d)."""
+    require_ported(cfg)
+    b, t, _ = x.shape
+    s = memory.shape[1]
+    h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(b, t, h, hd)
+    k = (memory @ p["wk"]).reshape(b, s, kv, hd)
+    v = (memory @ p["wv"]).reshape(b, s, kv, hd)
+    mask = torch.ones((t, s), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask, h // kv)
+    return out.reshape(b, t, h * hd) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

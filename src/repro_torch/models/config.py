@@ -1,8 +1,12 @@
 """Architecture configuration: the port's copy of the reference's
-``ModelConfig`` and ``MLAConfig`` (``src/repro/models/config.py``), with
-the fields of the dense decoder family: GQA with an optional sliding
-window, or MLA. The other families (MoE, Mamba, xLSTM, encoder-decoder,
-VLM) and their fields wait for ROADMAP Queue A item 12.
+``ModelConfig``, ``MLAConfig`` and ``MoEConfig``
+(``src/repro/models/config.py``), with the fields of the families the
+port runs: dense (GQA with an optional sliding window, or MLA), moe
+(an MoE feed-forward in every layer), encdec (whisper: an encoder stack
+over stubbed frame embeddings and a decoder with cross-attention) and
+vlm (llava: patch embeddings before the tokens). The hybrid and ssm
+families (Mamba, xLSTM) and their fields wait for ROADMAP Queue A item
+12e.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ from typing import Optional
 
 import torch
 
-NOT_PORTED = "not ported yet (ROADMAP Queue A item 12)"
+NOT_PORTED = "not ported yet (ROADMAP Queue A item 12e)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,9 +29,21 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    group_size: int = 512          # routing group for the dispatch
+    router_aux_weight: float = 0.01
+
+
+PORTED_FAMILIES = ("dense", "moe", "encdec", "vlm")
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported)
+    family: str                    # dense | moe | encdec | vlm (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -44,6 +60,14 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     # mlp
     mlp_type: str = "swiglu"       # swiglu | gelu
+    # moe
+    moe: Optional[MoEConfig] = None
+    moe_every: int = 1             # MoE layer period (jamba: 2)
+    # enc-dec (whisper)
+    enc_layers: int = 0
+    enc_seq: int = 1500            # audio frames after the conv stub
+    # vlm (llava)
+    vision_tokens: int = 0         # prepended patch embeddings
     # norm & misc
     norm: str = "rmsnorm"          # rmsnorm | layernorm
     tie_embeddings: bool = False
@@ -62,15 +86,20 @@ class ModelConfig:
     @property
     def supports_long_decode(self) -> bool:
         """True if a 524k-token decode state is sub-quadratic or windowed
-        (the dense family: only with a sliding window)."""
+        (of the ported families: only with a sliding window)."""
         return self.sliding_window is not None
 
     def reduced(self, n_layers: int = 2, d_model: int = 256, d_ff: int = 512,
-                vocab: int = 512) -> "ModelConfig":
+                vocab: int = 512, experts: int = 4) -> "ModelConfig":
         """Smoke-test variant of the same family, as the reference's."""
         heads = max(2, min(4, self.n_heads))
         kv = max(1, min(heads, self.kv_heads if self.kv_heads < self.n_heads
                         else heads))
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe, num_experts=min(experts, self.moe.num_experts),
+                top_k=min(2, self.moe.top_k), group_size=64)
         mla = None
         if self.mla is not None:
             mla = MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_dim=32,
@@ -85,7 +114,11 @@ class ModelConfig:
             d_ff=d_ff,
             vocab=vocab,
             head_dim=d_model // heads,
+            moe=moe,
             mla=mla,
+            enc_layers=min(2, self.enc_layers) if self.enc_layers else 0,
+            enc_seq=32 if self.enc_layers else self.enc_seq,
+            vision_tokens=16 if self.vision_tokens else 0,
             sliding_window=16 if self.sliding_window else None,
             dtype="float32",
         )
@@ -93,7 +126,7 @@ class ModelConfig:
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for a configuration the port cannot run yet."""
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r}: {NOT_PORTED}")
     if cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(f"{cfg.attn_type} attention: {NOT_PORTED}")

@@ -1,22 +1,29 @@
-"""Model assembly for the dense decoder family: init, the prefill forward
-and loss, and single-token decode against a KV cache, the counterparts of
-``src/repro/models/transformer.py``.
+"""Model assembly: init, the prefill forward and loss, and single-token
+decode against a KV cache, the counterparts of
+``src/repro/models/transformer.py`` for the families the port runs:
+
+  dense | moe : uniform decoder blocks (GQA or MLA; an MLP, or an MoE
+                feed-forward in every layer)
+  encdec      : whisper, an encoder stack over (stubbed) frame embeddings
+                and a decoder whose layers add cross-attention over the
+                encoder's output, sinusoidal positions on both
+  vlm         : llava, the dense decoder over [patch embeddings ; tokens],
+                the loss on the text positions only
 
 Parameters are the reference's tree of plain tensors: the layers are
-stacked on a leading axis in ``layers[0]`` (the dense family's period is
-one layer), and the layer loop is a Python loop over that axis, where
-the reference scans. With ``use_remat`` (the default, as the
-reference's) each layer runs under ``torch.utils.checkpoint`` while
-autograd records, so the backward keeps one (B, T, d) input per layer
-and recomputes the rest; a call without a gradient runs the layers
-directly. A layer's mixer is GQA or MLA by ``cfg.attn_type``
-(``MIXERS``). The other families (moe, hybrid, ssm, encdec, vlm) wait
-for ROADMAP Queue A item 12.
+stacked on a leading axis in ``layers[0]`` (the period of these families
+is one layer), the encoder's in ``enc_layers``, and the layer loop is a
+Python loop over that axis, where the reference scans. With
+``use_remat`` (the default, as the reference's) each layer runs under
+``torch.utils.checkpoint`` while autograd records, so the backward keeps
+one (B, T, d) input per layer and recomputes the rest; a call without a
+gradient runs the layers directly. The hybrid and ssm families wait for
+ROADMAP Queue A item 12e.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -38,40 +45,125 @@ class Mixer(NamedTuple):
     init_cache: Callable
 
 
-MIXERS = {"gqa": Mixer(attn.gqa_init, attn.gqa_forward, attn.gqa_decode,
-                       attn.gqa_init_cache),
+MIXERS = {"attn": Mixer(attn.gqa_init, attn.gqa_forward, attn.gqa_decode,
+                        attn.gqa_init_cache),
           "mla": Mixer(attn.mla_init, attn.mla_forward, attn.mla_decode,
                        attn.mla_init_cache)}
 
 
-def _layer_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def layer_kind(cfg: ModelConfig) -> tuple[str, str]:
+    """The (mixer, ffn) kind of every decoder layer: the dense, moe,
+    encdec and vlm families repeat one kind (the reference's program has
+    period 1 for them), which is what one stack of layers holds."""
+    mixer = "mla" if cfg.attn_type == "mla" else "attn"
+    ffn = "moe" if cfg.moe is not None else "mlp"
+    return mixer, ffn
+
+
+# ---------------------------------------------------------------------------
+# Single-layer init / forward / decode
+# ---------------------------------------------------------------------------
+
+
+def _layer_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str,
+                cross: bool) -> Params:
     dt, dev = cfg.tdtype, gen.device
-    return {"norm1": norm_params(cfg.d_model, cfg.norm, dt, dev),
-            "mixer": MIXERS[cfg.attn_type].init(gen, cfg),
-            "norm2": norm_params(cfg.d_model, cfg.norm, dt, dev),
-            "ffn": ff.mlp_init(gen, cfg)}
+    p = {"norm1": norm_params(cfg.d_model, cfg.norm, dt, dev),
+         "mixer": MIXERS[mixer].init(gen, cfg),
+         "norm2": norm_params(cfg.d_model, cfg.norm, dt, dev),
+         "ffn": ff.moe_init(gen, cfg) if ffn == "moe" else ff.mlp_init(gen, cfg)}
+    if cross:
+        p["norm_x"] = norm_params(cfg.d_model, cfg.norm, dt, dev)
+        p["cross"] = attn.gqa_init(gen, cfg)
+    return p
 
 
-def _layer_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, ffn: str):
+    """The block's feed-forward half: x + FFN(norm2(x)), and the MoE's
+    aux loss (0 for an MLP)."""
+    h = apply_norm(x, p["norm2"], cfg.norm)
+    if ffn == "moe":
+        y, aux = ff.moe_forward(p["ffn"], h, cfg)
+        return x + y, aux
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + ff.mlp_forward(p["ffn"], h, cfg), zero
+
+
+def _cross(p: Params, x: torch.Tensor, memory, cfg: ModelConfig):
+    if memory is None:
+        return x
+    hx = apply_norm(x, p["norm_x"], cfg.norm)
+    return x + attn.cross_forward(p["cross"], hx, memory, cfg)
+
+
+def _layer_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, mixer: str,
+                   ffn: str, memory: Optional[torch.Tensor] = None,
+                   causal: bool = True):
+    """Self-attention, then cross-attention over ``memory`` (encdec), then
+    the feed-forward. Returns (x, aux)."""
     h = apply_norm(x, p["norm1"], cfg.norm)
-    y, _ = MIXERS[cfg.attn_type].forward(p["mixer"], h, cfg)
-    x = x + y
-    h2 = apply_norm(x, p["norm2"], cfg.norm)
-    return x + ff.mlp_forward(p["ffn"], h2, cfg)
+    if causal:
+        y, _ = MIXERS[mixer].forward(p["mixer"], h, cfg)
+    else:  # the encoder's self-attention
+        y = attn.encoder_forward(p["mixer"], h, cfg)
+    return _ffn(p, _cross(p, x + y, memory, cfg), cfg, ffn)
 
 
 def _layer_decode(p: Params, x: torch.Tensor, cache: dict, pos: int,
-                  cfg: ModelConfig):
+                  cfg: ModelConfig, mixer: str, ffn: str,
+                  memory: Optional[torch.Tensor] = None):
     h = apply_norm(x, p["norm1"], cfg.norm)
-    y, cache = MIXERS[cfg.attn_type].decode(p["mixer"], h, cache, pos, cfg)
-    x = x + y
-    h2 = apply_norm(x, p["norm2"], cfg.norm)
-    return x + ff.mlp_forward(p["ffn"], h2, cfg), cache
+    y, cache = MIXERS[mixer].decode(p["mixer"], h, cache, pos, cfg)
+    x, _ = _ffn(p, _cross(p, x + y, memory, cfg), cfg, ffn)
+    return x, cache
 
 
 def _layer(tree, i: int):
     """Layer ``i`` of a tree stacked on its leading axis (views, no copy)."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _stacked(make: Callable[[], Params], n: int) -> Params:
+    """``n`` layers drawn one after another by ``make``, each written into
+    preallocated leaves stacked on a leading axis: the peak is the stack
+    and one layer, not two stacks."""
+    layer = make()
+    out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), layer)
+    for i in range(n):
+        tree_map(lambda o, a: o[i].copy_(a), out, layer)
+        del layer
+        if i + 1 < n:
+            layer = make()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Sinusoidal positions (whisper: any length, no table), in f32
+# ---------------------------------------------------------------------------
+
+
+def _inv_timescales(d: int, device) -> torch.Tensor:
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)
+    return 10000.0 ** (2 * dim / d)
+
+
+def sinusoid(t: int, d: int, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """(t, d): sin then cos of pos / 10000^(2i/d), i < d/2."""
+    pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
+    ang = pos / _inv_timescales(d, device)[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def sinusoid_at(pos: int, d: int, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """(d,): row ``pos`` of ``sinusoid``."""
+    pos = torch.tensor(float(pos), dtype=torch.float32, device=device)
+    ang = pos / _inv_timescales(d, device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
 
 
 class Model:
@@ -81,12 +173,15 @@ class Model:
         require_ported(cfg)
         self.cfg = cfg
         self.use_remat = use_remat
+        self.kind = layer_kind(cfg)
+        self.cross = cfg.family == "encdec"
 
     # -- init ------------------------------------------------------------------
 
     def init_params(self, generator: torch.Generator) -> Params:
         """The reference's tree, drawn from ``generator`` with the
-        reference's init laws, on the generator's device."""
+        reference's init laws, on the generator's device: the embeddings,
+        then the decoder's layers one by one, then the encoder's."""
         cfg, gen = self.cfg, generator
         params: Params = {
             "embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.tdtype),
@@ -95,11 +190,54 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = embed_init(gen, cfg.vocab, cfg.d_model,
                                            cfg.tdtype)
-        layers = [_layer_init(gen, cfg) for _ in range(cfg.n_layers)]
-        params["layers"] = [tree_map(lambda *xs: torch.stack(xs), *layers)]
+        mixer, ffn = self.kind
+        params["layers"] = [_stacked(
+            lambda: _layer_init(gen, cfg, mixer, ffn, self.cross),
+            cfg.n_layers)]
+        if self.cross:
+            params["enc_layers"] = _stacked(
+                lambda: _layer_init(gen, cfg, "attn", "mlp", False),
+                cfg.enc_layers)
+            params["enc_norm_f"] = norm_params(cfg.d_model, cfg.norm,
+                                               cfg.tdtype, gen.device)
         return params
 
     # -- forward -----------------------------------------------------------------
+
+    def _run(self, params: Params, stack: Params, n: int, x: torch.Tensor,
+             kind: tuple, memory=None, causal: bool = True):
+        """``n`` stacked layers of ``kind`` over x; returns (x, the sum of
+        their aux losses)."""
+        remat = (self.use_remat and torch.is_grad_enabled()
+                 and any(t.requires_grad for t in tree_leaves(params)))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n):
+            args = (_layer(stack, i), x, self.cfg, *kind, memory, causal)
+            if remat:
+                x, a = checkpoint(_layer_forward, *args, use_reentrant=False)
+            else:
+                x, a = _layer_forward(*args)
+            aux = aux + a
+        return x, aux
+
+    def _embed_inputs(self, params: Params, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        x = params["embed"][batch["tokens"]]
+        if cfg.family == "vlm":
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        if self.cross:
+            x = x + sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)
+        return x
+
+    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder stack over frame embeddings (B, S, d), then its
+        final norm: the decoder's memory."""
+        cfg = self.cfg
+        x = frames.to(cfg.tdtype) + sinusoid(frames.shape[1], cfg.d_model,
+                                             cfg.tdtype, frames.device)
+        x, _ = self._run(params, params["enc_layers"], cfg.enc_layers, x,
+                         ("attn", "mlp"), causal=False)
+        return apply_norm(x, params["enc_norm_f"], cfg.norm)
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -108,44 +246,61 @@ class Model:
         return torch.einsum("btd,vd->btv", x, head)
 
     def forward(self, params: Params, batch: dict):
-        """Logits (B, T, V) of ``batch["tokens"]`` and the auxiliary loss
-        (0 for the dense family), as the reference returns them."""
-        x = params["embed"][batch["tokens"]]
-        remat = (self.use_remat and torch.is_grad_enabled()
-                 and any(t.requires_grad for t in tree_leaves(params)))
-        for i in range(self.cfg.n_layers):
-            p = _layer(params["layers"][0], i)
-            if remat:
-                x = checkpoint(_layer_forward, p, x, self.cfg,
-                               use_reentrant=False)
-            else:
-                x = _layer_forward(p, x, self.cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        """Logits (B, T, V) of the batch (``tokens``; ``patches`` before
+        them for vlm, ``frames`` for the encoder of encdec) and the sum of
+        the layers' aux losses (0 without MoE), as the reference returns
+        them."""
+        memory = (self._encode(params, batch["frames"]) if self.cross
+                  else None)
+        x = self._embed_inputs(params, batch)
+        x, aux = self._run(params, params["layers"][0], self.cfg.n_layers, x,
+                           self.kind, memory)
         return self._logits(params, x), aux
 
     def loss_fn(self, params: Params, batch: dict) -> torch.Tensor:
-        logits, _ = self.forward(params, batch)
-        return cross_entropy(logits, batch["targets"])
+        """Cross-entropy (vlm: on the text positions only), plus
+        ``router_aux_weight`` times the aux loss with MoE."""
+        cfg = self.cfg
+        logits, aux = self.forward(params, batch)
+        if cfg.family == "vlm":
+            logits = logits[:, cfg.vision_tokens:]
+        loss = cross_entropy(logits, batch["targets"])
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.router_aux_weight * aux
+        return loss
 
     # -- serving -----------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int, device=None) -> dict:
         """Per-layer KV caches (latent caches for MLA) stacked over the
-        layers, as the reference's."""
+        layers, as the reference's, and for encdec the encoder's memory
+        ``enc`` (B, enc_seq, d), zeros until the caller fills it."""
+        cfg = self.cfg
         dev = resolve_device(device)
-        c = MIXERS[self.cfg.attn_type].init_cache(self.cfg, batch, max_len, dev)
-        return {"blocks": [tree_map(
-            lambda a: a.expand((self.cfg.n_layers,) + a.shape).contiguous(), c)]}
+        c = MIXERS[self.kind[0]].init_cache(cfg, batch, max_len, dev)
+        cache = {"blocks": [tree_map(
+            lambda a: a.expand((cfg.n_layers,) + a.shape).contiguous(), c)]}
+        if self.cross:
+            cache["enc"] = torch.zeros((batch, cfg.enc_seq, cfg.d_model),
+                                       dtype=cfg.tdtype, device=dev)
+        return cache
 
     def decode_step(self, params: Params, cache: dict, token: torch.Tensor,
                     pos: int):
         """token: (B, 1) int; pos: absolute position. Returns (logits
-        (B, 1, V), cache), the cache updated in place."""
+        (B, 1, V), cache), the cache updated in place. MoE routes the B
+        tokens of the step as one group; the aux loss is dropped, as in
+        the reference."""
+        cfg = self.cfg
         x = params["embed"][token]
+        memory = cache["enc"] if self.cross else None
+        if self.cross:
+            x = x + sinusoid_at(pos, cfg.d_model, x.dtype, x.device)
         blocks = cache["blocks"][0]
-        for i in range(self.cfg.n_layers):
+        for i in range(cfg.n_layers):
             x, _ = _layer_decode(_layer(params["layers"][0], i), x,
-                                 _layer(blocks, i), int(pos), self.cfg)
+                                 _layer(blocks, i), int(pos), cfg,
+                                 *self.kind, memory)
         return self._logits(params, x), cache
 
 

@@ -80,10 +80,39 @@ def tokens(seed: int, b: int, t: int, vocab: int) -> np.ndarray:
         np.int32)
 
 
-def jax_decode(jmodel, jparams, toks: np.ndarray, max_len: int) -> list:
-    """Logits (B, V) of the reference's serve step, token by token."""
+def modality_inputs(cfg, b: int, seed: int) -> dict:
+    """The stubbed modality inputs of ``cfg``'s family as f32 numpy
+    arrays, N(0, 1) * 0.02 from ``seed``: a VLM's ``patches``, an
+    encoder-decoder's ``frames``; none for the other families."""
+    rng = np.random.default_rng(seed)
+    shapes = {"vlm": ("patches", cfg.vision_tokens),
+              "encdec": ("frames", cfg.enc_seq)}
+    if cfg.family not in shapes:
+        return {}
+    name, n = shapes[cfg.family]
+    return {name: (0.02 * rng.standard_normal((b, n, cfg.d_model))).astype(
+        np.float32)}
+
+
+def batches(toks: np.ndarray, targets: np.ndarray, extra: dict) -> tuple:
+    """(reference batch, port batch) of the same tokens, targets and
+    modality inputs."""
+    jb = {"tokens": jnp.asarray(toks), "targets": jnp.asarray(targets),
+          **{k: jnp.asarray(v) for k, v in extra.items()}}
+    pb = {"tokens": torch.from_numpy(toks).long(),
+          "targets": torch.from_numpy(targets).long(),
+          **{k: torch.from_numpy(v) for k, v in extra.items()}}
+    return jb, pb
+
+
+def jax_decode(jmodel, jparams, toks: np.ndarray, max_len: int,
+               enc=None) -> list:
+    """Logits (B, V) of the reference's serve step, token by token;
+    ``enc`` (numpy) is an encoder-decoder's memory in the cache."""
     serve = jax.jit(jax_make_serve_step(jmodel))
     cache = jmodel.init_cache(toks.shape[0], max_len)
+    if enc is not None:
+        cache["enc"] = jnp.asarray(enc).astype(cache["enc"].dtype)
     out = []
     for pos in range(toks.shape[1]):
         lg, cache = serve(jparams, cache, jnp.asarray(toks[:, pos:pos + 1]),
@@ -99,17 +128,16 @@ def grad_leaves(params) -> dict:
 
 
 def check_grads_against_reference(jmodel, jparams, model, params,
-                                  toks: np.ndarray) -> int:
+                                  toks: np.ndarray, extra=None) -> int:
     """``loss_fn(...).backward()`` of the port against ``jax.grad`` of the
-    reference's on the same tokens (targets the tokens reversed): each
-    leaf within 1e-4 of its largest |grad| (f32; the two frameworks sum
-    in other orders). Returns the number of leaves checked."""
-    targets = toks[:, ::-1].copy()
-    jgrads = jax.grad(jmodel.loss_fn)(jparams, {
-        "tokens": jnp.asarray(toks), "targets": jnp.asarray(targets)})
+    reference's on the same tokens (targets the tokens reversed) and
+    modality inputs ``extra``: each leaf within 1e-4 of its largest
+    |grad| (f32; the two frameworks sum in other orders). Returns the
+    number of leaves checked."""
+    jb, pb = batches(toks, toks[:, ::-1].copy(), extra or {})
+    jgrads = jax.grad(jmodel.loss_fn)(jparams, jb)
     leaves = grad_leaves(params)
-    loss = model.loss_fn(leaves, {"tokens": torch.from_numpy(toks).long(),
-                                  "targets": torch.from_numpy(targets).long()})
+    loss = model.loss_fn(leaves, pb)
     loss.backward()
     checked = []
 

@@ -590,3 +590,101 @@ def test_flash_attention_counts_launches_and_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="one CUDA device"):
         flash_attention(q, k.cpu(), v)
     assert LAUNCHES["flash_attention"] == 1
+
+
+# -- the MoE, encoder-decoder and VLM families --------------------------------------
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 700, 6, 6, 64),       # whisper-tiny: no GQA at all (n_rep 1)
+    (1, 700, 16, 8, 64),      # granite-moe-1b-a400m: n_rep 2
+    (1, 700, 48, 8, 128),     # grok-1-314b: n_rep 6
+    (1, 700, 56, 8, 128),     # llava-next-34b: n_rep 7
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_the_new_gqa_shapes(cuda, dtype, shape):
+    """K9 at the head counts of the four models (ragged T): f32 to 1e-5
+    of ``flash_attention_ref`` head by head, bf16 to the f32 oracle
+    within ``bf16_attention_check``'s limits; one launch by the route."""
+    q, k, v = (x.to(cuda, dtype) for x in _attention_inputs(*shape, seed=21))
+    reset_launches()
+    got = flash_attention(q, k, v)
+    route = "ffma" if dtype == torch.float32 else "wgmma"
+    assert ROUTES["flash_attention"][route] == 1 == LAUNCHES["flash_attention"]
+    if dtype == torch.float32:
+        n_rep = shape[2] // shape[3]
+        for h in range(shape[2]):
+            want = flash_attention_ref(q[:, :, h], k[:, :, h // n_rep],
+                                       v[:, :, h // n_rep])
+            assert float((got[:, :, h] - want).abs().max()) <= 1e-5, h
+    else:
+        _assert_bf16_close(got, q, k, v)
+
+
+@pytest.mark.parametrize("width", ["reduced", "granite"])
+def test_moe_routing_on_card_matches_cpu(cuda, width):
+    """``_route`` on the card against the CPU on the same f32 logits
+    (dispatch exact, combine and aux to 1e-6), and ``moe_forward`` of
+    reduced granite in f32 to 1e-5 of the largest output."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mlp
+
+    cfg = get_config("granite-moe-1b-a400m", smoke=width == "reduced")
+    gen = torch.Generator().manual_seed(5)
+    g, e = cfg.moe.group_size, cfg.moe.num_experts
+    logits = torch.randn((6, g, e), generator=gen)
+    d, c, a = mlp._route(logits, cfg)
+    dc, cc, ac = (x.cpu() for x in mlp._route(logits.to(cuda), cfg))
+    assert torch.equal(dc, d)
+    assert float((cc - c).abs().max()) <= 1e-6
+    assert float((ac - a).abs().max()) <= 1e-6
+    if width != "reduced":
+        return
+    p = mlp.moe_init(torch.Generator().manual_seed(6), cfg)
+    x = torch.randn((3, 50, cfg.d_model), generator=gen)
+    y, aux = mlp.moe_forward(p, x, cfg)
+    yc, auxc = mlp.moe_forward(_to(p, cuda), x.to(cuda), cfg)
+    assert float((yc.cpu() - y).abs().max()) <= 1e-5 * float(y.abs().max())
+    assert abs(float(auxc) - float(aux)) <= 1e-6
+
+
+def _to(tree, dev):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda a: a.to(dev), tree)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "grok-1-314b",
+                                  "whisper-tiny", "llava-next-34b"])
+def test_new_family_prefill_runs_k9_and_matches_cpu(cuda, arch):
+    """Each reduced model's prefill at T = 640 (llava: 16 patches and 624
+    tokens; whisper: 32 frames) in f32 launches K9's FFMA kernel once per
+    decoder layer and equals the CPU port to 1e-4 of the largest logit;
+    in bf16 (whisper and llava, whose routes do not depend on rounding)
+    the wgmma kernel, within 8 bf16 steps of the CPU's logits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.launch.train import add_modality_inputs
+    from repro_torch.models import build_model
+
+    dtypes = (["float32"] if get_config(arch).moe is not None
+              else ["float32", "bfloat16"])
+    for dtype in dtypes:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+        model = build_model(cfg)
+        params = model.init_params(torch.Generator().manual_seed(0))
+        t = 640 - cfg.vision_tokens
+        batch = add_modality_inputs({"tokens": torch.randint(
+            0, cfg.vocab, (1, t), generator=torch.Generator().manual_seed(1))},
+            cfg, 0)
+        cpu = make_prefill(model)(params, batch)
+        reset_launches()
+        got = make_prefill(model)(_to(params, cuda), _to(batch, cuda))
+        route = "ffma" if dtype == "float32" else "wgmma"
+        assert ROUTES["flash_attention"][route] == cfg.n_layers
+        assert LAUNCHES["flash_attention"] == cfg.n_layers
+        gap = float((got.float().cpu() - cpu.float()).abs().max())
+        scale = float(cpu.float().abs().max())
+        assert gap <= (1e-4 if dtype == "float32" else 8 * 2.0 ** -7) * scale

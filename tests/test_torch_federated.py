@@ -320,10 +320,10 @@ MESHES = {"1x1": ((1, 1), ("data", "model")),
 
 
 @functools.lru_cache(maxsize=None)
-def qwen_paths() -> list:
-    """(path, shape) of every qwen2-0.5B parameter, from the reference's
+def arch_paths(arch: str) -> list:
+    """(path, shape) of every parameter of ``arch``, from the reference's
     ``eval_shape`` of its init."""
-    cfg = jax_get_config(QWEN)
+    cfg = jax_get_config(arch)
     shapes = jax.eval_shape(jax_build_model(cfg).init_params,
                             jax.random.PRNGKey(0))
     out = []
@@ -348,7 +348,7 @@ def test_param_spec_matches_reference(mesh):
     stand_in = _StandIn(shape, names)
     ext = dict(zip(names, shape))
     cfg = jax_get_config(QWEN)
-    paths = qwen_paths()
+    paths = arch_paths(QWEN)
     assert len(paths) == 14
     for path, pshape in paths:
         want = tuple(jax_sharding.param_spec(path, pshape, stand_in, cfg))
@@ -359,6 +359,30 @@ def test_param_spec_matches_reference(mesh):
                           ((3,), ("data",))]:
         want = tuple(jax_sharding._spec(stand_in, pshape, wants))
         assert sharding._spec(ext, pshape, wants) == want
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "grok-1-314b"])
+def test_param_spec_matches_reference_on_moe_trees(arch, mesh):
+    """Every leaf of the MoE trees at full size, the 4-D expert weights
+    (layers, E, d, ff) and the f32 router included: experts over "model"
+    where they divide it (granite's 32 and grok-1's 8 on a model axis of
+    2; on 16, granite's alone), else the expert ffn dim."""
+    shape, names = MESHES[mesh]
+    stand_in = _StandIn(shape, names)
+    ext = dict(zip(names, shape))
+    cfg = jax_get_config(arch)
+    paths = arch_paths(arch)
+    assert len(paths) == 12
+    for path, pshape in paths:
+        want = tuple(jax_sharding.param_spec(path, pshape, stand_in, cfg))
+        assert sharding.param_spec(path, pshape, ext) == want, path
+    wi = dict(paths)["params/layers/0/ffn/wi"]
+    got = sharding.param_spec("params/layers/0/ffn/wi", wi, ext)
+    if ext["model"] > 1:
+        experts_split = cfg.moe.num_experts % ext["model"] == 0
+        assert (got[1] == "model") == experts_split
+        assert (got[3] == "model") == (not experts_split)
 
 
 # the wants that the reference's make_activation_sharder spells out

@@ -102,11 +102,11 @@ def test_config_matches_reference():
 
 def test_unported_configs_raise():
     with pytest.raises(KeyError, match="item 12"):
-        get_config("granite-moe-1b-a400m")
+        get_config("jamba-1.5-large-398b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
     cfg = get_config("qwen2-0.5b", smoke=True)
-    for change in (dict(family="moe"),):
+    for change in (dict(family="hybrid"),):
         with pytest.raises(NotImplementedError, match="item 12"):
             require_ported(dataclasses.replace(cfg, **change))
         with pytest.raises(NotImplementedError, match="item 12"):
