@@ -161,6 +161,33 @@ Phases, each failing the run with a non-zero exit:
      for reduced granite with capacity_factor = E / top_k (nothing
      dropped; f32, T=640, FFMA) and for whisper with the encoder's memory
      in its cache (bf16, T=640, wgmma);
+  9h. (profiled after 9g, decode after phase 9's) jamba-1.5-large-398b,
+     one 8-layer period of 72 at full width (bf16, random weights from
+     --seed; 7 Mamba layers and an attention layer, MoE on the odd
+     positions; the four MoE layers read one drawn set of experts, 32.3
+     GB stored where a whole period holds 90.2), the tree's shapes held
+     to ``param_shapes`` of the 8-layer config: K9 at n_rep 8 (64/8
+     heads, hd 128, no RoPE) against its plain version on every head at
+     T=4,000 and on heads 0 and 63 of the attention layer's prefill
+     inputs; layer 0's Mamba mixer in bf16 against f32; ``make_prefill``
+     at B=1, T=4,096 through one wgmma launch of K9, its ms, peak memory,
+     idle share and device time by kernel group, the CUDA-event spans of
+     the Mamba scan, the MoE routing and K9 within one prefill, and a
+     period's parts (Mamba mixer and scan, attention, MLP, MoE) by CUDA
+     events; after phase 9, ``generate`` at batch 1 against the
+     teacher-forced serve step;
+  9i. (profiled after phase 9, the rest after every decode loop)
+     xlstm-350m whole (241.6 M parameters, no feed-forward): the mLSTM
+     (layer 0) and sLSTM (layer 7) mixers in bf16 against f32 at
+     T=4,096; ``make_prefill`` at B=1, T=4,096, profiled, then at
+     T=32,768 by the host clock and CUDA events (about 2 M launches, the
+     sLSTM a step at a time); ``generate`` at batch 4 against the
+     teacher-forced serve step; no K9 launch on any of its paths. For both, the
+     reduced model in f32: the card against the CPU port over a T=640
+     prefill and 20 decode steps (1e-4 of the largest logit), decode ==
+     forward at T=640 (jamba with capacity_factor = E / top_k: nothing
+     dropped; its attention layer through K9's FFMA route), greedy
+     ``generate`` against the teacher-forced serve step;
   10. the loss's gradient above 512 tokens (the forward's
      ``_sdpa_chunked`` branch under autograd): reduced qwen2 in f32 at
      B=2, T=600, card against the CPU port on the same weights (1e-4 of
@@ -322,16 +349,22 @@ def profiler_miss(note: str) -> None:
     print(f"# profiler miss: {note}", flush=True)
 
 
-def profiled(fn, reps: int = 1) -> tuple[float, list]:
+def profiled(fn, reps: int = 1, cuda_only: bool = False) -> tuple[float, list]:
     """``reps`` calls of ``fn`` under the profiler after a warm-up step of
     as many, which the profiler discards (it can miss the launches at its
     start): the wall ms of the active step and its device events (the
-    step's own annotation, which spans the step, left out)."""
+    step's own annotation, which spans the step, left out). With
+    ``cuda_only`` the profiler records the device's activity alone: a
+    step of 270 k launches (xlstm's prefill) then takes about a minute to
+    parse instead of three."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     events, wall = [], 0.0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CUDA]
+    if not cuda_only:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=lambda prof: events.extend(
                      e for e in prof.key_averages()
@@ -394,10 +427,10 @@ def counts(K) -> dict:
                              for route, n in routes.items()}}
 
 
-def profile_rows(fn) -> tuple[float, list]:
+def profile_rows(fn, cuda_only: bool = False) -> tuple[float, list]:
     """One call under the profiler (``profiled``): its wall ms and the
     device rows (kernel name, device ms, launches), largest first."""
-    wall, events = profiled(fn)
+    wall, events = profiled(fn, cuda_only=cuda_only)
     ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events]
     return wall, sorted((o for o in ops if o[1] > 0), key=lambda o: -o[1])
 
@@ -2563,9 +2596,11 @@ def greedy_vs_forward(arch: str, params, seed: int, dev, K,
             "greedy_vs_forward_argmax": agree, "launches": launches}
 
 
-def prefill_report(model, params, batch, K, k9_layers: int) -> dict:
+def prefill_report(model, params, batch, K, k9_layers: int,
+                   cuda_only: bool = False) -> dict:
     """A bf16 prefill: host ms of a first call and two more, launches, peak
-    memory, and the device time by kernel group from one profiled call.
+    memory, and the device time by kernel group from one profiled call
+    (``cuda_only``: the device's activity alone, ``profiled``).
     K9 must launch ``k9_layers`` times by its wgmma route and never by
     its FFMA one, by the counters and by the profile (a session may drop
     records, ``device_ms``: up to six sessions). Where no session records
@@ -2602,7 +2637,7 @@ def prefill_report(model, params, batch, K, k9_layers: int) -> dict:
         del out
         ms.append(one)
     for _ in range(6):
-        wall, rows = profile_rows(lambda: prefill(params, batch))
+        wall, rows = profile_rows(lambda: prefill(params, batch), cuda_only)
         seen = {route: sum(n for name, _, n in rows if symbol in name)
                 for route, symbol in (("wgmma", "flash_attention_kernel_wgmma"),
                                       ("ffma", "flash_attention_kernel<"))}
@@ -3061,18 +3096,25 @@ NEW_DECODE_B, NEW_DECODE_T, MOE_CPU_DECODE_T = 2, 640, 16
 MOE_CHECK_T, MOE_CPU_CHECK_T = 4096, 1024
 
 
-def layer0_attention_inputs(model, params, batch):
-    """Layer 0's q, k, v of a prefill (the embedded inputs, norm1, the
-    projections and RoPE where the model has it) and its layer tree."""
+def attention_layer_inputs(model, params, batch):
+    """The first attention layer's q, k, v of a prefill (layer 0, or
+    jamba's position 7 of its period: the embedded inputs through the
+    layers before it, then norm1, the projections and RoPE where the
+    model has it), its input x and its layer tree."""
     import torch
     from repro_torch.models import attention as attn
     from repro_torch.models.common import apply_norm, apply_rope
+    from repro_torch.models.transformer import _layer_forward
     from repro_torch.tree import tree_map
 
     cfg = model.cfg
-    lp = tree_map(lambda a: a[0], params["layers"][0])
+    j = next(i for i, (mixer, _) in enumerate(model.kinds) if mixer == "attn")
+    first = [tree_map(lambda a: a[0], stack) for stack in params["layers"]]
     with torch.no_grad():
         x = model._embed_inputs(params, batch)
+        for lp, kind in zip(first[:j], model.kinds[:j]):
+            x, _ = _layer_forward(lp, x, cfg, *kind)
+        lp = first[j]
         q, k, v = attn._qkv(lp["mixer"], apply_norm(x, lp["norm1"], cfg.norm),
                             cfg)
         if cfg.rope:
@@ -3113,10 +3155,11 @@ def k9_shape_fields(q, k, v, kerr: dict, heads_checked: str) -> dict:
     return out
 
 
-def check_k9_at(q, k, v, dev, seed: int, what: str) -> tuple[dict, str]:
+def check_k9_at(q, k, v, dev, seed: int, what: str,
+                layer: str = "layer 0") -> tuple[dict, str]:
     """K9 against its plain version at a model's head counts: every head
     on random inputs at T = CHECK_T in bf16 and f32, then the first and
-    last head of layer 0's prefill inputs (``q, k, v``) in bf16."""
+    last head of ``layer``'s prefill inputs (``q, k, v``) in bf16."""
     import torch
 
     h, kvh, hd = q.shape[2], k.shape[2], q.shape[3]
@@ -3127,10 +3170,10 @@ def check_k9_at(q, k, v, dev, seed: int, what: str) -> tuple[dict, str]:
                       .to(dtype) for n in (h, kvh, kvh))
         check_flash(rq, rk, rv, range(h), kerr, f"{what} T={CHECK_T} {dtype}")
         del rq, rk, rv
-    check_flash(q, k, v, (0, h - 1), kerr, f"{what} layer 0 at "
+    check_flash(q, k, v, (0, h - 1), kerr, f"{what} {layer} at "
                 f"T={q.shape[1]}")
     checked = (f"all {h} heads at T={CHECK_T} (bf16 and f32), heads 0 and "
-               f"{h - 1} of layer 0 at T={q.shape[1]} (bf16)")
+               f"{h - 1} of {layer} at T={q.shape[1]} (bf16)")
     print(f"# K9 matches its plain version for {what}: {checked}; "
           f"{json.dumps(kerr)}", flush=True)
     return kerr, checked
@@ -3270,7 +3313,7 @@ def serve_family(dev, seed: int, K, arch: str, t: int, layers=None) -> dict:
     t_text = t - cfg.vision_tokens
     batch = add_modality_inputs({"tokens": torch.randint(
         0, cfg.vocab, (1, t_text), generator=gen, device=dev)}, cfg, 0)
-    (q, k, v), x, lp = layer0_attention_inputs(model, params, batch)
+    (q, k, v), x, lp = attention_layer_inputs(model, params, batch)
     kerr, checked = check_k9_at(q, k, v, dev, seed + 6, arch)
     rep = {"config": f"{cfg.n_layers} of {full_layers} layers, d "
                      f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads, "
@@ -3348,19 +3391,20 @@ def serve_new_families(dev, seed: int, K) -> dict:
 
 
 def greedy_vs_decode(arch: str, params, seed: int, dev, K, batch: int,
-                     prompt: int, n: int) -> dict:
-    """``generate`` at full width, and its tokens against the argmax of
-    the serve step teacher-forced on them with the same cache (for
-    whisper the same encoder memory, handed to both): the check for the
-    models whose forward is not the decode's yardstick (MoE drops tokens
-    by group; whisper's memory; llava's forward takes patches)."""
+                     prompt: int, n: int, smoke: bool = False) -> dict:
+    """``generate`` at full width (reduced with ``smoke``), and its tokens
+    against the argmax of the serve step teacher-forced on them with the
+    same cache (for whisper the same encoder memory, handed to both):
+    the check for the models whose forward is not the decode's yardstick
+    (MoE drops tokens by group; whisper's memory; llava's forward takes
+    patches; xlstm's bf16 forward and decode round apart)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import build_model
 
-    cfg = get_config(arch)
+    cfg = get_config(arch, smoke=smoke)
     model = build_model(cfg)
     cache = model.init_cache(batch, prompt + n, dev)
     memory = None
@@ -3369,7 +3413,7 @@ def greedy_vs_decode(arch: str, params, seed: int, dev, K, batch: int,
         memory = cache["enc"] = (torch.randn(cache["enc"].shape, generator=g,
                                              device=dev).to(cfg.tdtype) * 0.02)
     K.reset_launches()
-    seqs = generate(arch, smoke=False, batch=batch, prompt_len=prompt, gen=n,
+    seqs = generate(arch, smoke=smoke, batch=batch, prompt_len=prompt, gen=n,
                     seed=seed, greedy=True, device=dev, params=params,
                     memory=memory)
     launches = counts(K)
@@ -3493,6 +3537,487 @@ def decode_new_families(dev, seed: int, K, kept: dict) -> dict:
     torch.cuda.empty_cache()
     print(json.dumps({"decode_llava": rep}), flush=True)
     print(f"# MoE, encoder-decoder and VLM decode phase in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
+
+
+# -- phases 9h-9i: the hybrid and ssm families ---------------------------------------
+
+# jamba-1.5-large-398b: one 8-layer period of 72 (7 Mamba, 1 attention; MoE
+# on the odd positions) at full width, its four MoE layers reading one
+# drawn set of expert weights (a period holds 90.2 GB in bf16; with one
+# set, 32.3 GB); prefill at train_4k's sequence, batch 1; generate batch 1.
+# xlstm-350m whole: a profiled prefill at 4,096 and one at prefill_32k's
+# sequence timed by the host clock and CUDA events after every profile
+# (its sLSTM runs a step at a time: about 2 M launches at 32,768);
+# generate batch 4
+JAMBA, JAMBA_LAYERS, JAMBA_T = "jamba-1.5-large-398b", 8, 4096
+XLSTM, XLSTM_T, XLSTM_LONG_T, XLSTM_GEN_B = "xlstm-350m", 4096, 32768, 4
+# the reduced models in f32: card == CPU port over the prefill and 20
+# decode steps; decode == forward at NEW_DECODE_T
+RECURRENT_CPU_T, RECURRENT_DECODE_STEPS = 640, 20
+
+
+class cut_depth:
+    """Within the block, ``get_config(arch)`` (and ``launch/serve.py``'s)
+    gives ``arch`` with ``n_layers`` layers: the entry points then serve
+    weights cut to that depth."""
+
+    def __init__(self, arch: str, n_layers: int):
+        self.arch, self.n_layers = arch, n_layers
+
+    def __enter__(self):
+        import repro_torch.configs as configs
+        import repro_torch.launch.serve as serve
+
+        self.saved = configs.get_config
+
+        def get_config(name, smoke=False):
+            cfg = self.saved(name, smoke=smoke)
+            if name == self.arch and not smoke:
+                cfg = dataclasses.replace(cfg, n_layers=self.n_layers)
+            return cfg
+
+        configs.get_config = serve.get_config = get_config
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.configs as configs
+        import repro_torch.launch.serve as serve
+
+        configs.get_config = serve.get_config = self.saved
+
+
+def draw_jamba(cfg, dev, seed: int) -> dict:
+    """One period of jamba (``cfg.n_layers`` = 8) drawn as
+    ``Model.init_params`` draws it, layer by layer through ``_layer_init``,
+    except that the MoE positions after the first take the first's
+    ``ffn`` (the drawn sets are dropped): each layer does all its work,
+    the expert weights are stored once. Each position's stack is a view
+    with a leading segment axis of 1."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import embed_init, norm_params
+    from repro_torch.models.transformer import _layer_init
+    from repro_torch.tree import tree_map
+
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.tdtype),
+              "norm_f": norm_params(cfg.d_model, cfg.norm, cfg.tdtype, dev),
+              "lm_head": embed_init(gen, cfg.vocab, cfg.d_model, cfg.tdtype),
+              "layers": []}
+    shared = None
+    for mixer, ffn in model.kinds:
+        lp = _layer_init(gen, cfg, mixer, ffn, False)
+        if ffn == "moe":
+            if shared is None:
+                shared = lp["ffn"]
+            else:
+                lp["ffn"] = shared
+        params["layers"].append(tree_map(lambda a: a[None], lp))
+        del lp
+    return params
+
+
+def spans_by_part(fn, patches: dict) -> tuple[float, dict]:
+    """One call of ``fn`` with CUDA events recorded around every call of
+    each patched function (``{name: (module, attribute)}``): the events'
+    ms over the whole call and the sums of each part's spans (device
+    time from its first launch to its last, and any gap between)."""
+    import torch
+
+    marks = {name: [] for name in patches}
+    saved = {}
+    for name, (mod, attr) in patches.items():
+        inner = getattr(mod, attr)
+        saved[name] = inner
+
+        def wrapped(*a, _inner=inner, _name=name, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = _inner(*a, **kw)
+            e.record()
+            marks[_name].append((s, e))
+            return out
+
+        setattr(mod, attr, wrapped)
+    try:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        del out
+        torch.cuda.synchronize()
+    finally:
+        for name, (mod, attr) in patches.items():
+            setattr(mod, attr, saved[name])
+    total = start.elapsed_time(end)
+    parts = {name: sum(s.elapsed_time(e) for s, e in m)
+             for name, m in marks.items()}
+    parts["the rest"] = total - sum(parts.values())
+    return total, {**parts, "calls": {n: len(m) for n, m in marks.items()}}
+
+
+def bf16_vs_f32(fn, p, x, cfg, what: str) -> dict:
+    """``fn(p, x, cfg)`` in bf16 against the same call on f32 copies of
+    ``p`` and ``x``, within DECODE_TOL of the largest f32 output."""
+    import torch
+    from repro_torch.tree import tree_map
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad():
+        got = fn(p, x, cfg)
+        want = fn(tree_map(lambda a: a.float(), p), x.float(), cfg32)
+    gap = float((got.float() - want).abs().max())
+    scale = float(want.abs().max())
+    require(bool(torch.isfinite(got).all()) and gap <= DECODE_TOL * scale,
+            f"{what} in bf16 is {gap:.3e} off f32 (max {scale:.3e})")
+    return {"shape": f"{tuple(x.shape)} bf16 against f32", "max_abs_gap": gap,
+            "max_abs_out": scale,
+            "gap_in_bf16_steps_of_max": gap / (scale * 2.0 ** -7)}
+
+
+def jamba_period_parts(params, x, cfg, model) -> dict:
+    """Device ms of a period's parts at the prefill's shape by CUDA events
+    on one layer each (``time_cuda``), and each times its count in the
+    period: the Mamba mixer (position 0) and its scan alone (on the
+    inputs that mixer hands it), the attention mixer (position 7, K9
+    inside), the MLP (position 0) and the MoE (position 1)."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import mamba, mlp
+    from repro_torch.models.common import apply_norm
+    from repro_torch.tree import tree_map
+
+    first = [tree_map(lambda a: a[0], stack) for stack in params["layers"]]
+    m0, a7 = first[0], first[7]
+    scan_args = []
+    scan = mamba._ssm_scan
+
+    def grab(*args):
+        scan_args.extend(args)
+        return scan(*args)
+
+    with torch.no_grad():
+        h0 = apply_norm(x, m0["norm1"], cfg.norm)
+        h2 = apply_norm(x, m0["norm2"], cfg.norm)
+        mamba._ssm_scan = grab
+        try:
+            mamba.mamba_forward(m0["mixer"], h0, cfg)
+        finally:
+            mamba._ssm_scan = scan
+        kinds = [k for k, _ in model.kinds]
+        ffns = [f for _, f in model.kinds]
+        per_layer = {
+            "mamba_mixer": time_cuda(lambda: mamba.mamba_forward(
+                m0["mixer"], h0, cfg), reps=3, warmup=1),
+            "mamba_scan": time_cuda(lambda: scan(*scan_args), reps=3,
+                                    warmup=1),
+            "attention_mixer": time_cuda(lambda: attn.gqa_forward(
+                a7["mixer"], h0, cfg), reps=3, warmup=1),
+            "mlp": time_cuda(lambda: mlp.mlp_forward(m0["ffn"], h2, cfg),
+                             reps=3, warmup=1),
+            "moe": time_cuda(lambda: mlp.moe_forward(first[1]["ffn"], h2,
+                                                     cfg), reps=3, warmup=1)}
+    count = {"mamba_mixer": kinds.count("mamba"),
+             "mamba_scan": kinds.count("mamba"),
+             "attention_mixer": kinds.count("attn"),
+             "mlp": ffns.count("mlp"), "moe": ffns.count("moe")}
+    del h0, h2, scan_args
+    torch.cuda.empty_cache()
+    return {"per_layer_ms": per_layer, "count_in_period": count,
+            "period_ms": {k: v * count[k] for k, v in per_layer.items()}}
+
+
+def serve_jamba(dev, seed: int, K) -> dict:
+    """Phase 9h's profiled part: jamba-1.5-large-398b, one period at full
+    width (bf16, random weights from ``seed``; the MoE layers share one
+    set of experts): the tree's shapes against ``param_shapes`` of the
+    8-layer config; K9 at n_rep 8 against its plain version (every head
+    at T = CHECK_T, heads 0 and 63 of the attention layer's prefill
+    inputs); layer 0's Mamba mixer in bf16 against f32; ``make_prefill``
+    at B = 1, T = 4,096 through one K9 launch, profiled; the spans of
+    the scan, the MoE routing and K9 in one prefill; a period's parts.
+    Returns the counts, K9's figures and the weights."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.jamba_1_5_large_398b import param_shapes
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model, mamba, mlp
+    from repro_torch.models.common import apply_norm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(JAMBA)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    model = build_model(cfg)
+    require(model.n_segments == 1 and [m for m, _ in model.kinds].count(
+        "attn") == 1, f"jamba's period changed: {model.kinds}")
+    held = torch.cuda.memory_allocated()
+    params = draw_jamba(cfg, dev, seed)
+    weights_gb = (torch.cuda.memory_allocated() - held) / 1e9
+    init_peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    n = []
+
+    def same(p, spec):
+        require(tuple(p.shape) == tuple(spec.shape) and p.dtype == spec.dtype,
+                f"jamba's drawn tree: {tuple(p.shape)} {p.dtype} against "
+                f"{spec}")
+        n.append(p.numel())
+
+    tree_map(same, params, param_shapes(cfg))
+    require(sum(n) == param_count(param_shapes(cfg)),
+            "jamba's drawn tree is not param_shapes()'s")
+    stored = sum({p.untyped_storage().data_ptr(): p.untyped_storage().nbytes()
+                  for p in tree_leaves(params)}.values())
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, JAMBA_T),
+                                     generator=gen, device=dev)}
+    (q, k, v), _, _ = attention_layer_inputs(model, params, batch)
+    kerr, checked = check_k9_at(q, k, v, dev, seed + 6, JAMBA,
+                                "layer 7 (the attention layer)")
+    with torch.no_grad():
+        x = model._embed_inputs(params, batch)
+        lp0 = tree_map(lambda a: a[0], params["layers"][0])
+        h0 = apply_norm(x, lp0["norm1"], cfg.norm)
+    rep = {"config": f"{JAMBA_LAYERS} of {full.n_layers} layers (one period: "
+                     f"{[list(k) for k in model.kinds]}), d {cfg.d_model}, "
+                     f"Di {cfg.mamba.expand * cfg.d_model}, {cfg.n_heads}/"
+                     f"{cfg.kv_heads} heads, hd {cfg.hd}, {cfg.moe.num_experts}"
+                     f" experts top-{cfg.moe.top_k} of d_ff {cfg.d_ff}; the 4 "
+                     f"MoE layers read one drawn set of experts",
+           "parameters_in_the_tree": sum(n), "weights_stored_gb": stored / 1e9,
+           "weights_gb": weights_gb, "init_peak_gb": init_peak_gb,
+           "layer0_mamba_bf16_vs_f32": bf16_vs_f32(
+               mamba.mamba_forward, lp0["mixer"], h0, cfg,
+               "jamba layer 0's Mamba mixer")}
+    del h0
+    torch.cuda.empty_cache()
+    pre = prefill_report(model, params, batch, K, 1)
+    prefill = make_prefill(model)
+    total, parts = spans_by_part(
+        lambda: prefill(params, batch),
+        {"mamba_scan": (mamba, "_ssm_scan"),
+         "moe_routing": (mlp, "route_groups"),
+         "k9": (attn, "flash_attention")})
+    pre["spans_ms"] = {"prefill": total, **parts}
+    pre["period_parts"] = jamba_period_parts(params, x, cfg, model)
+    k9 = k9_shape_fields(q, k, v, kerr, checked)
+    del q, k, v, x
+    torch.cuda.empty_cache()
+    rep["prefill"] = pre
+    print(json.dumps({f"prefill_{JAMBA}": rep}), flush=True)
+    print(f"# {JAMBA} prefill phase in {time.perf_counter() - t_phase:.1f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    return dict(paths={f"prefill_{JAMBA}": pre["launches"]}, k9=k9,
+                params=params)
+
+
+def serve_xlstm(dev, seed: int, K) -> dict:
+    """Phase 9i's profiled part, run after every other profile: xlstm-350m
+    whole (bf16, random weights from ``seed``; 241.6 M parameters, no
+    feed-forward): the mLSTM (layer 0) and sLSTM (layer 7) mixers in
+    bf16 against f32 at T = 4,096, and ``make_prefill`` at B = 1,
+    T = 4,096, profiled (the device's activity alone: about 270 k
+    launches), with no K9 launch. Returns the counts and the weights."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.xlstm_350m import param_shapes
+    from repro_torch.models import build_model, xlstm
+    from repro_torch.models.common import apply_norm
+    from repro_torch.models.transformer import _layer_forward
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(XLSTM)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    require(n_params == param_count(param_shapes(cfg)),
+            f"{XLSTM} has {n_params} parameters, not param_shapes()'s")
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, XLSTM_T),
+                                     generator=gen, device=dev)}
+    first = [tree_map(lambda a: a[0], stack) for stack in params["layers"]]
+    with torch.no_grad():
+        x = model._embed_inputs(params, batch)
+        checks = {}
+        for j, (mixer, _) in enumerate(model.kinds):
+            if j in (0, 7):
+                h = apply_norm(x, first[j]["norm1"], cfg.norm)
+                fwd = {"mlstm": xlstm.mlstm_forward,
+                       "slstm": xlstm.slstm_forward}[mixer]
+                checks[f"layer{j}_{mixer}_bf16_vs_f32"] = bf16_vs_f32(
+                    fwd, first[j]["mixer"], h, cfg,
+                    f"{XLSTM} layer {j}'s {mixer}")
+                del h
+            x, _ = _layer_forward(first[j], x, cfg, *model.kinds[j])
+    del x
+    torch.cuda.empty_cache()
+    pre = prefill_report(model, params, batch, K, 0, cuda_only=True)
+    rep = {"config": f"{cfg.n_layers} layers ({[list(k) for k in model.kinds]}"
+                     f" a period), d {cfg.d_model}, {cfg.n_heads} heads, "
+                     f"chunk {cfg.xlstm.chunk}", "parameters": n_params,
+           **checks, "prefill": pre}
+    print(json.dumps({f"prefill_{XLSTM}": rep}), flush=True)
+    print(f"# {XLSTM} prefill phase in {time.perf_counter() - t_phase:.1f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    return dict(paths={f"prefill_{XLSTM}": pre["launches"]}, params=params)
+
+
+def recurrent_reduced(arch: str, dev, seed: int, K) -> tuple[dict, dict]:
+    """``arch``'s reduced model in f32 (random weights from ``seed``): the
+    card against the CPU port over the prefill at T = 640 and 20 decode
+    steps, each within 1e-4 of the largest logit; decode == forward on
+    the card at T = 640 (jamba with capacity_factor = E / top_k, so no
+    group drops a token); greedy ``generate`` against the teacher-forced
+    serve step. Returns the report and the counts per path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    cpu_params = tree_map(lambda a: a.cpu(), params)
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    toks = torch.randint(0, cfg.vocab, (NEW_DECODE_B, RECURRENT_CPU_T),
+                         generator=gen, device=dev)
+    prefill, serve = make_prefill(model), make_serve_step(model)
+    card = prefill(params, {"tokens": toks}).cpu()
+    cpu = prefill(cpu_params, {"tokens": toks.cpu()})
+    gaps = {"prefill": float((card - cpu).abs().max()) / float(
+        cpu.abs().max())}
+    caches = {"card": model.init_cache(NEW_DECODE_B, RECURRENT_DECODE_STEPS,
+                                       dev),
+              "cpu": model.init_cache(NEW_DECODE_B, RECURRENT_DECODE_STEPS,
+                                      "cpu")}
+    worst = 0.0
+    for pos in range(RECURRENT_DECODE_STEPS):
+        lg, caches["card"] = serve(params, caches["card"],
+                                   toks[:, pos:pos + 1], pos)
+        want, caches["cpu"] = serve(cpu_params, caches["cpu"],
+                                    toks[:, pos:pos + 1].cpu(), pos)
+        worst = max(worst, float((lg.cpu() - want).abs().max())
+                    / float(want.abs().max()))
+    gaps["decode"] = worst
+    require(max(gaps.values()) <= 1e-4, f"reduced {arch} in f32: card and CPU "
+            f"differ by {gaps} of the largest logit")
+    paths = {}
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        model = build_model(cfg)
+    r = decode_vs_forward(model, params, toks[:, :NEW_DECODE_T], dev, K)
+    attn_layers = sum(m == "attn" for m, _ in model.kinds) * model.n_segments
+    require(r["launches"]["flash_attention:ffma"] == attn_layers
+            == r["launches"]["flash_attention"],
+            f"reduced {arch}'s T={NEW_DECODE_T} forward launched K9 "
+            f"{r['launches']['flash_attention']} times, not {attn_layers}")
+    require(r["max_abs_gap"] <= 2e-3 * max(1.0, r["max_abs_logit"])
+            and r["argmax_agreement"] >= ARGMAX_AGREE,
+            f"reduced {arch}: decode and forward differ: {r}")
+    paths[f"decode_vs_forward_{arch.split('-')[0]}_reduced"] = r.pop(
+        "launches")
+    g = greedy_vs_decode(arch, params, seed, dev, K, NEW_DECODE_B,
+                         SMALL_GEN_PROMPT, SMALL_GEN_N, smoke=True)
+    require(g["greedy_vs_decode_argmax"] == 1.0, f"reduced {arch}: greedy "
+            f"generate differs from the teacher-forced argmax: {g}")
+    paths[f"generate_{arch.split('-')[0]}_reduced"] = g.pop("launches")
+    del params, cpu_params, caches
+    torch.cuda.empty_cache()
+    return {"card_vs_cpu_f32": {
+        "shape": f"B={NEW_DECODE_B}, prefill T={RECURRENT_CPU_T}, "
+                 f"{RECURRENT_DECODE_STEPS} decode steps",
+        "max_gap_over_max_logit": gaps},
+        "decode_vs_forward": r, "generate_vs_teacher_forced": g}, paths
+
+
+def decode_jamba(dev, seed: int, K, params) -> dict:
+    """Phase 9h's decode loops, after every profile: greedy ``generate``
+    of the period at batch 1 (prompt 16, 8 tokens) against the
+    teacher-forced serve step, then the reduced model's checks
+    (``recurrent_reduced``). Returns the counts per path."""
+    import torch
+
+    t_phase = time.perf_counter()
+    with cut_depth(JAMBA, JAMBA_LAYERS):
+        rep = greedy_vs_decode(JAMBA, params, seed, dev, K, 1,
+                               SMALL_GEN_PROMPT, SMALL_GEN_N)
+    paths = {"generate_jamba": rep.pop("launches")}
+    require(paths["generate_jamba"]["flash_attention"] == 0,
+            "jamba's decode launched K9")
+    del params
+    torch.cuda.empty_cache()
+    rep["reduced"], more = recurrent_reduced(JAMBA, dev, seed, K)
+    paths.update(more)
+    print(json.dumps({"decode_jamba": rep}), flush=True)
+    print(f"# {JAMBA} decode phase in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
+def long_xlstm(dev, seed: int, K, params) -> dict:
+    """Phase 9i after every profile: xlstm-350m's prefill at B = 1,
+    T = 32,768 (host clock and CUDA events over one call, peak memory,
+    no K9), greedy ``generate`` at batch 4 against the teacher-forced
+    serve step (in bf16 the full model's forward and decode pick other
+    tokens at many positions: its bf16 logits depart from f32 by most of
+    the largest logit, the reference's own as much), then the reduced
+    model's checks (``recurrent_reduced``). Every path launches no K9.
+    Returns the counts per path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(XLSTM)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    tokens = torch.randint(0, cfg.vocab, (1, XLSTM_LONG_T), generator=gen,
+                           device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    wall, logits = host_ms(lambda: make_prefill(model)(params,
+                                                       {"tokens": tokens}))
+    end.record()
+    torch.cuda.synchronize()
+    launches = counts(K)
+    require(logits.shape == (1, XLSTM_LONG_T, cfg.vocab)
+            and all(bool(torch.isfinite(c).all()) for c in logits.split(2048, 1)),
+            f"{XLSTM}'s T={XLSTM_LONG_T} logits misshapen or not finite")
+    del logits
+    rep = {"long_prefill": {"shape": f"B=1, T={XLSTM_LONG_T}, bf16",
+                            "host_ms": wall, "events_ms": start.elapsed_time(end),
+                            "peak_memory_gb": torch.cuda.max_memory_allocated()
+                            / 1e9}}
+    paths = {f"prefill_{XLSTM}_long": launches}
+    g = greedy_vs_decode(XLSTM, params, seed, dev, K, XLSTM_GEN_B,
+                         SMALL_GEN_PROMPT, SMALL_GEN_N)
+    paths["generate_xlstm"] = g.pop("launches")
+    rep["generate"] = g
+    del params
+    torch.cuda.empty_cache()
+    rep["reduced"], more = recurrent_reduced(XLSTM, dev, seed, K)
+    paths.update(more)
+    require(all(n["flash_attention"] == 0 for n in paths.values()),
+            f"an {XLSTM} path launched K9: {paths}")
+    print(json.dumps({f"decode_{XLSTM}": rep}), flush=True)
+    print(f"# {XLSTM} long prefill and decode phase in "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return paths
 
@@ -4145,6 +4670,7 @@ def main() -> int:
         nf = serve_new_families(dev, args.seed, K)
         print(f"# MoE, encoder-decoder and VLM prefill phases in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        jm = serve_jamba(dev, args.seed, K)
         sc = serve_starcoder2(dev, args.seed, K)
         mc = serve_minicpm3(dev, args.seed, K)
         t0 = time.perf_counter()
@@ -4152,16 +4678,20 @@ def main() -> int:
         paths.update(sv["paths"])
         print(f"# qwen2-0.5B serving phase in {time.perf_counter() - t0:.1f} s; "
               f"launches {json.dumps(sv['paths'])}", flush=True)
+        xl = serve_xlstm(dev, args.seed, K)
         sc["paths"].update(decode_starcoder2(dev, args.seed, K,
                                              sc.pop("params")))
         mc["paths"].update(decode_minicpm3(dev, args.seed, K,
                                            mc.pop("params")))
+        jm["paths"].update(decode_jamba(dev, args.seed, K, jm.pop("params")))
         nf["paths"].update(decode_new_families(dev, args.seed, K,
                                                nf.pop("params")))
+        xl["paths"].update(long_xlstm(dev, args.seed, K, xl.pop("params")))
         # K9's entry: qwen2's paths and figures, then starcoder2's
-        # windowed ones, then the four new models' head counts
+        # windowed ones, then the six new models' head counts
         k9 = sv["kernel"]
-        for path, n in {**sc["paths"], **mc["paths"], **nf["paths"]}.items():
+        for path, n in {**sc["paths"], **mc["paths"], **nf["paths"],
+                        **jm["paths"], **xl["paths"]}.items():
             paths[path] = n
             if n["flash_attention"]:
                 k9["launches_by_path"][path] = n["flash_attention"]
@@ -4171,7 +4701,7 @@ def main() -> int:
         k9["window_launches"] = sc["paths"]["prefill_starcoder2"][
             "flash_attention"]
         k9.update(sc["window"])
-        k9["new_shapes"] = nf["k9"]
+        k9["new_shapes"] = {**nf["k9"], JAMBA: jm["k9"]}
         kernels.append(k9)
 
         # -- 10. the loss's gradient above 512 tokens -------------------------

@@ -1,12 +1,12 @@
 """Architecture configuration: the port's copy of the reference's
-``ModelConfig``, ``MLAConfig`` and ``MoEConfig``
-(``src/repro/models/config.py``), with the fields of the families the
-port runs: dense (GQA with an optional sliding window, or MLA), moe
-(an MoE feed-forward in every layer), encdec (whisper: an encoder stack
-over stubbed frame embeddings and a decoder with cross-attention) and
-vlm (llava: patch embeddings before the tokens). The hybrid and ssm
-families (Mamba, xLSTM) and their fields wait for ROADMAP Queue A item
-12e.
+``ModelConfig``, ``MLAConfig``, ``MoEConfig``, ``MambaConfig`` and
+``XLSTMConfig`` (``src/repro/models/config.py``), for all six of its
+families: dense (GQA with an optional sliding window, or MLA), moe (an
+MoE feed-forward in every layer), hybrid (jamba: periods of Mamba layers
+and one attention layer, MoE on the odd layers), ssm (xLSTM: periods of
+mLSTM blocks and one sLSTM), encdec (whisper: an encoder stack over
+stubbed frame embeddings and a decoder with cross-attention) and vlm
+(llava: patch embeddings before the tokens).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-NOT_PORTED = "not ported yet (ROADMAP Queue A item 12e)"
+NOT_PORTED = "not a configuration of the reference's model zoo"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,13 +37,27 @@ class MoEConfig:
     router_aux_weight: float = 0.01
 
 
-PORTED_FAMILIES = ("dense", "moe", "encdec", "vlm")
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    slstm_every: int = 8           # one sLSTM per this many blocks (7:1)
+    chunk: int = 256               # chunkwise-parallel mLSTM chunk length
+    proj_factor: float = 2.0       # ffn expansion inside blocks
+
+
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | encdec | vlm (ported)
+    family: str                    # dense | moe | hybrid | ssm | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -63,6 +77,10 @@ class ModelConfig:
     # moe
     moe: Optional[MoEConfig] = None
     moe_every: int = 1             # MoE layer period (jamba: 2)
+    # hybrid / ssm
+    mamba: Optional[MambaConfig] = None
+    attn_every: int = 8            # jamba: 1 attention per 8 layers
+    xlstm: Optional[XLSTMConfig] = None
     # enc-dec (whisper)
     enc_layers: int = 0
     enc_seq: int = 1500            # audio frames after the conv stub
@@ -85,8 +103,10 @@ class ModelConfig:
 
     @property
     def supports_long_decode(self) -> bool:
-        """True if a 524k-token decode state is sub-quadratic or windowed
-        (of the ported families: only with a sliding window)."""
+        """True if a 524k-token decode state is sub-quadratic or windowed:
+        the recurrent families, or a sliding window."""
+        if self.family in ("hybrid", "ssm"):
+            return True
         return self.sliding_window is not None
 
     def reduced(self, n_layers: int = 2, d_model: int = 256, d_ff: int = 512,
@@ -104,6 +124,9 @@ class ModelConfig:
         if self.mla is not None:
             mla = MLAConfig(q_lora_rank=64, kv_lora_rank=32, qk_nope_dim=32,
                             qk_rope_dim=16, v_head_dim=32)
+        xl = None
+        if self.xlstm is not None:
+            xl = dataclasses.replace(self.xlstm, slstm_every=2, chunk=32)
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
@@ -116,6 +139,8 @@ class ModelConfig:
             head_dim=d_model // heads,
             moe=moe,
             mla=mla,
+            xlstm=xl,
+            attn_every=2 if self.family == "hybrid" else self.attn_every,
             enc_layers=min(2, self.enc_layers) if self.enc_layers else 0,
             enc_seq=32 if self.enc_layers else self.enc_seq,
             vision_tokens=16 if self.vision_tokens else 0,
@@ -125,7 +150,8 @@ class ModelConfig:
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a configuration the port cannot run yet."""
+    """Raise for a configuration outside the reference's: a family or an
+    attention type it does not have."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r}: {NOT_PORTED}")
     if cfg.attn_type not in ("gqa", "mla"):

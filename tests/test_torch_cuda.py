@@ -592,7 +592,7 @@ def test_flash_attention_counts_launches_and_rejects_bad_input(cuda):
     assert LAUNCHES["flash_attention"] == 1
 
 
-# -- the MoE, encoder-decoder and VLM families --------------------------------------
+# -- the MoE, encoder-decoder, VLM, hybrid and ssm families --------------------------------------
 
 
 @pytest.mark.parametrize("shape", [
@@ -600,10 +600,11 @@ def test_flash_attention_counts_launches_and_rejects_bad_input(cuda):
     (1, 700, 16, 8, 64),      # granite-moe-1b-a400m: n_rep 2
     (1, 700, 48, 8, 128),     # grok-1-314b: n_rep 6
     (1, 700, 56, 8, 128),     # llava-next-34b: n_rep 7
+    (1, 700, 64, 8, 128),     # jamba-1.5-large-398b: n_rep 8
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_at_the_new_gqa_shapes(cuda, dtype, shape):
-    """K9 at the head counts of the four models (ragged T): f32 to 1e-5
+    """K9 at the head counts of the five models (ragged T): f32 to 1e-5
     of ``flash_attention_ref`` head by head, bf16 to the f32 oracle
     within ``bf16_attention_check``'s limits; one launch by the route."""
     q, k, v = (x.to(cuda, dtype) for x in _attention_inputs(*shape, seed=21))
@@ -688,3 +689,41 @@ def test_new_family_prefill_runs_k9_and_matches_cpu(cuda, arch):
         gap = float((got.float().cpu() - cpu.float()).abs().max())
         scale = float(cpu.float().abs().max())
         assert gap <= (1e-4 if dtype == "float32" else 8 * 2.0 ** -7) * scale
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m"])
+def test_hybrid_and_ssm_prefill_and_decode_match_cpu(cuda, arch):
+    """Each reduced model in f32 (jamba with two segments, so two
+    attention layers) on the card against the CPU port, to 1e-4 of the
+    largest logit: the prefill at T = 640 (jamba: K9's FFMA kernel once
+    per attention layer; xlstm: none) and 20 decode steps, whose
+    recurrent states are written into the stacked caches in place."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill, make_serve_step
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), n_layers=4)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 640),
+                         generator=torch.Generator().manual_seed(1))
+    cpu = make_prefill(model)(params, {"tokens": toks})
+    card_params = _to(params, cuda)
+    reset_launches()
+    got = make_prefill(model)(card_params, {"tokens": toks.to(cuda)})
+    attn_layers = sum(m == "attn" for m, _ in model.kinds) * model.n_segments
+    assert LAUNCHES["flash_attention"] == attn_layers == ROUTES[
+        "flash_attention"]["ffma"]
+    assert attn_layers == (2 if arch == "jamba-1.5-large-398b" else 0)
+    scale = float(cpu.abs().max())
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-4 * scale
+    serve = make_serve_step(model)
+    caches = {"cpu": model.init_cache(2, 20, "cpu"),
+              "card": model.init_cache(2, 20, cuda)}
+    for pos in range(20):
+        want, caches["cpu"] = serve(params, caches["cpu"],
+                                    toks[:, pos:pos + 1], pos)
+        lg, caches["card"] = serve(card_params, caches["card"],
+                                   toks[:, pos:pos + 1].to(cuda), pos)
+        gap = float((lg.cpu() - want).abs().max())
+        assert gap <= 1e-4 * float(want.abs().max()), pos
