@@ -211,9 +211,25 @@ Phases, each failing the run with a non-zero exit:
      them), K4 launched, no K9, the loss the cross-entropy plus 0.01 x the
      aux loss; the reduced model's gradient at B=2, T=600 in f32 on the
      card against the CPU port (1e-4 of each leaf's largest |grad|);
-  12. print what the profiler failed to record (each such figure timed
-     by CUDA events instead, or not measured), the kernel line, the card
-     line, and last the device line.
+  11c. (right after 11b) the hybrid and ssm families trained:
+     xlstm-350m whole as phase 11 (fednl k=2,048, 4 microbatches, 4 silos,
+     a refresh every 2 steps, 3 steps), train_4k's batch cut to 4 and its
+     T to 512 (the sLSTM's step loop is host-bound): K1 once per tensor and
+     K4 on the refresh steps, no K9, every mLSTM and sLSTM leaf with a
+     nonzero curvature, ms per step, peak memory, K1 and K4 on the last
+     refresh's mLSTM and sLSTM leaves against their plain versions;
+     reduced jamba's 3 fednl steps on the card against the CPU port (1e-4
+     of each leaf's largest |value|, K1 and K4 launched); one full-width
+     jamba Mamba mixer (bf16, B=1, T=4,096) forward and backward through
+     the scan's checkpointed chunks, its ms and peak memory, its input
+     gradient within 8 bf16 steps of f32's largest entry;
+  12. the roofline (``launch/roofline.py``'s H100 terms, the FLOPs and
+     bytes of ``launch/dryrun.py``'s count on the meta device, made in a
+     background process from the build on) of each measured train step
+     (phases 11, 11b, 11c) beside its ms: a step under its compute or
+     memory term fails; then print what the profiler failed to record
+     (each such figure timed by CUDA events instead, or not measured), the
+     kernel line, the card line, and last the device line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -265,9 +281,6 @@ DECODE_TOL, ARGMAX_AGREE = 8 * 2.0 ** -7, 0.8
 # MLA's chunked path and the whole mask in bf16: the same sums in other
 # GEMM shapes, within 4 bf16 steps of the largest output
 BF16_CHUNK_STEPS = 4
-# H100 SXM peaks (NVIDIA data sheet, dense, no sparsity)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f64": 34e12, "f32": 67e12, "bf16": 989e12}
 
 
 class SmokeFailure(Exception):
@@ -447,9 +460,12 @@ def profile_window(fn) -> dict:
 
 def bound(nbytes: float, ops: dict) -> tuple[float, str]:
     """Least time (ms) for the work: bytes over HBM rate vs operations
-    over the peak rate of their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = sum(n / PEAK_FLOPS[t] for t, n in ops.items())
+    over the peak rate of their type, the H100 SXM peaks of
+    ``launch/roofline.py``."""
+    from repro_torch.launch import roofline
+
+    t_bytes = nbytes / roofline.HBM_BW
+    t_ops = sum(n / roofline.PEAK_FLOPS_BY_DTYPE[t] for t, n in ops.items())
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -4126,6 +4142,9 @@ TRAIN_T, TRAIN_B, TRAIN_MB, TRAIN_SILOS = 4096, 4, 4, 4
 TRAIN_REFRESH, TRAIN_STEPS, TRAIN_LR, CURVATURE_K = 2, 3, 3e-4, 2048
 HVP_T, HVP_SILOS = 512, 2
 SMALL_TRAIN = dict(n_layers=2, d_model=64, d_ff=128, vocab=128)
+# each measured train step's ms and refresh flag by arch (phases 11-11c),
+# held to its roofline in phase 12
+MEASURED_STEPS: dict = {}
 
 
 def _timed(opt, log: dict):
@@ -4140,6 +4159,65 @@ def _timed(opt, log: dict):
     return dataclasses.replace(opt, refresh=wrap("refresh", opt.refresh),
                                precondition=wrap("precondition",
                                                  opt.precondition))
+
+
+def fednl_steps(label: str, model, params, pipe, opt, K, kept: dict):
+    """``TRAIN_STEPS`` steps of ``make_train_step`` with ``opt`` (fednl;
+    ``TRAIN_MB`` microbatches, ``TRAIN_SILOS`` silos, a refresh every
+    ``TRAIN_REFRESH``) on ``pipe``'s batches: refresh flags [1, 0, 1], H
+    bit for bit unchanged on step 1, finite loss and H, K1 once per
+    tensor and K4 launched on the refresh steps alone, K9 never; the ms
+    of each step, its launches, the peak memory. ``kept["want"]`` is set
+    on the last step. Returns (params, state, the steps, the launches of
+    all of them, the peak in GB)."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    n_leaves = len(tree_leaves(params))
+    step = make_train_step(model, opt, microbatches=TRAIN_MB,
+                           refresh_every=TRAIN_REFRESH, n_silos=TRAIN_SILOS)
+    state = opt.init(params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    total = {name: 0 for name in counts(K)}
+    per_step = []
+    for i in range(TRAIN_STEPS):
+        batch = pipe.batch(i, device=params["embed"].device)
+        h_before = [h.clone() for h in tree_leaves(state.h)] if i == 1 else None
+        kept["want"] = i == TRAIN_STEPS - 1
+        K.reset_launches()
+        ms, (params, state, m) = host_ms(lambda: step(params, state, batch))
+        got = counts(K)
+        for name, c in got.items():
+            total[name] += c
+        refreshed = m["curv_refreshed"] == 1.0
+        require(bool(torch.isfinite(m["loss"])), f"{label} step {i}: loss "
+                f"{float(m['loss'])}")
+        require(all(bool(torch.isfinite(h).all()) for h in tree_leaves(state.h)),
+                f"{label} step {i}: non-finite H")
+        require(refreshed == (i % TRAIN_REFRESH == 0),
+                f"{label} step {i}: curv_refreshed {m['curv_refreshed']}")
+        require(got["diff_topk_payload"] == (n_leaves if refreshed else 0)
+                and (got["block_scatter_accumulate"] > 0) == refreshed,
+                f"{label} step {i} (refresh {refreshed}) launched K1 "
+                f"{got['diff_topk_payload']} times for {n_leaves} tensors, "
+                f"K4 {got['block_scatter_accumulate']}")
+        require(got["flash_attention"] == 0,
+                f"{label} step {i}: the train step launched K9")
+        if h_before is not None:
+            require(all(torch.equal(a, b) for a, b in
+                        zip(h_before, tree_leaves(state.h))),
+                    f"{label}: H changed on a step without a refresh")
+            del h_before
+        per_step.append({"ms": ms, "loss": float(m["loss"]),
+                         "refreshed": refreshed,
+                         "grad_norm": float(m["grad_norm"]),
+                         "k1": got["diff_topk_payload"],
+                         "k4": got["block_scatter_accumulate"]})
+    MEASURED_STEPS[model.cfg.name] = per_step
+    return (params, state, per_step, total,
+            torch.cuda.max_memory_allocated() / 1e9)
 
 
 def train_qwen2(dev, seed: int, K, card: str) -> dict:
@@ -4170,45 +4248,9 @@ def train_qwen2(dev, seed: int, K, card: str) -> dict:
     log: dict = {}
     opt = _timed(make_optimizer("fednl", TRAIN_LR, k_per_block=CURVATURE_K),
                  log)
-    step = make_train_step(model, opt, microbatches=TRAIN_MB,
-                           refresh_every=TRAIN_REFRESH, n_silos=TRAIN_SILOS)
-    state = opt.init(params)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    total = {name: 0 for name in counts(K)}
-    per_step = []
-    for i in range(TRAIN_STEPS):
-        batch = pipe.batch(i, device=dev)
-        h_before = [h.clone() for h in tree_leaves(state.h)] if i == 1 else None
-        K.reset_launches()
-        ms, (params, state, m) = host_ms(lambda: step(params, state, batch))
-        got = counts(K)
-        for name, c in got.items():
-            total[name] += c
-        loss = float(m["loss"])
-        require(bool(torch.isfinite(m["loss"])), f"step {i}: loss {loss}")
-        require(all(bool(torch.isfinite(h).all()) for h in tree_leaves(state.h)),
-                f"step {i}: non-finite H")
-        refreshed = m["curv_refreshed"] == 1.0
-        require(refreshed == (i % TRAIN_REFRESH == 0),
-                f"step {i}: curv_refreshed {m['curv_refreshed']}")
-        for name in ("diff_topk_payload", "block_scatter_accumulate"):
-            require((got[name] > 0) == refreshed,
-                    f"step {i} (refresh {refreshed}) launched {name} "
-                    f"{got[name]} times")
-        require(got["flash_attention"] == 0,
-                f"step {i}: the train step launched K9")
-        if h_before is not None:
-            require(all(torch.equal(a, b) for a, b in
-                        zip(h_before, tree_leaves(state.h))),
-                    "H changed on a step without a refresh")
-            del h_before
-        per_step.append({"ms": ms, "loss": loss, "refreshed": refreshed,
-                         "grad_norm": float(m["grad_norm"]),
-                         "k1": got["diff_topk_payload"],
-                         "k4": got["block_scatter_accumulate"]})
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del state, m, opt, step
+    params, state, per_step, total, peak_gb = fednl_steps(
+        "qwen2", model, params, pipe, opt, K, {})
+    del state, opt
     torch.cuda.empty_cache()
 
     # the first-order baseline at the same shape
@@ -4326,9 +4368,10 @@ MOE_GRAD_B, MOE_GRAD_T = 2, 600
 REF_BAND_ROWS = 1024 * BLOCK
 
 
-def refresh_checks(inputs: dict) -> dict:
+def refresh_checks(inputs: dict, label: str) -> dict:
     """K1 and K4 on one refresh's inputs ({name: (silo-stacked
-    observations, H)}), each tensor as the refresh gives it to them:
+    observations, H)}) of ``label``'s train step, each tensor as the
+    refresh gives it to them:
     K1's payloads bit for bit against ``diff_topk_payload_ref`` per silo
     and band of tile rows, its ||D||^2 to 1e-5; K4's sum of those
     payloads bit for bit against ``block_scatter_accumulate_ref`` on CPU
@@ -4362,18 +4405,18 @@ def refresh_checks(inputs: dict) -> dict:
                                              CURVATURE_K, BLOCK)
                 require(torch.equal(v[s:s + 1, t0:t1], want[0])
                         and torch.equal(i[s:s + 1, t0:t1], want[1]),
-                        f"granite's refresh: diff_topk_payload differs from "
+                        f"{label}'s refresh: diff_topk_payload differs from "
                         f"its plain version on {name} {tuple(h.shape)}, "
                         f"silo {s}, rows {r0}:{r1}")
                 sq_want += float(want[2][0])
                 del want
             rel = abs(float(sq[s]) - sq_want) / sq_want
-            require(rel <= 1e-5, f"granite's refresh: diff_topk_payload's "
+            require(rel <= 1e-5, f"{label}'s refresh: diff_topk_payload's "
                     f"||D||^2 on {name} is off by {rel:.2e}")
             rel_sq = max(rel_sq, rel)
         got = block_scatter_accumulate(v, i, grid, BLOCK)
         want = block_scatter_accumulate_ref(v.cpu(), i.cpu(), grid, BLOCK)
-        require(torch.equal(got.cpu(), want), f"granite's refresh: "
+        require(torch.equal(got.cpu(), want), f"{label}'s refresh: "
                 f"block_scatter_accumulate differs from its plain version "
                 f"on {name} {tuple(h.shape)}")
         out[name] = {"shape": list(h.shape), "silos": n,
@@ -4381,8 +4424,8 @@ def refresh_checks(inputs: dict) -> dict:
                      "payloads_and_sum": "bitwise", "sq_norm_rel": rel_sq}
         del v, i, sq, got, want
     torch.cuda.empty_cache()
-    print(f"# granite's refresh: K1 and K4 match their plain versions on "
-          f"layers[0].ffn's wi and router: {json.dumps(out)}", flush=True)
+    print(f"# {label}'s refresh: K1 and K4 match their plain versions on "
+          f"{', '.join(inputs)}: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -4399,7 +4442,7 @@ def train_granite(dev, seed: int, K, card: str) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenPipeline
-    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.launch.steps import make_optimizer
     from repro_torch.models import build_model
     from repro_torch.models.common import cross_entropy
     from repro_torch.tree import tree_leaves, tree_map
@@ -4427,51 +4470,12 @@ def train_granite(dev, seed: int, K, card: str) -> dict:
         return refresh(state, obs)
 
     opt = dataclasses.replace(opt, refresh=keep_inputs)
-    step = make_train_step(model, opt, microbatches=TRAIN_MB,
-                           refresh_every=TRAIN_REFRESH, n_silos=TRAIN_SILOS)
-    state = opt.init(params)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    total = {name: 0 for name in counts(K)}
-    per_step = []
-    for i in range(TRAIN_STEPS):
-        batch = pipe.batch(i, device=dev)
-        h_before = [h.clone() for h in tree_leaves(state.h)] if i == 1 else None
-        kept["want"] = i == TRAIN_STEPS - 1
-        K.reset_launches()
-        ms, (params, state, m) = host_ms(lambda: step(params, state, batch))
-        got = counts(K)
-        for name, c in got.items():
-            total[name] += c
-        refreshed = m["curv_refreshed"] == 1.0
-        require(bool(torch.isfinite(m["loss"])), f"granite step {i}: loss "
-                f"{float(m['loss'])}")
-        require(all(bool(torch.isfinite(h).all()) for h in tree_leaves(state.h)),
-                f"granite step {i}: non-finite H")
-        require(refreshed == (i % TRAIN_REFRESH == 0),
-                f"granite step {i}: curv_refreshed {m['curv_refreshed']}")
-        require(got["diff_topk_payload"] == (n_leaves if refreshed else 0)
-                and (got["block_scatter_accumulate"] > 0) == refreshed,
-                f"granite step {i} (refresh {refreshed}) launched K1 "
-                f"{got['diff_topk_payload']} times for {n_leaves} tensors, "
-                f"K4 {got['block_scatter_accumulate']}")
-        require(got["flash_attention"] == 0,
-                f"granite step {i}: the train step launched K9")
-        if h_before is not None:
-            require(all(torch.equal(a, b) for a, b in
-                        zip(h_before, tree_leaves(state.h))),
-                    "granite: H changed on a step without a refresh")
-            del h_before
-        per_step.append({"ms": ms, "loss": float(m["loss"]),
-                         "refreshed": refreshed,
-                         "grad_norm": float(m["grad_norm"]),
-                         "k1": got["diff_topk_payload"],
-                         "k4": got["block_scatter_accumulate"]})
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params, state, per_step, total, peak_gb = fednl_steps(
+        "granite", model, params, pipe, opt, K, kept)
     experts_h = state.h["layers"][0]["ffn"]["wi"]
     require(experts_h.dim() == 4 and bool((experts_h != 0).any()),
             "granite: the expert leaves' curvature was not learned")
-    del state, m, opt, step, experts_h
+    del state, opt, experts_h
     torch.cuda.empty_cache()
 
     # the loss holds the aux term: cross-entropy + router_aux_weight * aux
@@ -4488,7 +4492,7 @@ def train_granite(dev, seed: int, K, card: str) -> dict:
     del params, model, logits
     torch.cuda.empty_cache()
     require("inputs" in kept, "granite: the last step did not refresh")
-    kernels = refresh_checks(kept.pop("inputs"))
+    kernels = refresh_checks(kept.pop("inputs"), "granite")
 
     # the reduced model: the card against the CPU port, 3 fednl steps
     steps_gap = reduced_steps_card_vs_cpu(
@@ -4538,6 +4542,244 @@ def train_granite(dev, seed: int, K, card: str) -> dict:
     return total
 
 
+# -- phase 11c: xlstm-350m trained whole, jamba's Mamba under autograd ---------------
+
+# xlstm-350m as phase 11 (fednl k = 2,048, 4 microbatches, 4 silos, a
+# refresh every 2 steps, 3 steps), train_4k's batch of 256 cut to 4 and its
+# T of 4,096 to 512: the sLSTM's step loop is host-bound (about 22
+# launches a token, PERF.md section 5)
+XLSTM_TRAIN_T = 512
+# one full-width jamba Mamba mixer, forward and backward at B = 1
+MAMBA_BWD_T = 4096
+# its bf16 input gradient against f32: within 8 bf16 steps of the largest
+MAMBA_GRAD_STEPS = 8
+
+
+def train_xlstm(dev, seed: int, K, card: str) -> dict:
+    """``make_train_step`` on xlstm-350m whole: refresh flags [1, 0, 1],
+    H bit for bit unchanged on step 1, finite loss and H, K1 once per
+    tensor and K4 launched on the refresh steps alone, K9 never; ms per
+    step, of each refresh and precondition, peak memory; K1 and K4 on the
+    last refresh's inputs of an mLSTM and the sLSTM leaf against their
+    plain versions. Returns the launches of the 3 steps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.steps import make_optimizer
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config(XLSTM)
+    model = build_model(cfg, use_remat=True)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    n_leaves = len(tree_leaves(params))
+    slstm = [m for m, _ in model.kinds].index("slstm")
+    pipe = TokenPipeline(vocab_size=cfg.vocab, seq_len=XLSTM_TRAIN_T,
+                         global_batch=TRAIN_B, seed=seed)
+    log: dict = {}
+    opt = _timed(make_optimizer("fednl", TRAIN_LR, k_per_block=CURVATURE_K),
+                 log)
+    kept: dict = {}
+    refresh = opt.refresh
+
+    def keep_inputs(state, obs):
+        """The refresh, keeping the last one's observations and H of
+        layer 0's mLSTM query and the sLSTM's recurrent weight."""
+        if kept.get("want"):
+            kept["inputs"] = {
+                "layers[0].mixer.wq (mLSTM)": (
+                    obs["layers"][0]["mixer"]["wq"],
+                    state.h["layers"][0]["mixer"]["wq"]),
+                f"layers[{slstm}].mixer.wr (sLSTM)": (
+                    obs["layers"][slstm]["mixer"]["wr"],
+                    state.h["layers"][slstm]["mixer"]["wr"])}
+        return refresh(state, obs)
+
+    opt = dataclasses.replace(opt, refresh=keep_inputs)
+    params, state, per_step, total, peak_gb = fednl_steps(
+        "xlstm", model, params, pipe, opt, K, kept)
+    for pos, (mixer, _) in enumerate(model.kinds):
+        h = state.h["layers"][pos]["mixer"]
+        require(all(bool((x != 0).any()) for x in tree_leaves(h)),
+                f"xlstm: a {mixer} leaf at position {pos} learned no "
+                f"curvature")
+    del state, opt, params, model
+    torch.cuda.empty_cache()
+    require("inputs" in kept, "xlstm: the last step did not refresh")
+    kernels = refresh_checks(kept.pop("inputs"), "xlstm")
+    rep = {"shape": f"B={TRAIN_B}, T={XLSTM_TRAIN_T}, {cfg.n_layers} layers, "
+                    f"{cfg.dtype}, {TRAIN_MB} microbatches, {TRAIN_SILOS} "
+                    f"silos, refresh every {TRAIN_REFRESH}, k={CURVATURE_K}",
+           "tensors": n_leaves, "steps": per_step,
+           "refresh_ms": log.get("refresh", []),
+           "precondition_ms": log.get("precondition", []),
+           "peak_memory_gb": peak_gb, "refresh_kernels_vs_plain": kernels,
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    print(json.dumps({"train_xlstm": rep}), flush=True)
+    return total
+
+
+def mamba_backward(dev, seed: int, card: str) -> dict:
+    """One full-width jamba Mamba mixer (d 8,192, Di 16,384, S 16; bf16,
+    B = 1, T = ``MAMBA_BWD_T``): forward and backward through the scan's
+    checkpointed chunks, twice, by the host clock; the peak memory of a
+    pass; the input gradient against the same pass on f32 copies, within
+    ``MAMBA_GRAD_STEPS`` bf16 steps of its largest entry."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(JAMBA)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = mamba.mamba_init(gen, cfg)
+    x = torch.randn((1, MAMBA_BWD_T, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.tdtype)
+    g = torch.randn((1, MAMBA_BWD_T, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.tdtype)
+
+    def grads(params, xin, dy, c):
+        leaves = tree_map(lambda a: a.detach().requires_grad_(True), params)
+        xg = xin.detach().requires_grad_(True)
+        fwd_ms, y = host_ms(lambda: mamba.mamba_forward(leaves, xg, c))
+        bwd_ms, _ = host_ms(lambda: y.backward(dy))
+        return fwd_ms, bwd_ms, xg.grad
+
+    runs = []
+    for _ in range(2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        fwd_ms, bwd_ms, gx = grads(p, x, g, cfg)
+        runs.append({"forward_ms": fwd_ms, "backward_ms": bwd_ms,
+                     "peak_gb_over_held": (torch.cuda.max_memory_allocated()
+                                           - held) / 1e9})
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    _, _, gx32 = grads(tree_map(lambda a: a.float(), p), x.float(), g.float(),
+                       cfg32)
+    gap = float((gx.float() - gx32).abs().max())
+    scale = float(gx32.abs().max())
+    require(bool(torch.isfinite(gx).all()) and scale > 0
+            and gap <= MAMBA_GRAD_STEPS * 2.0 ** -7 * scale,
+            f"the full-width Mamba mixer's bf16 input gradient is {gap:.3e} "
+            f"off f32 (max {scale:.3e})")
+    rep = {"shape": f"B=1, T={MAMBA_BWD_T}, d {cfg.d_model}, Di "
+                    f"{cfg.mamba.expand * cfg.d_model}, S "
+                    f"{cfg.mamba.d_state}, bf16",
+           "runs": runs,
+           "input_grad_vs_f32_bf16_steps_of_max": gap / (scale * 2.0 ** -7),
+           "card": card}
+    del p, x, g, gx, gx32
+    torch.cuda.empty_cache()
+    return rep
+
+
+def train_jamba(dev, seed: int, K, card: str) -> dict:
+    """Reduced jamba's 3 fednl steps on the card against the CPU port (1e-4
+    of each leaf's largest |value|), its K1 and K4 launched on the card;
+    one full-width Mamba mixer's forward and backward
+    (``mamba_backward``). Returns the launches of the card's 3 steps."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    K.reset_launches()
+    gap = reduced_steps_card_vs_cpu(get_config(JAMBA, smoke=True), dev, seed)
+    launches = counts(K)
+    require(launches["diff_topk_payload"] > 0
+            and launches["block_scatter_accumulate"] > 0
+            and launches["flash_attention"] == 0,
+            f"reduced jamba's train steps launched {launches}")
+    rep = {"reduced_steps_card_vs_cpu_max_gap_over_leaf_max": gap,
+           "reduced_launches": {"k1": launches["diff_topk_payload"],
+                                "k4": launches["block_scatter_accumulate"]},
+           "mamba_mixer_backward": mamba_backward(dev, seed, card),
+           "phase_s": time.perf_counter() - t_phase, "card": card}
+    print(json.dumps({"train_jamba": rep}), flush=True)
+    return launches
+
+
+# -- phase 12: the roofline of the measured train steps ------------------------------
+
+# (arch, batch, T) of each measured train step (phases 11, 11b, 11c)
+ROOFLINE_STEPS = [("qwen2-0.5b", TRAIN_B, TRAIN_T),
+                  ("granite-moe-1b-a400m", TRAIN_B, TRAIN_T),
+                  (XLSTM, TRAIN_B, XLSTM_TRAIN_T)]
+
+
+def count_train_steps() -> int:
+    """The ``--count-train-steps`` mode: ``dryrun.train_step_roofline`` of
+    each measured step, with and without a refresh, on the meta device (no
+    card); one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import train_step_roofline
+
+    torch.set_num_threads(1)
+    out = {}
+    for arch, b, t in ROOFLINE_STEPS:
+        for refresh in (True, False):
+            t0 = time.perf_counter()
+            rl, c = train_step_roofline(get_config(arch), b, t, "fednl",
+                                        refresh, k_per_block=CURVATURE_K)
+            out[f"{arch}:{'refresh' if refresh else 'plain'}"] = {
+                "flops": rl.flops, "bytes": rl.bytes_hbm,
+                "t_compute_s": rl.t_compute, "t_memory_s": rl.t_memory,
+                "model_flops": rl.model_flops, "aten_ops": c["ops"],
+                "count_s": time.perf_counter() - t0}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def start_train_counts():
+    """This script in ``--count-train-steps`` mode, in the background on
+    the host (one thread, no card): phase 12 reads its line."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--count-train-steps"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def roofline_of_steps(counter, card: str) -> dict:
+    """Each measured train step beside the roofline of its shape (the
+    background count): its compute and memory terms, and the step's ms
+    over the larger. A step faster than either term fails: the count
+    would be wrong."""
+    try:
+        out, err = counter.communicate(timeout=1800)
+    except subprocess.TimeoutExpired:
+        counter.kill()
+        counter.communicate()
+        raise SmokeFailure("the train steps' count did not finish")
+    require(counter.returncode == 0 and out.strip(),
+            f"the train steps' count failed: {err[-2000:]}")
+    rows = json.loads(out.strip().splitlines()[-1])
+    report = {}
+    for arch, b, t in ROOFLINE_STEPS:
+        require(arch in MEASURED_STEPS, f"no measured train step of {arch}")
+        for i, st in enumerate(MEASURED_STEPS[arch]):
+            rl = rows[f"{arch}:{'refresh' if st['refreshed'] else 'plain'}"]
+            floor_ms = 1e3 * max(rl["t_compute_s"], rl["t_memory_s"])
+            require(st["ms"] >= 1e3 * rl["t_compute_s"]
+                    and st["ms"] >= 1e3 * rl["t_memory_s"],
+                    f"{arch} step {i} took {st['ms']:.1f} ms, under its "
+                    f"roofline's compute {1e3 * rl['t_compute_s']:.1f} ms or "
+                    f"memory {1e3 * rl['t_memory_s']:.1f} ms term")
+            report[f"{arch} step {i}"] = {
+                "shape": f"B={b}, T={t}", "refreshed": st["refreshed"],
+                "ms": st["ms"], "compute_ms": 1e3 * rl["t_compute_s"],
+                "memory_ms": 1e3 * rl["t_memory_s"],
+                "ms_over_roofline": st["ms"] / floor_ms,
+                "flops": rl["flops"], "bytes": rl["bytes"],
+                "model_flops": rl["model_flops"]}
+    report["count_s"] = {key: row["count_s"] for key, row in rows.items()}
+    print(json.dumps({"roofline_train_steps": report, "card": card}),
+          flush=True)
+    return report
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's C++ name with its template arguments, without its
     namespace and parameters (``c++filt``; the mangled name without it)."""
@@ -4573,11 +4815,17 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the optimizer phase's weights and "
                              "gradients")
+    parser.add_argument("--count-train-steps", action="store_true",
+                        help="only count the measured train steps' FLOPs and "
+                             "bytes on the meta device (phase 12 runs this "
+                             "in the background)")
     args = parser.parse_args()
     try:
         import torch
     except ImportError:
         return fail("PyTorch is not installed")
+    if args.count_train_steps:
+        return count_train_steps()
     if not torch.cuda.is_available():
         return fail("CUDA is not available")
     src = Path(__file__).resolve().parent / "src"
@@ -4601,6 +4849,7 @@ def main() -> int:
     print(f"# card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
 
+    counter = None
     try:
         # -- 2. build -------------------------------------------------------
         t0 = time.perf_counter()
@@ -4609,6 +4858,8 @@ def main() -> int:
             for line in ptxas_lines(log):
                 print(f"# ptxas {name}: {line}")
         print(f"# build: {time.perf_counter() - t0:.1f} s", flush=True)
+        # phase 12's count of the train steps, on the host meanwhile
+        counter = start_train_counts()
 
         # -- 3-7. kernels and paths -----------------------------------------
         err = {name: 0.0 for name in K.LAUNCHES}
@@ -4639,6 +4890,16 @@ def main() -> int:
         print(f"# MoE train phase in {time.perf_counter() - t0:.1f} s; "
               f"launches K1 {paths['train_granite']['diff_topk_payload']}, "
               f"K4 {paths['train_granite']['block_scatter_accumulate']}",
+              flush=True)
+        t0 = time.perf_counter()
+        paths["train_xlstm"] = train_xlstm(dev, args.seed, K, card)
+        paths["train_jamba_reduced"] = train_jamba(dev, args.seed, K, card)
+        print(f"# hybrid and ssm train phase in "
+              f"{time.perf_counter() - t0:.1f} s; launches K1 "
+              f"{paths['train_xlstm']['diff_topk_payload']} (xlstm) + "
+              f"{paths['train_jamba_reduced']['diff_topk_payload']} (reduced "
+              f"jamba), K4 {paths['train_xlstm']['block_scatter_accumulate']}"
+              f" + {paths['train_jamba_reduced']['block_scatter_accumulate']}",
               flush=True)
         paths["topk_aggregate_d2048"], k3_pay = topk_aggregate_k3(dev, K, err)
         k2 = k2_measure(dev, prob, x0, k3_pay)
@@ -4709,8 +4970,15 @@ def main() -> int:
         grad_qwen2(dev, args.seed, K)
         print(f"# gradient phase in {time.perf_counter() - t0:.1f} s",
               flush=True)
+
+        # -- 12. the measured train steps against their roofline -----------
+        roofline_of_steps(counter, card)
     except SmokeFailure as exc:
         return fail(str(exc))
+    finally:
+        if counter is not None and counter.poll() is None:
+            counter.kill()
+            counter.communicate()
 
     # -- 12. result lines ----------------------------------------------------
     print(json.dumps({"profiler_misses": PROFILER_MISSES}))

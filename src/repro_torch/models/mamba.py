@@ -22,6 +22,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .common import dense_init
 from .config import ModelConfig
@@ -63,15 +64,32 @@ SSM_CHUNK = 256
 def _scan(decay: torch.Tensor, inc: torch.Tensor) -> torch.Tensor:
     """Inclusive scan of h_t = decay_t h_{t-1} + inc_t along axis 1 (from
     h_{-1} = 0) in log2(T) steps: at offset o each step folds h_{t-o}
-    into h_t, reading the previous step's buffers (Hillis-Steele)."""
+    into h_t, reading the previous step's buffers (Hillis-Steele).
+
+    Where autograd records (grad enabled and an input that requires a
+    gradient) each step is built out of place, ``torch.cat`` of the
+    prefix and the folded tail, since autograd cannot differentiate a
+    write through ``out=``; the products are the same, so both ways give
+    the same bits."""
     t = inc.shape[1]
+    graph = torch.is_grad_enabled() and (inc.requires_grad
+                                         or decay.requires_grad)
     off = 1
     while off < t:
+        last = 2 * off >= t                # the last step needs no decay
+        if graph:
+            inc = torch.cat([inc[:, :off], torch.addcmul(
+                inc[:, off:], inc[:, :-off], decay[:, off:])], dim=1)
+            if not last:
+                decay = torch.cat([decay[:, :off], torch.mul(
+                    decay[:, :-off], decay[:, off:])], dim=1)
+            off *= 2
+            continue
         nxt = torch.empty_like(inc)
         nxt[:, :off] = inc[:, :off]
         torch.addcmul(inc[:, off:], inc[:, :-off], decay[:, off:],
                       out=nxt[:, off:])
-        if 2 * off < t:                    # the last step needs no decay
+        if not last:
             dnext = torch.empty_like(decay)
             dnext[:, :off] = decay[:, :off]
             torch.mul(decay[:, :-off], decay[:, off:], out=dnext[:, off:])
@@ -90,26 +108,41 @@ def _ssm_scan(u, dt, b, c, a, chunk: int = SSM_CHUNK) -> torch.Tensor:
     T > ``chunk`` the chunks run in order carrying the (B, Di, S) state,
     which is folded into each chunk's first increment; T is zero-padded
     to a multiple of ``chunk`` (a pad step has Delta = 0: decay 1, no
-    increment). T <= ``chunk`` is one scan."""
+    increment). T <= ``chunk`` is one scan.
+
+    Where autograd records, each chunk runs under ``checkpoint``: the
+    backward keeps the carried states and one chunk's scan at a time
+    (about 4.3 GB at jamba's width), not every chunk's (about 69 GB at
+    T = 4,096). Without a gradient the chunks run directly."""
+    graph = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (u, dt, b, c, a))
 
     def one(h0, ui, dti, bi, ci):
         decay = torch.exp(dti[..., None] * a[None, None])      # (B,L,Di,S)
         inc = (dti * ui)[..., None] * bi[:, :, None, :]
-        if h0 is not None:
+        if h0 is not None and graph:
+            inc = torch.cat([inc[:, :1] + decay[:, :1] * h0[:, None],
+                             inc[:, 1:]], dim=1)
+        elif h0 is not None:
             inc[:, 0] += decay[:, 0] * h0
         h = _scan(decay, inc)
         return h[:, -1], torch.einsum("btds,bts->btd", h, ci)
 
+    def run(*args):
+        if graph:
+            return checkpoint(one, *args, use_reentrant=False)
+        return one(*args)
+
     bsz, t, di = u.shape
     if t <= chunk:
-        return one(None, u, dt, b, c)[1]
+        return run(None, u, dt, b, c)[1]
     pad = (-t) % chunk
     if pad:
         u, dt, b, c = (F.pad(x, (0, 0, 0, pad)) for x in (u, dt, b, c))
     h = torch.zeros((bsz, di, b.shape[-1]), dtype=u.dtype, device=u.device)
     ys = []
     for s in range(0, t + pad, chunk):
-        h, y = one(h, *(x[:, s:s + chunk] for x in (u, dt, b, c)))
+        h, y = run(h, *(x[:, s:s + chunk] for x in (u, dt, b, c)))
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :t]
 

@@ -727,3 +727,82 @@ def test_hybrid_and_ssm_prefill_and_decode_match_cpu(cuda, arch):
                                    toks[:, pos:pos + 1].to(cuda), pos)
         gap = float((lg.cpu() - want).abs().max())
         assert gap <= 1e-4 * float(want.abs().max()), pos
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m"])
+def test_hybrid_and_ssm_fednl_train_steps_match_cpu(cuda, arch):
+    """3 fednl steps of each reduced model in f32 (B = 4, T = 300, so the
+    Mamba scan runs two checkpointed chunks; 2 microbatches, 2 silos, a
+    refresh every 2 steps, exact Block-Top-K) on the card against the CPU
+    port: every parameter leaf within 1e-4 of its largest |value|, and
+    every curvature leaf too, but xlstm's within 1e-3: f32 rounding alone
+    moves its H by 1.6e-4 of a leaf's largest at this shape (one f32 step
+    of noise on the weights, ``scripts/train_rounding_floor.py``); K1 and
+    K4 launched on the refresh steps alone, no K9."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, use_remat=True)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (3, 4, 300),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        opt = make_optimizer("fednl", 1e-2, k_per_block=64, block=8)
+        step = make_train_step(model, opt, microbatches=2, refresh_every=2,
+                               n_silos=2)
+        p = _to(params, dev)
+        state = opt.init(p)
+        for i in range(3):
+            batch = {"tokens": toks[i].to(dev),
+                     "targets": toks[i].roll(-1, dims=1).to(dev)}
+            reset_launches()
+            p, state, m = step(p, state, batch)
+            if dev != "cpu":
+                refreshed = m["curv_refreshed"] == 1.0
+                assert refreshed == (i % 2 == 0)
+                assert (LAUNCHES["diff_topk_payload"] > 0) == refreshed
+                assert (LAUNCHES["block_scatter_accumulate"] > 0) == refreshed
+                assert LAUNCHES["flash_attention"] == 0
+        out[str(dev)] = {"params": [t.cpu() for t in tree_leaves(p)],
+                         "h": [t.cpu() for t in tree_leaves(state.h)]}
+    h_tol = 1e-3 if arch == "xlstm-350m" else 1e-4
+    for name, tol in (("params", 1e-4), ("h", h_tol)):
+        for i, (got, want) in enumerate(zip(out[str(cuda)][name],
+                                            out["cpu"][name])):
+            rel = float((got - want).abs().max()) / max(
+                float(want.abs().max()), 1e-30)
+            assert rel <= tol, (name, i, tuple(want.shape), rel)
+
+
+def test_ssm_scan_backward_on_card_matches_cpu(cuda):
+    """The Mamba scan's gradient at T = 300 (two chunks of 256, padded) on
+    the card against the CPU port's, f32, within 1e-5 of each largest
+    |grad|; the card's no-grad output equals its grad path's bit for
+    bit."""
+    from repro_torch.models import mamba
+
+    gen = torch.Generator().manual_seed(3)
+    t, di, s = 300, 24, 16
+    args = [torch.randn((2, t, di), generator=gen),
+            0.1 * torch.rand((2, t, di), generator=gen) + 1e-3,
+            torch.randn((2, t, s), generator=gen),
+            torch.randn((2, t, s), generator=gen),
+            -torch.arange(1, s + 1, dtype=torch.float32)[None].repeat(di, 1)]
+    w = torch.randn((2, t, di), generator=gen)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [a.detach().to(dev).requires_grad_(True) for a in args]
+        y = mamba._ssm_scan(*leaves)
+        (y * w.to(dev)).sum().backward()
+        grads[str(dev)] = [a.grad.cpu() for a in leaves]
+        if dev != "cpu":
+            with torch.no_grad():
+                assert torch.equal(mamba._ssm_scan(*[a.to(dev) for a in args]),
+                                   y.detach())
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
