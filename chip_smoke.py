@@ -227,9 +227,26 @@ Phases, each failing the run with a non-zero exit:
      bytes of ``launch/dryrun.py``'s count on the meta device, made in a
      background process from the build on) of each measured train step
      (phases 11, 11b, 11c) beside its ms: a step under its compute or
-     memory term fails; then print what the profiler failed to record
-     (each such figure timed by CUDA events instead, or not measured), the
-     kernel line, the card line, and last the device line.
+     memory term fails;
+  13. the autotuner (every earlier phase ran on an empty tuning cache)
+     and the launch budgets: every kernel function of every source at
+     every argument its paths and the tuner's candidates give it, priced
+     by ``kernels/resources.launch_resources`` equal to the card's launch
+     query (``cudaFuncGetAttributes`` and the launcher's dynamic shared
+     bytes) and within 232,448 shared bytes and 65,536 registers a block,
+     registers and shared bytes printed; K2 at w8a and at the K3 shape,
+     K7 on the w8a Hessian stack, K8's small_n route on wg[0] @ Q and K9
+     at qwen2's (32,768 x 14 / 2 x 64) and jamba's (4,096 x 64 / 8 x 128)
+     bf16 prefill shapes tuned, each candidate's us, the winner, the
+     default's and the winner's ms; each op then called with no config
+     launches the winner (its resolver, its launch counter) and equals
+     its plain version (K2/K3 and K7's H bit for bit, K8 to 1e-5, K9 by
+     ``bf16_attention_check``); the cache saved and reloaded through
+     ``REPRO_TORCH_TUNING_CACHE`` resolves the same;
+  then print what the profiler failed to record (each such figure timed
+  by CUDA events instead, or not measured), the kernel line (with each
+  wrapper's registers and shared bytes, ``launch``, and its tuned cases,
+  ``tuned``), the card line, and last the device line.
 It imports nothing of JAX or of the JAX package.
 """
 
@@ -4780,6 +4797,418 @@ def roofline_of_steps(counter, card: str) -> dict:
     return report
 
 
+# -- phase 13: the autotuner and the kernels' launch budgets -----------------
+
+# the launch query's args that the paths and the tuner's candidates give
+# each kernel: payload widths k of K1/K5 (K6 takes 0), every digit width of
+# K2's count/place, every sum width 2^log_sub of K2's sum, every K4 block;
+# K7, K8 and K9 launch with no argument
+QUERY_ARGS = {
+    "block_topk": (0, 1, 8, 32, 64, 300, 2048, 4096, 16384),
+    "accum_count_kernel": tuple(range(1, 12)),
+    "accum_place_kernel": tuple(range(1, 12)),
+    "accum_sum_kernel": tuple(range(0, 12)),
+    "block_scatter_kernel": (8, 16, 32, 64, 128, 256),
+}
+QWEN_K9 = (32768, 14, 2, 64)       # qwen2-0.5B layer 0's prefill: T, H, KV, hd
+JAMBA_K9 = (4096, 64, 8, 128)      # jamba's attention layer at n_rep 8
+
+
+def query_args(source: str, kernel: str) -> tuple:
+    if source == "block_topk":
+        return (0,) if kernel.startswith("block_topk_dense") \
+            else QUERY_ARGS["block_topk"]
+    return QUERY_ARGS.get(kernel.split("<")[0], (0,))
+
+
+def launch_matches(lc, seen: dict) -> dict:
+    """``launch_resources``' pricing of one launch against the card's
+    launch query: threads, dynamic shared bytes, registers and static
+    shared bytes equal, the block within 227 KB and 65,536 registers."""
+    from repro_torch.kernels.resources import query
+
+    key = (lc.source, lc.kernel, lc.arg)
+    got = seen.get(key)
+    if got is None:
+        got = seen[key] = query(lc)
+    want = {"registers": lc.registers, "static_smem": lc.static_smem,
+            "threads": lc.threads, "dynamic_smem": lc.dynamic_smem}
+    for name, value in want.items():
+        require(got[name] == value, f"{lc.kernel} (arg {lc.arg}): "
+                f"launch_resources gives {name} {value}, the card "
+                f"{got[name]}")
+    require(lc.threads <= got["max_threads"], f"{lc.kernel}: {lc.threads} "
+            f"threads over the kernel's {got['max_threads']}")
+    require(lc.fits(), f"over a block's budget: {lc.describe()}")
+    return got
+
+
+def kernel_budgets(seen: dict) -> dict:
+    """Every kernel function of every source at every argument its paths
+    and the tuner's candidates give it (``QUERY_ARGS``): the pricing in
+    Python equal to the card's query, each launch within budget. Returns
+    each function's registers and shared bytes (static; dynamic at its
+    largest argument)."""
+    from repro_torch.kernels.resources import KERNELS
+
+    out = {}
+    for source, names in KERNELS.items():
+        for kernel in names:
+            for arg in query_args(source, kernel):
+                got = launch_matches(_launch_of(source, kernel, arg), seen)
+            out[kernel] = {"registers": got["registers"],
+                           "static_smem": got["static_smem"],
+                           "dynamic_smem": got["dynamic_smem"],
+                           "threads": got["threads"],
+                           "block_registers": got["registers"]
+                           * got["threads"]}
+    return out
+
+
+def _launch_of(source: str, kernel: str, arg: int):
+    """The ``Launch`` that ``launch_resources`` prices for ``kernel`` (a
+    name of ``resources.KERNELS``) at query argument ``arg``."""
+    import torch
+    from repro_torch.kernels import resources as R
+    from repro_torch.kernels.scatter_accum.ops import ScatterPlan
+
+    base, _, rest = kernel.partition("<")
+    targs = rest.rstrip(">").split(", ") if rest else []
+    t = torch.float64 if "double" in targs else torch.float32
+    vec = targs[-1:] == ["true"]
+    if base == "diff_topk_payload_kernel":
+        found = R.launch_resources("diff_topk_payload", dtype=t, k=arg,
+                                   vec=vec, shared_b=targs[1] == "true")
+    elif base == "block_topk_payload_kernel":
+        found = R.launch_resources("block_topk_payload", dtype=t, k=arg,
+                                   vec=vec)
+    elif base == "block_topk_dense_kernel":
+        found = R.launch_resources("block_topk", dtype=t, vec=vec)
+    elif base == "block_scatter_kernel":
+        found = R.launch_resources("block_scatter_accumulate", dtype=t,
+                                   block=arg, vec=vec)
+    elif base.startswith("accum_"):
+        # a two-pass plan with digits of `arg` bits and sum warps of 2^arg
+        # cells: its launches include every accum_* kernel of type t
+        plan = ScatterPlan(entries=1, cells=1, log_r=arg, log_sub=arg,
+                           regions=1, digit_bits=max(arg, 1), passes=2,
+                           seg=32, chunks=1, layout=(), scratch_bytes=0)
+        found = R.launch_resources("scatter_accumulate", dtype=t, plan=plan)
+    elif base.startswith("flash_attention_kernel"):
+        hd, bq, bk = (int(x) for x in targs[-3:])
+        found = R.launch_resources(
+            "flash_attention", dtype=torch.bfloat16 if "wgmma" in base
+            else torch.float32, hd=hd, bq=bq, bk=bk)
+    elif base == "hess_update_kernel":
+        found = R.launch_resources("hess_update", dtype=t)
+    else:
+        route, layout, chunks = {
+            "tiled_matmul_kernel": ("tiled", "rows", 1),
+            "tiled_matmul_small_k_kernel": ("small_k", "rows", 1),
+            "tiled_matmul_small_n_rows_kernel": ("small_n", "rows", 1),
+            "tiled_matmul_small_n_cols_kernel": ("small_n", "cols", 1),
+            "tiled_matmul_sum_partials_kernel": ("small_n", "rows", 2)}[base]
+        found = R.launch_resources("tiled_matmul", route=route, layout=layout,
+                                   chunks=chunks)
+    matches = [lc for lc in found if lc.kernel == kernel]
+    require(len(matches) > 0 and matches[0].source == source,
+            f"launch_resources prices no launch of {kernel}")
+    return matches[0]
+
+
+def _tune(name: str, autotune, default, pool: list, run, launches,
+          card: str, seen: dict) -> dict:
+    """Run the tuner (``autotune(timings)``: an ``autotune_*`` of
+    ``kernels.tuning`` that measures 20 calls a candidate and records the
+    winner), price every candidate of ``pool`` equal to the card's query
+    and within budget, and time the untuned ``default`` and the winner
+    (CUDA events, 50 calls each, in turns default, winner, winner,
+    default). Returns the entry: each measured candidate's us, the
+    winner, both ms."""
+    for cfg in pool:
+        for lc in launches(cfg):
+            launch_matches(lc, seen)
+    us: dict = {}
+    winner = autotune(us)
+    d1 = time_cuda(lambda: run(default))
+    w1 = time_cuda(lambda: run(winner))
+    w2 = time_cuda(lambda: run(winner))
+    d2 = time_cuda(lambda: run(default))
+    out = {"candidates_us": {json.dumps(c.to_dict()): us[c] for c in us},
+           "pool": len(pool), "default": default.to_dict(),
+           "winner": winner.to_dict(), "default_ms": [d1, d2],
+           "winner_ms": [w1, w2], "card": card}
+    print(f"# tuned {name}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def tuning_phase(dev, prob, x0, wg0, card: str, K) -> dict:
+    """Phase 13: every kernel function's launch priced in Python equal to
+    the card's query and within budget (``kernel_budgets``); K2 at w8a and
+    at the K3 shape, K7 on the w8a Hessian stack, K8's small_n on
+    wg[0] @ Q and K9 at qwen2's and jamba's prefill shapes tuned into a
+    fresh cache; then each op called with no config launches the cached
+    config (its resolver and its launch counter) and equals its plain
+    version (K2 and K3 bit for bit on CPU copies, K7's H bit for bit and
+    its l to 1e-6, K8 to 1e-5 of the largest entry, K9 by
+    ``bf16_attention_check`` on the first and last head); the cache saved,
+    reloaded through ``REPRO_TORCH_TUNING_CACHE`` and resolving the same.
+    Leaves the process on an empty cache."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import FedNL, make_compressor
+    from repro_torch.kernels import resources as R
+    from repro_torch.kernels import tuning as T
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import resolve_tiles
+    from repro_torch.kernels.hess_update import (
+        DEFAULT_BLOCK,
+        hess_update,
+        hess_update_ref,
+        resolve_block,
+    )
+    from repro_torch.kernels.scatter_accum import (
+        scatter_accumulate,
+        scatter_accumulate_ref,
+    )
+    from repro_torch.kernels.scatter_accum.ops import resolve_plan
+    from repro_torch.kernels.tiled_matmul import tiled_matmul, tiled_matmul_ref
+    from repro_torch.kernels.tiled_matmul.ops import resolve_plan as mm_plan
+
+    t0 = time.perf_counter()
+    seen: dict = {}
+    budgets = kernel_budgets(seen)
+    print(f"# kernel registers and shared bytes ({card}): "
+          f"{json.dumps(budgets)}", flush=True)
+    cache = T.TuningCache()
+    T.set_cache(cache)
+    tuned = {}
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    # -- K2 at w8a (Top-K, k = d) and at the K3 shape
+    d = prob["d"]
+    pay = make_compressor("topk", d).compress(
+        prob["hess"](x0) - prob["hess"](prob["xstar"]))
+    idx3 = torch.randint(0, K3_D * K3_D, (K3_N, K3_D), generator=gen,
+                         device=dev)
+    r, c = idx3 // K3_D, idx3 % K3_D
+    idx3 = (torch.maximum(r, c) * K3_D + torch.minimum(r, c)).to(torch.int32)
+    k2_cases = {
+        "scatter_accumulate_w8a": (pay.values.contiguous(),
+                                   pay.indices.contiguous(), (d, d)),
+        "scatter_accumulate_k3": (
+            torch.randn((K3_N, K3_D), generator=gen, device=dev,
+                        dtype=torch.float64), idx3.contiguous(),
+            (K3_D, K3_D))}
+
+    def plan_of(vals, shape, cfg=None):
+        n, k = vals.shape
+        f = {} if cfg is None else dict(log_r=cfg.log_r,
+                                        digit_bits=cfg.digit_bits,
+                                        seg=cfg.seg)
+        return resolve_plan(n, k, shape[0], shape[1], False, vals.dtype, dev,
+                            **f)
+
+    for name, (vals, idx, shape) in k2_cases.items():
+        n, k = vals.shape
+
+        def run(cfg, vals=vals, idx=idx, shape=shape):
+            return scatter_accumulate(vals, idx, shape, log_r=cfg.log_r,
+                                      digit_bits=cfg.digit_bits, seg=cfg.seg)
+
+        pool = T.scatter_candidates(shape, k, n, vals.dtype)
+        tuned[name] = _tune(
+            name, lambda us, vals=vals, idx=idx, shape=shape:
+            T.autotune_scatter_accumulate(vals, idx, shape, reps=20,
+                                          timings=us),
+            pool[0], pool, run,
+            lambda cf, vals=vals, shape=shape: R.launch_resources(
+                "scatter_accumulate", dtype=vals.dtype,
+                plan=plan_of(vals, shape, cf)), card, seen)
+        w = tuned[name]["winner"]
+        p = plan_of(vals, shape)
+        require((p.log_r, p.digit_bits, p.seg) == (w["log_r"], w["digit_bits"],
+                                                   w["seg"]),
+                f"{name}: with no plan given the resolver gives {p}, not the "
+                f"winner {w}")
+        before = K.LAUNCHES["scatter_accumulate"]
+        got = scatter_accumulate(vals, idx, shape)
+        torch.cuda.synchronize()
+        require(K.LAUNCHES["scatter_accumulate"] == before + 1,
+                f"{name}: scatter_accumulate did not launch")
+        require(torch.equal(got.cpu(), scatter_accumulate_ref(
+            vals.cpu(), idx.cpu(), shape)),
+            f"{name}: the tuned K2 differs from its plain version")
+
+    # -- K7 on the w8a Hessian stack (FedNL lines 5-6's operands)
+    alg = FedNL(prob["grad"], prob["hess"], make_compressor("blocktopk", 8),
+                option=2, mu=MU)
+    state = alg.step(alg.init(x0, prob["n"]))
+    hesses = prob["hess"](state.x)
+    payloads, _ = alg._uplink_diff_payloads(hesses, state.h_local)
+    s_i = alg._local_hessians(payloads, tuple(hesses.shape[1:])).contiguous()
+    h = state.h_local
+
+    def run7(cfg):
+        return hess_update(h, hesses, s_i, alg.alpha, block=cfg.block)
+
+    tuned["hess_update_w8a"] = _tune(
+        "hess_update_w8a", lambda us: T.autotune_hess_update(
+            h, hesses, s_i, alg.alpha, reps=20, timings=us),
+        T.KernelConfig(block=DEFAULT_BLOCK),
+        T.hess_candidates(h.shape, h.dtype), run7,
+        lambda cf: R.launch_resources("hess_update", dtype=h.dtype), card,
+        seen)
+    block = tuned["hess_update_w8a"]["winner"]["block"]
+    require(resolve_block(h.shape, h.dtype, dev) == block,
+            "hess_update: the resolver does not give the winner's block")
+    before = K.LAUNCHES["hess_update"]
+    out, l = hess_update(h, hesses, s_i, alg.alpha)
+    want = hess_update_ref(h, hesses, s_i, alg.alpha, block)
+    torch.cuda.synchronize()
+    require(K.LAUNCHES["hess_update"] == before + 1,
+            "hess_update did not launch")
+    require(torch.equal(out, want[0]), "the tuned K7's H differs from its "
+            "plain version")
+    rel7 = float(torch.max(torch.abs(l - want[1]) / want[1]))
+    require(rel7 <= 1e-6, f"the tuned K7's l off its plain version by "
+            f"{rel7:.2e}")
+    h_shape = tuple(h.shape)
+    del state, hesses, payloads, s_i, h, out, want
+
+    # -- K8's small_n route on wg[0] @ Q (the power iteration's M Q, r = 2)
+    m32 = wg0.float().contiguous()
+    q = torch.linalg.qr(torch.randn((m32.shape[1], 2), generator=gen,
+                                    device=dev))[0]
+
+    def run8(cfg):
+        return tiled_matmul(m32, q, chunks=cfg.chunks)
+
+    pool = T.matmul_candidates(m32, q)
+    tuned["tiled_matmul_wg0"] = _tune(
+        "tiled_matmul_wg0", lambda us: T.autotune_tiled_matmul(
+            m32, q, reps=20, timings=us), pool[0], pool, run8,
+        lambda cf: R.launch_resources("tiled_matmul", route="small_n",
+                                      layout="rows", chunks=cf.chunks),
+        card, seen)
+
+    def mm_chunks():
+        p = mm_plan(m32.shape[0], 2, m32.shape[1], m32.stride(),
+                    m32.data_ptr() % 16 == 0, dev)
+        return p.chunks if p.route == "small_n" else None
+
+    require(mm_chunks() == tuned["tiled_matmul_wg0"]["winner"]["chunks"],
+            "tiled_matmul: the resolver does not give the winner's chunks")
+    before = K.ROUTES["tiled_matmul"]["small_n"]
+    got = tiled_matmul(m32, q)
+    torch.cuda.synchronize()
+    require(K.ROUTES["tiled_matmul"]["small_n"] == before + 1,
+            "tiled_matmul did not take the small_n route")
+    rel8 = max_rel(got, tiled_matmul_ref(m32, q))
+    require(rel8 <= 1e-5, f"the tuned K8 off its plain version by {rel8:.2e}")
+
+    # -- K9 at qwen2's and jamba's prefill shapes (bf16: the wgmma route)
+    k9_err = {"flash_attention": 0.0}
+    k9_cases = {"flash_attention_qwen2": QWEN_K9,
+                "flash_attention_jamba": JAMBA_K9}
+    for name, (t, nh, kvh, hd) in k9_cases.items():
+        qq, kk, vv = (torch.randn((1, t, nn, hd), generator=gen, device=dev)
+                      .to(torch.bfloat16) for nn in (nh, kvh, kvh))
+
+        def run9(cfg, qq=qq, kk=kk, vv=vv):
+            return flash_attention(qq, kk, vv, bq=cfg.bq, bk=cfg.bk)
+
+        pool = T.flash_candidates(hd, torch.bfloat16)
+        tuned[name] = _tune(
+            name, lambda us, qq=qq, kk=kk, vv=vv: T.autotune_flash_attention(
+                qq, kk, vv, reps=20, timings=us), pool[0], pool, run9,
+            lambda cf, hd=hd: R.launch_resources(
+                "flash_attention", dtype=torch.bfloat16, hd=hd, bq=cf.bq,
+                bk=cf.bk), card, seen)
+        w = tuned[name]["winner"]
+        require(resolve_tiles(t, hd, nh // kvh, None, torch.bfloat16, dev)
+                == (w["bq"], w["bk"]),
+                f"{name}: the resolver does not give the winner's tiles")
+        before = K.ROUTES["flash_attention"]["wgmma"]
+        check_flash(qq, kk, vv, (0, nh - 1), k9_err, f"{name} tuned")
+        torch.cuda.synchronize()
+        require(K.ROUTES["flash_attention"]["wgmma"] == before + 1,
+                f"{name}: K9 did not launch on the wgmma route")
+        del qq, kk, vv
+
+    # -- the cache, saved and reloaded through the env var
+    saved = cache.entries()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "tuning.json")
+        cache.save(path)
+        os.environ[T.CACHE_ENV] = path
+        T.set_cache(None)
+        try:
+            require(T.get_cache().entries() == saved,
+                    "the reloaded cache differs from the saved one")
+            for name, (vals, _, shape) in k2_cases.items():
+                p = plan_of(vals, shape)
+                w = tuned[name]["winner"]
+                require((p.log_r, p.digit_bits, p.seg) == (
+                    w["log_r"], w["digit_bits"], w["seg"]),
+                    f"{name}: the reloaded cache resolves to {p}")
+            require(resolve_block(h_shape, torch.float64, dev) == block,
+                    "hess_update: the reloaded cache resolves otherwise")
+            require(mm_chunks() == tuned["tiled_matmul_wg0"]["winner"][
+                "chunks"], "tiled_matmul: the reloaded cache resolves "
+                "otherwise")
+            for name, (t, nh, kvh, hd) in k9_cases.items():
+                w = tuned[name]["winner"]
+                require(resolve_tiles(t, hd, nh // kvh, None, torch.bfloat16,
+                                      dev) == (w["bq"], w["bk"]),
+                        f"{name}: the reloaded cache resolves otherwise")
+        finally:
+            del os.environ[T.CACHE_ENV]
+            T.set_cache(T.TuningCache())
+    print(f"# phase 13 (tuning, launch budgets) in "
+          f"{time.perf_counter() - t0:.1f} s: every launch priced equal to "
+          f"the card's query ({len(seen)} queries); tuned dispatch held: "
+          f"K2/K3 bitwise, K7 H bitwise and l to {rel7:.2e}, K8 to "
+          f"{rel8:.2e}, K9 {json.dumps(k9_err)}; the cache reloads through "
+          f"{T.CACHE_ENV}", flush=True)
+    return {"tuned": tuned, "budgets": budgets}
+
+
+# the kernel line's entry of each tuned case, and the kernel functions of
+# each entry's wrapper
+TUNED_ENTRY = {"scatter_accumulate_w8a": "scatter_accumulate",
+               "scatter_accumulate_k3": "scatter_accumulate_tiled",
+               "hess_update_w8a": "hess_update",
+               "tiled_matmul_wg0": "tiled_matmul",
+               "flash_attention_qwen2": "flash_attention",
+               "flash_attention_jamba": "flash_attention"}
+ENTRY_KERNELS = {"diff_topk_payload": ("diff_topk_payload_kernel",),
+                 "scatter_accumulate": ("accum_",),
+                 "scatter_accumulate_tiled": ("accum_",),
+                 "block_scatter_accumulate": ("block_scatter_kernel",),
+                 "block_topk_payload": ("block_topk_payload_kernel",),
+                 "block_topk": ("block_topk_dense_kernel",),
+                 "hess_update": ("hess_update_kernel",),
+                 "tiled_matmul": ("tiled_matmul_",),
+                 "flash_attention": ("flash_attention_kernel",)}
+
+
+def attach_phase13(kernels: list, ph13: dict) -> None:
+    """Each kernel line entry gets its wrapper's kernel functions'
+    registers and shared bytes (``launch``) and, where tuned, the
+    default's and the winner's ms (``tuned``)."""
+    for entry in kernels:
+        prefixes = ENTRY_KERNELS[entry["name"]]
+        entry["launch"] = {k: v for k, v in ph13["budgets"].items()
+                           if k.startswith(prefixes)}
+        entry["tuned"] = {case: ph13["tuned"][case]
+                          for case, name in TUNED_ENTRY.items()
+                          if name == entry["name"]}
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's C++ name with its template arguments, without its
     namespace and parameters (``c++filt``; the mangled name without it)."""
@@ -4921,6 +5350,7 @@ def main() -> int:
         inputs = dict(embed=pre["embed"], wg0=pre["wg0"], hess_update=hu,
                       refresh=pre["refresh"], k2=k2)
         kernels = kernel_line(dev, prob, x0, paths, inputs, err)
+        wg0 = pre["wg0"]
         del pre, hu, inputs, k3_pay
 
         # -- 9d-9g, 9b, 9c, 9. the MoE, encoder-decoder and VLM families,
@@ -4973,6 +5403,11 @@ def main() -> int:
 
         # -- 12. the measured train steps against their roofline -----------
         roofline_of_steps(counter, card)
+
+        # -- 13. the autotuner and every launch's budget (every earlier
+        # phase ran on an empty cache) --------------------------------------
+        ph13 = tuning_phase(dev, prob, x0, wg0, card, K)
+        attach_phase13(kernels, ph13)
     except SmokeFailure as exc:
         return fail(str(exc))
     finally:

@@ -106,7 +106,9 @@ class Diana(MethodBase):
                           draws=state.draws)
 
     def bits_per_round(self, d: int) -> int:
-        return self.comp.spec((d,)).bits
+        from ..wire.report import analytic_bits
+
+        return analytic_bits(self.comp, (d,))
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +176,9 @@ class Adiana(MethodBase):
         return AdianaState(x, y_new, z_new, w_new, h_new, state.draws)
 
     def bits_per_round(self, d: int) -> int:
-        return 2 * self.comp.spec((d,)).bits  # two compressed vectors
+        from ..wire.report import analytic_bits
+
+        return 2 * analytic_bits(self.comp, (d,))  # two compressed vectors
 
 
 # ---------------------------------------------------------------------------
@@ -353,7 +357,9 @@ class Dore(MethodBase):
                          state.h_i + self.alpha * delta, state.draws)
 
     def bits_per_round(self, d: int) -> tuple[int, int]:
-        return self.comp_up.spec((d,)).bits, self.comp_down.spec((d,)).bits
+        from ..wire.report import analytic_bits
+
+        return analytic_bits(self.comp_up, (d,)), analytic_bits(self.comp_down, (d,))
 
 
 # ---------------------------------------------------------------------------
@@ -399,4 +405,6 @@ class Artemis(MethodBase):
         return ArtemisState(state.x - self.gamma * g_hat, h_new, state.draws)
 
     def bits_per_round(self, d: int) -> int:
-        return self.comp.spec((d,)).bits  # per active device
+        from ..wire.report import analytic_bits
+
+        return analytic_bits(self.comp, (d,))  # per active device

@@ -158,8 +158,10 @@ class CohortFedNLPP(FedNLPP):
         unsampled, 1 for on-time arrivals, the staleness discount for
         stragglers. Who is on time comes from the arrival times of the
         payload's analytic bits, computed once per (n, bits)."""
+        from ..wire.report import analytic_bits
+
         n, d = state.w.shape
-        key = (n, self.comp.spec((d, d)).bits, state.x.device)
+        key = (n, analytic_bits(self.comp, (d, d)), state.x.device)
         if key not in self._on_time:
             self._on_time[key] = torch.from_numpy(on_time_mask(
                 arrival_times(self.cohort, n, key[1]),

@@ -109,7 +109,9 @@ class StochasticFedNL(MethodBase):
 
     def bits_per_round(self, d: int) -> int:
         """Uplink per device: gradient + S_i + l_i (as FedNL Option 2)."""
-        return d * FLOAT_BITS + self.comp.spec((d, d)).bits + FLOAT_BITS
+        from ..wire.report import analytic_bits
+
+        return d * FLOAT_BITS + analytic_bits(self.comp, (d, d)) + FLOAT_BITS
 
 
 class FedNLPPBCState(NamedTuple):
@@ -196,8 +198,10 @@ class FedNLPPBC(MethodBase):
 
     def bits_per_round(self, d: int) -> tuple[int, int]:
         """(uplink per active silo, downlink broadcast)."""
-        up = self.comp.spec((d, d)).bits + FLOAT_BITS + d * FLOAT_BITS
-        return up, self.comp_m.spec((d,)).bits
+        from ..wire.report import analytic_bits
+
+        up = analytic_bits(self.comp, (d, d)) + FLOAT_BITS + d * FLOAT_BITS
+        return up, analytic_bits(self.comp_m, (d,))
 
     def measured_bits_per_round(self, d: int, index_coding: str = "raw",
                                 dtype: torch.dtype = torch.float64

@@ -106,7 +106,9 @@ class FedNL(MethodBase):
     def bits_per_round(self, d: int) -> int:
         """Analytic uplink bits per device per round: gradient + S_i +
         l_i, in the paper's FLOAT_BITS."""
-        return d * FLOAT_BITS + self.comp.spec((d, d)).bits + FLOAT_BITS
+        from ..wire.report import analytic_bits
+
+        return d * FLOAT_BITS + analytic_bits(self.comp, (d, d)) + FLOAT_BITS
 
     def init_bits(self, d: int) -> int:
         """The one-time cost of shipping H_i^0 (a symmetric matrix)."""

@@ -110,9 +110,11 @@ class FedNLBC(MethodBase):
 
     def bits_per_round(self, d: int) -> tuple[float, int]:
         """(expected uplink bits per device, downlink bits)."""
-        up = (self.p * d * FLOAT_BITS + self.comp.spec((d, d)).bits
+        from ..wire.report import analytic_bits
+
+        up = (self.p * d * FLOAT_BITS + analytic_bits(self.comp, (d, d))
               + FLOAT_BITS)
-        down = self.comp_m.spec((d,)).bits + 1  # model increment + xi bit
+        down = analytic_bits(self.comp_m, (d,)) + 1  # model increment + xi bit
         return up, down
 
     def measured_bits_per_round(self, d: int, index_coding: str = "raw",

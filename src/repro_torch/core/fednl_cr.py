@@ -57,7 +57,9 @@ class FedNLCR(MethodBase):
             step=state.step + 1, draws=state.draws)
 
     def bits_per_round(self, d: int) -> int:
-        return d * FLOAT_BITS + self.comp.spec((d, d)).bits + FLOAT_BITS
+        from ..wire.report import analytic_bits
+
+        return d * FLOAT_BITS + analytic_bits(self.comp, (d, d)) + FLOAT_BITS
 
 
 @register("fednl-cr")

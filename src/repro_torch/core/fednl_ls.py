@@ -62,8 +62,10 @@ class FedNLLS(MethodBase):
             step=state.step + 1, draws=state.draws)
 
     def bits_per_round(self, d: int) -> int:
+        from ..wire.report import analytic_bits
+
         # f_i + gradient + S_i
-        return FLOAT_BITS + d * FLOAT_BITS + self.comp.spec((d, d)).bits
+        return FLOAT_BITS + d * FLOAT_BITS + analytic_bits(self.comp, (d, d))
 
     def init_bits(self, d: int) -> int:
         """H_i^0 = hess_i(x0) shipped once (as in FedNL)."""

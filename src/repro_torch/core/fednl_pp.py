@@ -109,7 +109,9 @@ class FedNLPP(MethodBase):
 
     def bits_per_round(self, d: int) -> int:
         """Per active device: S_i + the l diff + the g diff."""
-        return self.comp.spec((d, d)).bits + FLOAT_BITS + d * FLOAT_BITS
+        from ..wire.report import analytic_bits
+
+        return analytic_bits(self.comp, (d, d)) + FLOAT_BITS + d * FLOAT_BITS
 
 
 @register("fednl-pp")

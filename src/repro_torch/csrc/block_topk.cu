@@ -585,6 +585,13 @@ struct Launch {
   int err;
 };
 
+// The dynamic shared memory of one launch: the histograms and
+// candidates, then (in the same space) the payload of k entries.
+size_t select_smem(int k, size_t elem) {
+  const size_t payload = static_cast<size_t>(k) * (elem + sizeof(int));
+  return payload > kSelectBytes ? payload : kSelectBytes;
+}
+
 Launch plan(int n, int M, int N, int block, int k, size_t elem,
             std::initializer_list<const void*> ptrs) {
   Launch l{0, 0, 0, false, 0, 0};
@@ -606,9 +613,7 @@ Launch plan(int n, int M, int N, int block, int k, size_t elem,
   l.vec = block % kVec == 0 && N % kVec == 0;
   for (const void* p : ptrs)
     if (p != nullptr && reinterpret_cast<uintptr_t>(p) % 16 != 0) l.vec = false;
-  // the histograms and candidates, then (in the same space) the payload
-  const size_t payload = static_cast<size_t>(k) * (elem + sizeof(int));
-  l.smem = payload > kSelectBytes ? payload : kSelectBytes;
+  l.smem = select_smem(k, elem);
   return l;
 }
 
@@ -707,6 +712,41 @@ int block_topk_f32(const float* x, float* out, int n, int M, int N, int block,
 int block_topk_f64(const double* x, double* out, int n, int M, int N,
                    int block, int k, cudaStream_t stream) {
   return block_topk(x, out, n, M, N, block, k, stream);
+}
+
+// Kernel `which` (kernels/resources.py KERNELS["block_topk"] order:
+// diff_topk_payload_kernel<T, kSharedB, kVecIO>, then
+// block_topk_payload_kernel<T, kVecIO>, then block_topk_dense_kernel<T,
+// kVecIO>, T float before double, true before false) at payload width
+// args[0] (0 for the dense kernel, as its launcher passes).
+int block_topk_launch_query(int which, const long long* args,
+                            long long* out) {
+  const void* fns[] = {
+      reinterpret_cast<const void*>(&diff_topk_payload_kernel<float, true, true>),
+      reinterpret_cast<const void*>(&diff_topk_payload_kernel<float, true, false>),
+      reinterpret_cast<const void*>(&diff_topk_payload_kernel<float, false, true>),
+      reinterpret_cast<const void*>(&diff_topk_payload_kernel<float, false, false>),
+      reinterpret_cast<const void*>(&diff_topk_payload_kernel<double, true, true>),
+      reinterpret_cast<const void*>(&diff_topk_payload_kernel<double, true, false>),
+      reinterpret_cast<const void*>(&diff_topk_payload_kernel<double, false, true>),
+      reinterpret_cast<const void*>(&diff_topk_payload_kernel<double, false, false>),
+      reinterpret_cast<const void*>(&block_topk_payload_kernel<float, true>),
+      reinterpret_cast<const void*>(&block_topk_payload_kernel<float, false>),
+      reinterpret_cast<const void*>(&block_topk_payload_kernel<double, true>),
+      reinterpret_cast<const void*>(&block_topk_payload_kernel<double, false>),
+      reinterpret_cast<const void*>(&block_topk_dense_kernel<float, true>),
+      reinterpret_cast<const void*>(&block_topk_dense_kernel<float, false>),
+      reinterpret_cast<const void*>(&block_topk_dense_kernel<double, true>),
+      reinterpret_cast<const void*>(&block_topk_dense_kernel<double, false>)};
+  if (which < 0 || which >= 16 || args[0] < 0 || args[0] > kMaxTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // which / 2 % 2 picks the type among the payload kernels' 4-groups
+  const bool f64 = which < 8 ? which >= 4 : (which / 2) % 2 == 1;
+  const size_t elem = f64 ? sizeof(double) : sizeof(float);
+  return repro::query_kernel(
+      fns[which], kThreads,
+      static_cast<long long>(select_smem(static_cast<int>(args[0]), elem)),
+      out);
 }
 
 }  // extern "C"

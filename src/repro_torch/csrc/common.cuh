@@ -66,4 +66,22 @@ __device__ inline int block_exclusive_scan(int v, int* total, int* buf) {
   return before + x - v;
 }
 
+// What a launcher's query reports of one kernel function: out = {numRegs,
+// sharedSizeBytes (static), maxThreadsPerBlock} from
+// cudaFuncGetAttributes, then the threads per block and the dynamic
+// shared bytes its launcher gives that kernel for the query's arguments.
+// kernels/resources.py prices the same launches in Python.
+inline int query_kernel(const void* fn, int threads, long long dynamic,
+                        long long* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = a.numRegs;
+  out[1] = static_cast<long long>(a.sharedSizeBytes);
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = threads;
+  out[4] = dynamic;
+  return 0;
+}
+
 }  // namespace repro

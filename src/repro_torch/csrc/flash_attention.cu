@@ -47,6 +47,8 @@
 
 #include <cmath>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -254,5 +256,29 @@ extern "C" {
   }
 FLASH_ENTRY(flash_attention_f32, float)
 #undef FLASH_ENTRY
+
+// Kernel `which` of the (hd, bq, bk) instantiations in the order of
+// `dispatch` (64 before 128, 128 before 64 for the tiles): its threads
+// and the dynamic shared bytes its launcher sets; args are not read.
+int flash_attention_launch_query(int which, const long long* args,
+                                 long long* out) {
+  (void)args;
+#define FLASH_QUERY(I, HD_, BQ_, BK_)                                     \
+  if (which == I)                                                         \
+    return repro::query_kernel(                                           \
+        reinterpret_cast<const void*>(                                    \
+            &flash_attention_kernel<float, HD_, BQ_, BK_>),               \
+        kThreads, smem_floats<HD_, BQ_, BK_>() * sizeof(float), out);
+  FLASH_QUERY(0, 64, 128, 128)
+  FLASH_QUERY(1, 64, 128, 64)
+  FLASH_QUERY(2, 64, 64, 128)
+  FLASH_QUERY(3, 64, 64, 64)
+  FLASH_QUERY(4, 128, 128, 128)
+  FLASH_QUERY(5, 128, 128, 64)
+  FLASH_QUERY(6, 128, 64, 128)
+  FLASH_QUERY(7, 128, 64, 64)
+#undef FLASH_QUERY
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 }  // extern "C"

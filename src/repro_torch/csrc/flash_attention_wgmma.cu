@@ -53,6 +53,8 @@
 #include <cmath>
 #include <cstdint>
 
+#include "common.cuh"
+
 namespace {
 
 // -- PTX: shared addresses, mbarriers, TMA, wgmma -----------------------------
@@ -564,6 +566,31 @@ int flash_attention_bf16(const __nv_bfloat16* q, long long sqb, long long sqt,
   FLASH_CASE(128, 64, 128)
   FLASH_CASE(128, 64, 64)
 #undef FLASH_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Kernel `which` of the (hd, bq, bk) instantiations in the order of
+// flash_attention_bf16's cases: its threads (a producer warp and a
+// warpgroup per 64 query rows) and the dynamic shared bytes its launcher
+// sets (Tiles::kSmem); args are not read.
+int flash_attention_wgmma_launch_query(int which, const long long* args,
+                                       long long* out) {
+  (void)args;
+#define FLASH_QUERY(I, HD_, BQ_, BK_)                                     \
+  if (which == I)                                                         \
+    return repro::query_kernel(                                           \
+        reinterpret_cast<const void*>(                                    \
+            &flash_attention_kernel_wgmma<HD_, BQ_, BK_>),                \
+        Tiles<HD_, BQ_, BK_>::kThreads, Tiles<HD_, BQ_, BK_>::kSmem, out);
+  FLASH_QUERY(0, 64, 128, 128)
+  FLASH_QUERY(1, 64, 128, 64)
+  FLASH_QUERY(2, 64, 64, 128)
+  FLASH_QUERY(3, 64, 64, 64)
+  FLASH_QUERY(4, 128, 128, 128)
+  FLASH_QUERY(5, 128, 128, 64)
+  FLASH_QUERY(6, 128, 64, 128)
+  FLASH_QUERY(7, 128, 64, 64)
+#undef FLASH_QUERY
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

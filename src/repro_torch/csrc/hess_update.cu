@@ -93,4 +93,16 @@ int hess_update_f64(const double* h, const double* d, const double* s,
   return launch(h, d, s, alpha, out, err, nmat, M, N, block, stream);
 }
 
+// Kernel `which` (hess_update_kernel<float>, then <double>): no dynamic
+// shared memory; args are not read.
+int hess_update_launch_query(int which, const long long* args,
+                             long long* out) {
+  (void)args;
+  const void* fns[] = {
+      reinterpret_cast<const void*>(&hess_update_kernel<float>),
+      reinterpret_cast<const void*>(&hess_update_kernel<double>)};
+  if (which < 0 || which >= 2) return static_cast<int>(cudaErrorInvalidValue);
+  return repro::query_kernel(fns[which], kThreads, 0, out);
+}
+
 }  // extern "C"

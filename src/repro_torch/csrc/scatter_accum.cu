@@ -680,6 +680,27 @@ block_scatter_kernel(const T* __restrict__ vals, const int* __restrict__ idx,
   }
 }
 
+// A tile's rows in bands whose sums fit kAccBudget: the band count, the
+// rows a band and the dynamic shared bytes of one block (the band's sums
+// and a bitmap of its cells per chunk parity); nbands 0 when one row
+// alone is over the budget.
+struct Bands {
+  int nbands, band_rows;
+  size_t smem;
+};
+
+Bands band_plan(int block, size_t elem) {
+  const long long row_bytes = static_cast<long long>(block) * elem;
+  const long long max_rows = kAccBudget / row_bytes;
+  if (max_rows < 1) return Bands{0, 0, 0};
+  const int nbands = static_cast<int>((block + max_rows - 1) / max_rows);
+  const int band_rows = (block + nbands - 1) / nbands;
+  const int words = (band_rows * block + 31) / 32;
+  return Bands{nbands, band_rows,
+               static_cast<size_t>(band_rows) * row_bytes +
+                   2 * static_cast<size_t>(words) * 4};
+}
+
 template <typename T>
 int launch_block_scatter(const T* vals, const int* idx, T* out, int n,
                          int nblk, int k, int block, int gn,
@@ -688,17 +709,14 @@ int launch_block_scatter(const T* vals, const int* idx, T* out, int n,
   if (gn <= 0 || nblk % gn != 0 || k < 0 || n < 0 ||
       static_cast<long long>(n) * k > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long row_bytes = static_cast<long long>(block) * sizeof(T);
-  const long long max_rows = kAccBudget / row_bytes;
-  if (max_rows < 1 || static_cast<long long>(block) * block > 0x7fffffffLL)
+  if (static_cast<long long>(block) * block > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nbands = static_cast<int>((block + max_rows - 1) / max_rows);
-  const int band_rows = (block + nbands - 1) / nbands;
+  const Bands bands = band_plan(block, sizeof(T));
+  if (bands.nbands < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int nbands = bands.nbands, band_rows = bands.band_rows;
   const long long ctas = static_cast<long long>(nblk) * nbands;
   if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int words = (band_rows * block + 31) / 32;
-  const size_t smem = static_cast<size_t>(band_rows) * row_bytes +
-                      2 * static_cast<size_t>(words) * 4;
+  const size_t smem = bands.smem;
   const bool vec = k % 4 == 0 && reinterpret_cast<uintptr_t>(vals) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
@@ -718,6 +736,19 @@ bool inside(const void* at, size_t bytes, const void* base, size_t size) {
   const uintptr_t b = reinterpret_cast<uintptr_t>(base);
   return bytes == 0 || (at != nullptr && a >= b && a - b <= size &&
                         bytes <= size - (a - b));
+}
+
+// The dynamic shared bytes of the count kernel (a histogram of the
+// digits), the place kernel (one per warp and the block's bases) and the
+// sum kernel (each warp's 2^log_sub cells).
+size_t count_smem_bytes(int digit_bits) {
+  return (size_t{1} << digit_bits) * sizeof(int);
+}
+size_t place_smem_bytes(int digit_bits) {
+  return (kChunkWarps + 1) * count_smem_bytes(digit_bits);
+}
+size_t sum_smem_bytes(int log_sub, size_t elem) {
+  return static_cast<size_t>(kSumWarps) * (elem << log_sub);
 }
 
 // The plan comes whole from the wrapper (ops.py `make_plan`); the
@@ -774,11 +805,10 @@ int launch_scatter(const T* vals, const int* idx, const T* init, T* out,
   p.chunks = chunks;
 
   const int ndigit = 1 << digit_bits;
-  const size_t count_smem = static_cast<size_t>(ndigit) * sizeof(int);
-  const size_t place_smem = (kChunkWarps + 1) * count_smem;
+  const size_t count_smem = count_smem_bytes(digit_bits);
+  const size_t place_smem = place_smem_bytes(digit_bits);
   const int scan_blocks = ndigit > kScanDigits ? ndigit / kScanDigits : 1;
-  const size_t sum_smem =
-      static_cast<size_t>(kSumWarps) * (sizeof(T) << p.log_sub);
+  const size_t sum_smem = sum_smem_bytes(p.log_sub, sizeof(T));
   cudaError_t err;
   unsigned* keys_of[2] = {keys0, keys1};
   T* vals_of[2] = {vals0, vals1};
@@ -875,6 +905,58 @@ int block_scatter_accumulate_f64(const double* vals, const int* idx,
                                  double* out, int n, int nblk, int k,
                                  int block, int gn, cudaStream_t stream) {
   return launch_block_scatter(vals, idx, out, n, nblk, k, block, gn, stream);
+}
+
+// Kernel `which` (kernels/resources.py KERNELS["scatter_accum"] order:
+// accum_count_kernel<T, kFromPairs>, accum_scan_kernel,
+// accum_place_kernel<T, kFromPairs>, accum_sum_kernel<T>,
+// block_scatter_kernel<T, kVec>; T float before double, true before
+// false) with args[0] = digit_bits (count, place), log_sub (sum) or block
+// (block_scatter).
+int scatter_accum_launch_query(int which, const long long* args,
+                               long long* out) {
+  const void* fns[] = {
+      reinterpret_cast<const void*>(&accum_count_kernel<float, true>),
+      reinterpret_cast<const void*>(&accum_count_kernel<float, false>),
+      reinterpret_cast<const void*>(&accum_count_kernel<double, true>),
+      reinterpret_cast<const void*>(&accum_count_kernel<double, false>),
+      reinterpret_cast<const void*>(&accum_scan_kernel),
+      reinterpret_cast<const void*>(&accum_place_kernel<float, true>),
+      reinterpret_cast<const void*>(&accum_place_kernel<float, false>),
+      reinterpret_cast<const void*>(&accum_place_kernel<double, true>),
+      reinterpret_cast<const void*>(&accum_place_kernel<double, false>),
+      reinterpret_cast<const void*>(&accum_sum_kernel<float>),
+      reinterpret_cast<const void*>(&accum_sum_kernel<double>),
+      reinterpret_cast<const void*>(&block_scatter_kernel<float, true>),
+      reinterpret_cast<const void*>(&block_scatter_kernel<float, false>),
+      reinterpret_cast<const void*>(&block_scatter_kernel<double, true>),
+      reinterpret_cast<const void*>(&block_scatter_kernel<double, false>)};
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  const long long a = args[0];
+  if (which < 0 || which >= 15 ||
+      (which >= 11 ? a < 1 || a > 65535 : a < 0 || a > 30))
+    return invalid;
+  int threads = kChunkThreads;
+  size_t dynamic = 0;
+  if (which < 4) {
+    dynamic = count_smem_bytes(static_cast<int>(a));
+  } else if (which == 4) {
+    threads = 256;
+  } else if (which < 9) {
+    dynamic = place_smem_bytes(static_cast<int>(a));
+  } else if (which < 11) {
+    threads = 32 * kSumWarps;
+    dynamic = sum_smem_bytes(static_cast<int>(a),
+                             which == 9 ? sizeof(float) : sizeof(double));
+  } else {
+    threads = kTileThreads;
+    const Bands bands = band_plan(
+        static_cast<int>(a), which < 13 ? sizeof(float) : sizeof(double));
+    if (bands.nbands < 1) return invalid;
+    dynamic = bands.smem;
+  }
+  return repro::query_kernel(fns[which], threads,
+                             static_cast<long long>(dynamic), out);
 }
 
 }  // extern "C"

@@ -36,6 +36,8 @@
 //    4 columns and writes 16 bytes per row for 8 rows.
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kBM = 64, kBN = 64, kBK = 16;
@@ -314,6 +316,24 @@ int tiled_matmul_small_k_f32(const float* a, long long sam, long long sak,
   tiled_matmul_small_k_kernel<<<grid, 256, 0, stream>>>(a, sam, sak, b, sbk,
                                                         sbn, c, M, N, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel `which` (tiled_matmul_kernel, tiled_matmul_small_n_rows_kernel,
+// tiled_matmul_small_n_cols_kernel, tiled_matmul_sum_partials_kernel,
+// tiled_matmul_small_k_kernel) with the threads its launcher gives it;
+// none takes dynamic shared memory, args are not read.
+int tiled_matmul_launch_query(int which, const long long* args,
+                              long long* out) {
+  (void)args;
+  const void* fns[] = {
+      reinterpret_cast<const void*>(&tiled_matmul_kernel),
+      reinterpret_cast<const void*>(&tiled_matmul_small_n_rows_kernel),
+      reinterpret_cast<const void*>(&tiled_matmul_small_n_cols_kernel),
+      reinterpret_cast<const void*>(&tiled_matmul_sum_partials_kernel),
+      reinterpret_cast<const void*>(&tiled_matmul_small_k_kernel)};
+  const int threads[] = {kThreads, 128, 256, 256, 256};
+  if (which < 0 || which >= 5) return static_cast<int>(cudaErrorInvalidValue);
+  return repro::query_kernel(fns[which], threads[which], 0, out);
 }
 
 }  // extern "C"

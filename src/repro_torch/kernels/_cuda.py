@@ -113,6 +113,10 @@ _D = ctypes.c_double
 # (0: none) and the stream
 _FLASH_ARGS = [_P, _L, _L, _L, _P, _L, _L, _L, _P, _L, _L, _L, _P, _I, _I, _I,
                _I, _I, _I, _I, _I, _P]
+# every source's launch query (``resources.query``): the kernel's index,
+# the launch arguments it prices, five results
+_QUERY = [_I, _P, _P]
+# the launch entry points of each source
 _SIGNATURES = {
     "block_topk": {
         **{f"diff_topk_payload_{t}": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _I,
@@ -155,6 +159,8 @@ def library(name: str) -> ctypes.CDLL:
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        query = getattr(lib, f"{name}_launch_query")
+        query.argtypes, query.restype = _QUERY, ctypes.c_int
         _LIBS[name] = lib
     return lib
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
+from ..tuning.cache import lookup
 from .ref import gqa_flash_attention_ref
 
 # the kernel route of each input type: (route, library, entry point)
@@ -73,8 +74,32 @@ def tma_strides(shape, strides, data_ptr: int) -> tuple[int, int, int]:
     return out
 
 
+DEFAULT_TILES = (128, 128)
+
+
+def resolve_tiles(t: int, hd: int, n_rep: int, window: int | None, dtype,
+                  device=None, bq: int | None = None,
+                  bk: int | None = None) -> tuple[int, int]:
+    """(bq, bk) of the launch on ``device``: the tiles given (128 for one
+    left None), else the tuning cache's winner for (T, hd), n_rep, the
+    window and the type, else (128, 128). A cached pair outside ``TILES``
+    or over a block's budget gives way to (128, 128)."""
+    if bq is not None or bk is not None:
+        return (DEFAULT_TILES[0] if bq is None else int(bq),
+                DEFAULT_TILES[1] if bk is None else int(bk))
+    cfg = lookup("flash_attention", (t, hd), n_rep, window, dtype, device)
+    if cfg is None or cfg.bq not in TILES or cfg.bk not in TILES:
+        return DEFAULT_TILES
+    from ..resources import launch_resources, within_budget
+
+    if hd in HEAD_DIMS and not within_budget(launch_resources(
+            "flash_attention", dtype=dtype, hd=hd, bq=cfg.bq, bk=cfg.bk)):
+        return DEFAULT_TILES
+    return cfg.bq, cfg.bk
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bq: int = 128, bk: int = 128,
+                    bq: int | None = None, bk: int | None = None,
                     window: int | None = None) -> torch.Tensor:
     """Causal attention over q (B, T, H, hd) and k, v (B, T, KV, hd),
     where head h reads KV head h // (H / KV); with a sliding ``window``
@@ -82,11 +107,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     walks only the key tiles the window reaches. Scores, softmax
     statistics and sums in f32; the result (B, T, H, hd) in q's type.
     ``bq`` and ``bk`` are the kernel's query and key tiles (64 or 128
-    each); any T is taken, the ragged last tile masked. On a card, bf16
+    each; None: ``resolve_tiles``, the tuning cache, else 128); any T is
+    taken, the ragged last tile masked. On a card, bf16
     runs on the tensor cores with P rounded to bf16 before P V, f32 on
     the CUDA cores (``route``)."""
     _check(q, k, v)
-    if bq not in TILES or bk not in TILES:
+    if (bq is not None and bq not in TILES) or (
+            bk is not None and bk not in TILES):
         raise ValueError(f"flash_attention: tiles bq={bq}, bk={bk} must be "
                          f"in {TILES}")
     if window is not None and (isinstance(window, bool)
@@ -106,6 +133,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, t, h, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    bq, bk = resolve_tiles(t, hd, h // k.shape[2], window, q.dtype, q.device,
+                           bq, bk)
     q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
     if kind == "wgmma":
         strides = [tma_strides(x.shape, x.stride(), x.data_ptr())

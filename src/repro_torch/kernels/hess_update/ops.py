@@ -11,18 +11,41 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
+from ..tuning.cache import lookup
 from .ref import hess_update_ref
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
+DEFAULT_BLOCK = 128
+
+
+def resolve_block(shape, dtype, device=None, block: int | None = None) -> int:
+    """The tile edge ``hess_update`` uses on ``device``: ``block`` when
+    given, else the tuning cache's winner for (shape, dtype, device kind),
+    else 128. A cached block that is not positive, or whose launch is over
+    a block's budget, gives way to 128."""
+    if block is not None:
+        return int(block)
+    cfg = lookup("hess_update", tuple(shape), None, None, dtype, device)
+    if cfg is None or cfg.block is None:
+        return DEFAULT_BLOCK
+    from ..resources import launch_resources, within_budget
+
+    ok = cfg.block > 0 and within_budget(
+        launch_resources("hess_update", dtype=dtype))
+    return int(cfg.block) if ok else DEFAULT_BLOCK
+
+
 def hess_update(h: torch.Tensor, d: torch.Tensor, s: torch.Tensor,
-                alpha: float, block: int = 128):
+                alpha: float, block: int | None = None):
     """h, d, s of one shape, (M, N) or a stack (n, M, N). Returns
     (h + alpha * s in h's type, ||h - d||_F): the norm's squares are
-    summed in f32 also for f64 input, as on the TPU, and it is a scalar,
-    or (n,) for a stack. Any (M, N): the ragged edge tiles are masked in
-    the kernel, not padded."""
+    summed in f32 per (block x block) tile also for f64 input, as on the
+    TPU, and it is a scalar, or (n,) for a stack. Any (M, N): the ragged
+    edge tiles are masked in the kernel, not padded. ``block`` None:
+    ``resolve_block`` (the tuning cache, else 128)."""
+    block = resolve_block(h.shape, h.dtype, h.device, block)
     if h.device.type == "cpu" and d.device.type == "cpu" \
             and s.device.type == "cpu":
         return hess_update_ref(h, d, s, alpha, block)

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _cuda
+from ..tuning.cache import lookup
 from .ref import tiled_matmul_ref
 
 
@@ -69,10 +70,45 @@ def plan(m: int, n: int, k: int, a_strides: tuple[int, int],
     return Plan("tiled")
 
 
-def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def with_chunks(p: Plan, k: int, chunks: int, rows: bool) -> Plan:
+    """A "small_n" plan with K cut into about ``chunks`` chunks (a
+    multiple of 4 entries each for row-major A): the chunk count it
+    gives and its chunk length."""
+    kc = max(4, -(-k // max(int(chunks), 1)))
+    if rows:
+        kc = -(-kc // 4) * 4
+    return Plan(p.route, max(1, -(-k // kc)), kc)
+
+
+def resolve_plan(m: int, n: int, k: int, a_strides: tuple[int, int],
+                 a_aligned: bool, device=None,
+                 chunks: int | None = None) -> Plan:
+    """``plan``'s route; on the small_n route the K chunk count given,
+    else the tuning cache's winner for (A's (M, K), N, device kind), else
+    ``plan``'s. A cached count outside [1, 65535] gives way to
+    ``plan``'s."""
+    p = plan(m, n, k, a_strides, a_aligned)
+    if p.route != "small_n":
+        return p
+    rows = a_strides[1] == 1
+    if chunks is not None:
+        if not 1 <= int(chunks) <= 65535:
+            raise ValueError(f"tiled_matmul: chunks {chunks} outside "
+                             f"[1, 65535]")
+        return with_chunks(p, k, chunks, rows)
+    cfg = lookup("tiled_matmul", (m, k), None, n, torch.float32, device)
+    if cfg is None or cfg.chunks is None or not 1 <= cfg.chunks <= 65535:
+        return p
+    return with_chunks(p, k, cfg.chunks, rows)
+
+
+def tiled_matmul(a: torch.Tensor, b: torch.Tensor,
+                 chunks: int | None = None) -> torch.Tensor:
     """a (M, K) @ b (K, N) from f32 operands with f32 accumulation (no
     TF32), returned in a's type — an f64 call computes in f32, as on the
-    TPU. Transposed views are read in place."""
+    TPU. Transposed views are read in place. ``chunks`` sets the K chunks
+    of the small_n route (``resolve_plan``: else the tuning cache, else
+    ``plan``); the other routes have none."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"tiled_matmul: cannot multiply {tuple(a.shape)} "
                          f"by {tuple(b.shape)}")
@@ -87,7 +123,8 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a32, b32 = _strided(a), _strided(b)
     m, k = a32.shape
     n = b32.shape[1]
-    p = plan(m, n, k, a32.stride(), a32.data_ptr() % 16 == 0)
+    p = resolve_plan(m, n, k, a32.stride(), a32.data_ptr() % 16 == 0,
+                     a.device, chunks)
     rows_per_block = {"tiled": 64, "small_k": 8}.get(p.route, 1)
     if p.route != "small_n" and -(-m // rows_per_block) > 65535:
         raise ValueError(f"tiled_matmul: {m} rows exceed the kernel's grid")

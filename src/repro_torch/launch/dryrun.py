@@ -53,7 +53,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
-import importlib
 import json
 import sys
 import time
@@ -65,6 +64,7 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from ..configs import ARCHS, get_config, model_param_shapes
+from ..kernels.call_sites import swapped
 from ..models import build_model
 from ..models.transformer import layer_kinds
 from ..tree import tree_leaves, tree_map
@@ -132,24 +132,19 @@ def attention_pairs(t: int, window: int | None = None) -> int:
 @contextlib.contextmanager
 def kernels_counted(mode: CostMode):
     """The hand-written kernels of the port's paths, which raise on a meta
-    tensor, replaced by stand-ins that give outputs of their shapes and add
-    their work to ``mode``: K9 (``flash_attention``, as
-    ``models/attention.py`` calls it), K1 (``diff_topk_payload``, as
-    ``second_order/fednl_precond.py`` calls it) and K4
-    (``block_scatter_accumulate``, as ``core/compressors.py`` calls it).
-    Restored on exit."""
-    attn = importlib.import_module("repro_torch.models.attention")
-    precond = importlib.import_module("repro_torch.second_order.fednl_precond")
-    comp = importlib.import_module("repro_torch.core.compressors")
+    tensor, replaced at their call sites (``kernels/call_sites.py``) by
+    stand-ins that give outputs of their shapes and add their work to
+    ``mode``: K9 (``flash_attention``), K1 (``diff_topk_payload``) and K4
+    (``block_scatter_accumulate``). Restored on exit."""
 
-    def flash_attention(q, k, v, bq=128, bk=128, window=None):
+    def flash_attention(_wrapper, q, k, v, bq=None, bk=None, window=None):
         b, t, h, hd = q.shape
         out = torch.empty_like(q)
         mode.add(4 * b * h * hd * attention_pairs(t, window),
                  _nbytes((q, k, v, out)))
         return out
 
-    def diff_topk_payload(a, b, k, block=128):
+    def diff_topk_payload(_wrapper, a, b, k, block=128):
         dt = torch.promote_types(a.dtype, b.dtype)
         n, m, nc = a.shape
         k = min(int(k), block * block)
@@ -161,24 +156,17 @@ def kernels_counted(mode: CostMode):
         mode.add(0, _nbytes((a, vals, idx, sq)) + reads_b * _nbytes(b))
         return vals, idx, sq
 
-    def block_scatter_accumulate(values, indices, grid, block):
+    def block_scatter_accumulate(_wrapper, values, indices, grid, block):
         gm, gn = (int(g) for g in grid)
         out = torch.empty((gm * block, gn * block), dtype=values.dtype,
                           device=values.device)
         mode.add(values.numel(), _nbytes((values, indices, out)))
         return out
 
-    patches = [(attn, "flash_attention", flash_attention),
-               (precond, "diff_topk_payload", diff_topk_payload),
-               (comp, "block_scatter_accumulate", block_scatter_accumulate)]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
-    try:
-        for mod, name, fn in patches:
-            setattr(mod, name, fn)
+    with swapped({"flash_attention": flash_attention,
+                  "diff_topk_payload": diff_topk_payload,
+                  "block_scatter_accumulate": block_scatter_accumulate}):
         yield mode
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
 
 
 def meta_params(cfg) -> dict:

@@ -56,6 +56,14 @@ class WireReport:
         return round_seconds(float(self.encoded_bits), link, n=n, seed=seed)
 
 
+def analytic_bits(comp, shape):
+    """One payload's analytic bits at ``shape`` (``comp.spec(shape).bits``,
+    the paper's count): what ``wire_cost(...).analytic_bits`` reports, without
+    measuring the payload's structure. Internal code asks here, not the
+    deprecated accessor."""
+    return comp.spec(shape).bits
+
+
 def wire_cost(comp, shape, *, dtype: torch.dtype = torch.float64,
               value_format: str = "raw", sample=None, gen=None,
               encoded: bool = True) -> WireReport:

@@ -806,3 +806,69 @@ def test_ssm_scan_backward_on_card_matches_cpu(cuda):
     for got, want in zip(grads[str(cuda)], grads["cpu"]):
         assert float((got - want).abs().max()) <= 1e-5 * float(
             want.abs().max())
+
+
+# -- the autotuner's dispatch and the launch query (phase 13's checks) --------
+
+
+@pytest.fixture
+def fresh_tuning_cache():
+    from repro_torch.kernels.tuning import TuningCache, set_cache
+
+    set_cache(TuningCache())
+    yield
+    set_cache(None)
+
+
+def test_launch_query_matches_launch_resources(cuda):
+    """Every kernel function's registers, static shared bytes and threads,
+    and its launcher's dynamic shared bytes at a payload width, a digit
+    width, a sum width and a block, as the card reports them, equal
+    ``launch_resources``' pricing, each within a block's budget."""
+    from repro_torch.kernels.resources import KERNELS
+
+    import chip_smoke
+
+    seen = {}
+    for source, names in KERNELS.items():
+        for kernel in names:
+            for arg in chip_smoke.query_args(source, kernel)[:3]:
+                chip_smoke.launch_matches(
+                    chip_smoke._launch_of(source, kernel, arg), seen)
+    assert len(seen) > 54 and all(q["registers"] > 0 for q in seen.values())
+
+
+def test_tuned_dispatch_is_bit_for_bit(cuda, fresh_tuning_cache):
+    """With a winner cached for the operand's card, a call with no config
+    launches it (the resolver and the launch counter) and equals the plain
+    version: K2 bit for bit on CPU copies, K7's H bit for bit."""
+    from repro_torch.kernels.hess_update import resolve_block
+    from repro_torch.kernels.scatter_accum import resolve_plan
+    from repro_torch.kernels.tuning import KernelConfig, record
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    vals = torch.randn((20, 300), generator=g, device=dev,
+                       dtype=torch.float64)
+    idx = torch.randint(-1, 300 * 300, (20, 300), generator=g, device=dev,
+                        dtype=torch.int32)
+    cfg = KernelConfig(log_r=6, digit_bits=6, seg=32)
+    record("scatter_accumulate", cfg, shape=(300, 300), k=300, n=20,
+           dtype=torch.float64, device=dev)
+    p = resolve_plan(20, 300, 300, 300, False, torch.float64, dev)
+    assert (p.log_r, p.digit_bits, p.seg) == (6, 6, 32)
+    reset_launches()
+    got = scatter_accumulate(vals, idx, (300, 300))
+    torch.cuda.synchronize()
+    assert LAUNCHES["scatter_accumulate"] == 1
+    assert torch.equal(got.cpu(), scatter_accumulate_ref(
+        vals.cpu(), idx.cpu(), (300, 300)))
+    h, d, s = (torch.randn((4, 300, 300), generator=g, device=dev,
+                           dtype=torch.float64) for _ in range(3))
+    record("hess_update", KernelConfig(block=32), shape=(4, 300, 300),
+           dtype=torch.float64, device=dev)
+    assert resolve_block(h.shape, h.dtype, dev) == 32
+    out, l = hess_update(h, d, s, 0.5)
+    want = hess_update_ref(h, d, s, 0.5, 32)
+    assert torch.equal(out, want[0])
+    assert torch.allclose(l, want[1], rtol=1e-6, atol=0)
