@@ -243,6 +243,18 @@ Phases, each failing the run with a non-zero exit:
      its plain version (K2/K3 and K7's H bit for bit, K8 to 1e-5, K9 by
      ``bf16_attention_check``); the cache saved and reloaded through
      ``REPRO_TORCH_TUNING_CACHE`` resolves the same;
+  14. the examples: ``examples/torch_quickstart.py``,
+     ``torch_fednl_federated_logreg.py``, ``torch_heterogeneity.py`` and
+     ``torch_serve_batched.py`` with their defaults on the card, each in
+     a process of its own (exit 0; the quickstart's last f(x) below its
+     first, the Rank-1 gap after 20 rounds within 1e-12, the worst
+     heterogeneity gap within 1e-6, two requests served; host seconds);
+     then ``torch_train_lm.py --full --optimizer fednl --steps 6
+     --refresh-every 2`` in this process (qwen2-0.5B at its published
+     width, batch 8, seq 128): finite losses, the loss line, K1 and K4
+     once per parameter tensor on each refresh step and never on the
+     others (path ``examples_train_lm`` in the kernel line), ms a step
+     with and without a refresh;
   then print what the profiler failed to record (each such figure timed
   by CUDA events instead, or not measured), the kernel line (with each
   wrapper's registers and shared bytes, ``launch``, and its tuned cases,
@@ -256,6 +268,7 @@ import argparse
 import dataclasses
 import importlib
 import json
+import math
 import os
 import re
 import statistics
@@ -5239,6 +5252,190 @@ def ptxas_lines(log: str) -> list:
     return out
 
 
+# -- phase 14: the examples ---------------------------------------------------------
+
+# the four examples run with their defaults, each in a process of its own,
+# and the bounds the reference's own printout meets (its Rank-1 gap is 0
+# from round 10; its worst heterogeneity gap 3.52e-09)
+EXAMPLE_TIMEOUT_S = 300
+RANK1_GAP_BOUND, HETEROGENEITY_GAP_BOUND = 1e-12, 1e-6
+# the train example in process: qwen2-0.5B at its published width with
+# its default batch 8 and seq 128, fednl, a refresh every 2 of 6 steps
+EXAMPLE_TRAIN_ARGS = ("--full", "--optimizer", "fednl", "--steps", "6",
+                      "--refresh-every", "2")
+NUMBER = r"(-?[0-9.]+(?:e[+-][0-9]+)?)"
+
+
+def run_example(name: str) -> tuple[str, float]:
+    """``examples/torch_<name>.py`` with its defaults (the card) in a
+    process of its own; its standard output and host seconds."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(root / "examples" /
+                                              f"torch_{name}.py")],
+                         capture_output=True, text=True,
+                         timeout=EXAMPLE_TIMEOUT_S,
+                         env={**os.environ, "PYTHONPATH": str(root / "src")})
+    seconds = time.perf_counter() - t0
+    require(out.returncode == 0,
+            f"examples/torch_{name}.py exited {out.returncode}: "
+            f"{out.stdout[-800:]} {out.stderr[-2000:]}")
+    return out.stdout, seconds
+
+
+def example_processes(card: str) -> dict:
+    """Phase 14's four examples in their own processes: the quickstart's
+    last f(x) below its first, the Rank-1 gap after 20 rounds within
+    ``RANK1_GAP_BOUND``, the worst heterogeneity gap within
+    ``HETEROGENEITY_GAP_BOUND``, two requests served. Returns what each
+    printed that the checks read, and its host seconds."""
+    rep = {}
+    out, secs = run_example("quickstart")
+    values = [float(v) for v in re.findall(rf"round +\d+  f\(x\) = {NUMBER}",
+                                           out)]
+    require(len(values) == 6 and values[-1] < values[0]
+            and "uplink per device per round: 1456 bytes" in out,
+            f"the quickstart printed f(x) {values}: {out[-600:]}")
+    rep["quickstart"] = {"s": secs, "f_first": values[0],
+                         "f_last": values[-1]}
+
+    out, secs = run_example("fednl_federated_logreg")
+    rank1 = re.search(rf"round +20 +{NUMBER} +{NUMBER}", out)
+    sharded = re.search(rf"over (\d+) rank\(s\): gap after 10 rounds = "
+                        rf"{NUMBER}", out)
+    gd = re.search(rf"GD +after {NUMBER} bits/node: gap {NUMBER}", out)
+    diana = re.search(rf"DIANA after {NUMBER} bits/node: gap {NUMBER}", out)
+    require(None not in (rank1, sharded, gd, diana)
+            and abs(float(rank1[2])) <= RANK1_GAP_BOUND,
+            f"the federated logreg example: {out[-1200:]}")
+    rep["fednl_federated_logreg"] = {
+        "s": secs, "rank1_bits_20": float(rank1[1]),
+        "rank1_gap_20": float(rank1[2]), "sharded_world": int(sharded[1]),
+        "sharded_gap_10": float(sharded[2]), "gd_gap": float(gd[2]),
+        "diana_gap": float(diana[2])}
+
+    out, secs = run_example("heterogeneity")
+    rows = re.findall(rf"(\S+) +FedNL gap@15 rounds \(worst of 3 seeds\): +"
+                      rf"{NUMBER} +GD gap@1500 rounds: +{NUMBER}", out)
+    require(len(rows) == 3 and max(float(r[1]) for r in rows)
+            <= HETEROGENEITY_GAP_BOUND,
+            f"the heterogeneity example: {out[-800:]}")
+    rep["heterogeneity"] = {"s": secs, **{
+        tag: {"fednl_gap": float(f), "gd_gap": float(g)}
+        for tag, f, g in rows}}
+
+    out, secs = run_example("serve_batched")
+    requests = re.findall(r"^request (\d+): \[[0-9, ]+\]$", out, re.M)
+    require(requests == ["0", "1"],
+            f"the serving example printed requests {requests}: {out[-600:]}")
+    rep["serve_batched"] = {"s": secs, "requests": len(requests)}
+    print(json.dumps({"examples": rep, "card": card}), flush=True)
+    return rep
+
+
+def example_train_lm(K, card: str) -> dict:
+    """``examples/torch_train_lm.py --full --optimizer fednl`` in this
+    process (``runpy``, ``sys.argv`` patched) between a reset and a read
+    of the launch counters: finite losses, the loss line, K1 and K4
+    launched once per parameter tensor on each refresh step (a refresh
+    compresses every tensor in one K1 call over the silos and sums it in
+    one K4 call, ``fednl_precond._learn_tensor``) and never on the other
+    steps, the refreshes the steps report equal to those of the
+    ``curv_bits`` that ``train`` prints. Each step is timed on the host clock
+    to a synchronize. Returns the launches."""
+    import contextlib
+    import io
+    import runpy
+
+    import torch
+    import repro_torch.launch.train as train_mod
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps, make = [], train_mod.make_train_step
+
+    def timed_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(params, opt_state, batch):
+            before = counts(K)
+            ms, out = host_ms(lambda: step(params, opt_state, batch))
+            after = counts(K)
+            steps.append({
+                "ms": ms, "loss": float(out[2]["loss"]),
+                "refreshed": bool(out[2]["curv_refreshed"] == 1.0),
+                "tensors": len(tree_leaves(params)),
+                "k1": after["diff_topk_payload"] - before["diff_topk_payload"],
+                "k4": (after["block_scatter_accumulate"]
+                       - before["block_scatter_accumulate"])})
+            return out
+
+        return timed
+
+    script = Path(__file__).resolve().parent / "examples" / "torch_train_lm.py"
+    printed, argv = io.StringIO(), sys.argv
+    t0 = time.perf_counter()
+    K.reset_launches()
+    try:
+        train_mod.make_train_step = timed_make
+        sys.argv = [str(script), *EXAMPLE_TRAIN_ARGS]
+        with contextlib.redirect_stdout(printed):
+            runpy.run_path(str(script), run_name="__main__")
+    finally:
+        train_mod.make_train_step, sys.argv = make, argv
+        print(printed.getvalue(), end="", flush=True)
+    launches = counts(K)
+    seconds = time.perf_counter() - t0
+    out = printed.getvalue()
+
+    loss = re.search(rf"loss: {NUMBER} -> {NUMBER} over 6 steps \(fednl\)", out)
+    per = re.search(r"curvature uplink: (\d+) bits/refresh", out)
+    logged = re.findall(r"curv_bits (\d+)", out)
+    refreshes = sum(s["refreshed"] for s in steps)
+    require(len(steps) == 6 and loss is not None and per is not None
+            and logged and all(math.isfinite(s["loss"]) for s in steps),
+            f"the train example: {len(steps)} steps, {out[-800:]}")
+    require([s["refreshed"] for s in steps] == [i % 2 == 0 for i in range(6)]
+            and int(logged[-1]) == refreshes * int(per[1]),
+            f"the train example's refreshes: {[s['refreshed'] for s in steps]}"
+            f", curv_bits {logged} at {per[1]} bits a refresh")
+    tensors = steps[0]["tensors"]
+    for i, s in enumerate(steps):
+        want = tensors if s["refreshed"] else 0
+        require(s["k1"] == want and s["k4"] == want,
+                f"the train example's step {i} (refresh {s['refreshed']}) "
+                f"launched K1 {s['k1']} and K4 {s['k4']} times for {tensors} "
+                f"tensors")
+    require(launches["diff_topk_payload"] == refreshes * tensors
+            and launches["block_scatter_accumulate"] == refreshes * tensors
+            and launches["flash_attention"] == 0,
+            f"the train example launched {launches}")
+    refresh_ms = [s["ms"] for s in steps if s["refreshed"]]
+    plain_ms = [s["ms"] for s in steps if not s["refreshed"]]
+    rep = {"args": " ".join(EXAMPLE_TRAIN_ARGS), "s": seconds,
+           "tensors": tensors, "refreshes": refreshes,
+           "k1": launches["diff_topk_payload"],
+           "k4": launches["block_scatter_accumulate"],
+           "loss_first": float(loss[1]), "loss_last": float(loss[2]),
+           "step_ms": [s["ms"] for s in steps],
+           "refresh_step_ms_median": statistics.median(refresh_ms[1:]),
+           "plain_step_ms_median": statistics.median(plain_ms),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "card": card}
+    print(json.dumps({"examples_train_lm": rep}), flush=True)
+    return launches
+
+
+def add_path_launches(kernels: list, path: str, launches: dict) -> None:
+    """``path``'s launches added to each kernel line entry it launched."""
+    for entry in kernels:
+        n = launches.get(entry["name"], 0)
+        if n:
+            entry["launches_by_path"][path] = n
+            entry["launches"] += n
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -5408,6 +5605,17 @@ def main() -> int:
         # phase ran on an empty cache) --------------------------------------
         ph13 = tuning_phase(dev, prob, x0, wg0, card, K)
         attach_phase13(kernels, ph13)
+
+        # -- 14. the examples: four in their own processes, the train
+        # example at qwen2-0.5B width in this one, through K1 and K4 ------
+        del prob, x0, wg0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        example_processes(card)
+        add_path_launches(kernels, "examples_train_lm",
+                          example_train_lm(K, card))
+        print(f"# examples phase in {time.perf_counter() - t0:.1f} s",
+              flush=True)
     except SmokeFailure as exc:
         return fail(str(exc))
     finally:

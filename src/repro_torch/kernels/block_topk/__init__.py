@@ -4,6 +4,7 @@ from .ref import (
     block_topk_ref,
     diff_topk_payload_ref,
     from_tiles,
+    payload_to_dense,
     to_tiles,
 )
 

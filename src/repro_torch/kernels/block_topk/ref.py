@@ -107,3 +107,21 @@ def block_topk_ref(x: torch.Tensor, k: int, block: int = 128) -> torch.Tensor:
     _, hi = _bracket(ax, int(k))
     kept = torch.where(ax >= hi.unsqueeze(-1), tiles, torch.zeros_like(tiles))
     return from_tiles(kept, x.shape[1:], block)
+
+
+def payload_to_dense(vals: torch.Tensor, idx: torch.Tensor, shape,
+                     block: int = 128) -> torch.Tensor:
+    """The dense compressed matrix of a (values, indices) payload in the
+    kernels' layout, (tiles, k) for one matrix or (n, tiles, k) for a
+    stack; -1 indices are dropped. Decoded by the one block-sparse
+    decoder, ``core.compressors.BlockTopK.decompress``: the kernel
+    payload is a ``BlockSparsePayload``."""
+    from ...core.compressors import BlockSparsePayload, BlockTopK
+
+    one = vals.dim() == 2
+    codec = BlockTopK(k_per_block=int(vals.shape[-1]), block=block)
+    dense = codec.decompress(
+        BlockSparsePayload(values=vals[None] if one else vals,
+                           indices=idx[None] if one else idx,
+                           universe=block * block), shape)
+    return dense[0] if one else dense

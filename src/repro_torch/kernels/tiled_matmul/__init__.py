@@ -6,7 +6,7 @@ from .ops import (
     tiled_matmul,
     with_chunks,
 )
-from .ref import subspace_iteration_ref, tiled_matmul_ref
+from .ref import powersgd_rank_r_ref, subspace_iteration_ref, tiled_matmul_ref
 
 
 def analysis_targets():

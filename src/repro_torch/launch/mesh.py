@@ -7,6 +7,7 @@ module touches no device and starts no process group.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -32,6 +33,19 @@ def _ensure_group(dev: torch.device) -> None:
         return
     dist.init_process_group(_backend(dev), store=dist.HashStore(), rank=0,
                             world_size=1)
+
+
+@contextlib.contextmanager
+def scoped_group():
+    """A block whose default process group, if made inside it (by
+    ``make_host_mesh``, say), is destroyed on leaving it; a group that
+    was already there is left as it is."""
+    made = not dist.is_initialized()
+    try:
+        yield
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _mesh(dev: torch.device, shape, names):

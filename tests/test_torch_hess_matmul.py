@@ -10,7 +10,8 @@ interpret mode, on the same numpy inputs:
   summed in another order; an entry that cancels to near 0 carries the
   absolute error of the large ones, so the measure is norm-wise);
 * the PowerSGD power iteration from the reference's own starting
-  subspace: 1e-5 relative to the largest entry.
+  subspace: 1e-5 relative to the largest entry, through the kernel's
+  wrapper and through the plain ``powersgd_rank_r_ref``.
 
 ``test_torch_cuda.py`` holds the CUDA kernels to these plain versions on
 a card.
@@ -25,11 +26,15 @@ import torch
 from _torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 from repro.kernels.hess_update import hess_update as jax_hess_update
 from repro.kernels.tiled_matmul import powersgd_rank_r as jax_powersgd_rank_r
+from repro.kernels.tiled_matmul import (
+    powersgd_rank_r_ref as jax_powersgd_rank_r_ref,
+)
 from repro.kernels.tiled_matmul import tiled_matmul as jax_tiled_matmul
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.hess_update import hess_update
 from repro_torch.kernels.tiled_matmul import (
     powersgd_rank_r,
+    powersgd_rank_r_ref,
     subspace_iteration,
     tiled_matmul,
 )
@@ -114,3 +119,27 @@ def test_powersgd_power_iteration_matches_reference(shape, r):
     own = powersgd_rank_r(torch.from_numpy(m), r, seed=0)
     assert own.shape == shape and own.dtype == torch.float32
     assert int(torch.linalg.matrix_rank(own.double(), atol=1e-4)) == r
+
+
+@pytest.mark.parametrize("shape,r", [((60, 60), 1), ((48, 90), 2)])
+def test_powersgd_rank_r_ref_matches_reference(shape, r):
+    """``powersgd_rank_r_ref`` handed the reference's Gaussian start (its
+    ``PRNGKey(0)`` draw) gives the reference's ``powersgd_rank_r_ref`` to
+    1e-5 of the largest entry in f32; drawn from a generator, a rank-r
+    matrix; with neither, an error."""
+    rng = np.random.default_rng(25)
+    m = rng.standard_normal(shape).astype(np.float32)
+    m[:, 0] *= 6.0                                  # a dominant direction
+    q0 = np.array(jax.random.normal(jax.random.PRNGKey(0), (shape[1], r),
+                                    jnp.float32))
+    want = np.asarray(jax_powersgd_rank_r_ref(jnp.asarray(m), r))
+    calls = dict(LAUNCHES)
+    got = powersgd_rank_r_ref(torch.from_numpy(m), r, q0=torch.from_numpy(q0))
+    assert LAUNCHES == calls and got.dtype == torch.float32
+    _assert_rel_close(got.numpy(), want)
+    own = powersgd_rank_r_ref(torch.from_numpy(m), r,
+                              generator=torch.Generator().manual_seed(0))
+    assert own.shape == shape
+    assert int(torch.linalg.matrix_rank(own.double(), atol=1e-4)) == r
+    with pytest.raises(ValueError, match="q0 or a generator"):
+        powersgd_rank_r_ref(torch.from_numpy(m), r)

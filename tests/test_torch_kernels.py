@@ -8,7 +8,8 @@ here to the Pallas kernel bodies run in interpret mode
   the flat-order tie rule are reproduced bit for bit), ||D||^2 to
   rtol 1e-11 (tiles summed in another order);
 * scatter_accumulate / block_scatter_accumulate: rtol 1e-13 (the Pallas
-  kernel sums each chunk by a one-hot matmul, the port in stream order).
+  kernel sums each chunk by a one-hot matmul, the port in stream order);
+* payload_to_dense: bit for bit, on the Pallas kernel's payloads.
 
 ``test_torch_cuda.py`` holds the CUDA kernels to these plain versions on
 a card.
@@ -22,14 +23,16 @@ import torch
 
 from _torch_parity import one_torch_thread  # noqa: F401 (autouse fixture)
 from _torch_parity import stacked_diffs
+from repro.kernels.block_topk import block_topk_payload as jax_block_topk_payload
 from repro.kernels.block_topk import diff_topk_payload as jax_diff_topk_payload
+from repro.kernels.block_topk import payload_to_dense as jax_payload_to_dense
 from repro.kernels.scatter_accum import (
     block_scatter_accumulate as jax_block_scatter_accumulate,
 )
 from repro.kernels.scatter_accum import scatter_accumulate as jax_scatter_accumulate
 from repro.kernels.scatter_accum import streamed_slab_update
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.block_topk import diff_topk_payload
+from repro_torch.kernels.block_topk import diff_topk_payload, payload_to_dense
 from repro_torch.kernels.scatter_accum import (
     block_scatter_accumulate,
     scatter_accumulate,
@@ -204,3 +207,31 @@ def test_block_scatter_accumulate_matches_pallas_kernel(grid, block, k):
     got = block_scatter_accumulate(torch.from_numpy(vals),
                                    torch.from_numpy(idx), grid, block)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
+
+
+# -- the payload decoder ------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,k", [((300, 123), 16), ((17, 31), 200),
+                                     ((256, 128), 1)])
+def test_payload_to_dense_matches_reference(shape, k):
+    """The Pallas kernel's payload, with a few slots emptied to -1,
+    decodes bit for bit as the reference decodes it; a stack of two
+    decodes matrix by matrix."""
+    x = jax.random.normal(jax.random.PRNGKey(0), shape)
+    vals, idx = jax_block_topk_payload(x, k=k, block=128, use_pallas=True,
+                                       interpret=True)
+    vals, idx = np.array(vals), np.array(idx)
+    idx[0, :min(3, k)] = -1                 # empty slots are dropped
+    want = np.asarray(jax_payload_to_dense(jnp.asarray(vals),
+                                           jnp.asarray(idx), shape,
+                                           block=128))
+    got = payload_to_dense(torch.from_numpy(vals), torch.from_numpy(idx),
+                           shape, block=128)
+    assert got.dtype == torch.float32 and got.shape == shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    stack = payload_to_dense(torch.from_numpy(np.stack([vals, vals])),
+                             torch.from_numpy(np.stack([idx, idx])), shape,
+                             block=128)
+    assert stack.shape == (2, *shape)
+    assert torch.equal(stack[0], got) and torch.equal(stack[1], got)
