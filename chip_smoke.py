@@ -255,6 +255,16 @@ Phases, each failing the run with a non-zero exit:
      once per parameter tensor on each refresh step and never on the
      others (path ``examples_train_lm`` in the kernel line), ms a step
      with and without a refresh;
+  15. the train driver on a mesh: ``launch.train.train`` with phase 14's
+     arguments on the one-rank NCCL mesh of ``make_host_mesh`` (params and
+     fednl state as DTensors laid out by the sharding rules, the hooks
+     installed while it trains): losses and the sha256 of the final params
+     equal phase 14's and the step's without a mesh bit for bit, K1 and
+     K4 once per tensor on each refresh step (path ``mesh_train_qwen2``),
+     ms a step, peak memory; then a refresh of the final H from 4 silos
+     with the ranks played in turn (4 per-rank K1 calls, the payloads
+     stacked in silo order, K4) equal to the one-call refresh bit for bit
+     on all 14 tensors;
   then print what the profiler failed to record (each such figure timed
   by CUDA events instead, or not measured), the kernel line (with each
   wrapper's registers and shared bytes, ``launch``, and its tuned cases,
@@ -5339,10 +5349,11 @@ def example_train_lm(K, card: str) -> dict:
     of the launch counters: finite losses, the loss line, K1 and K4
     launched once per parameter tensor on each refresh step (a refresh
     compresses every tensor in one K1 call over the silos and sums it in
-    one K4 call, ``fednl_precond._learn_tensor``) and never on the other
+    one K4 call, ``FedNLPrecondOptimizer.learn``) and never on the other
     steps, the refreshes the steps report equal to those of the
     ``curv_bits`` that ``train`` prints. Each step is timed on the host clock
-    to a synchronize. Returns the launches."""
+    to a synchronize. Returns the launches, and the steps' losses and the
+    digest of the final params (``params_digest``) for phase 15."""
     import contextlib
     import io
     import runpy
@@ -5353,7 +5364,7 @@ def example_train_lm(K, card: str) -> dict:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    steps, make = [], train_mod.make_train_step
+    steps, make, final = [], train_mod.make_train_step, {}
 
     def timed_make(*args, **kw):
         step = make(*args, **kw)
@@ -5361,6 +5372,7 @@ def example_train_lm(K, card: str) -> dict:
         def timed(params, opt_state, batch):
             before = counts(K)
             ms, out = host_ms(lambda: step(params, opt_state, batch))
+            final["params"] = out[0]
             after = counts(K)
             steps.append({
                 "ms": ms, "loss": float(out[2]["loss"]),
@@ -5424,6 +5436,239 @@ def example_train_lm(K, card: str) -> dict:
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "card": card}
     print(json.dumps({"examples_train_lm": rep}), flush=True)
+    return launches, {"losses": [s["loss"] for s in steps],
+                      "digest": params_digest(final.pop("params"))}
+
+
+# -- phase 15: the train driver on a mesh ---------------------------------------------
+
+# phase 14's example's run: qwen2-0.5B at its published width, 8 x 128
+# tokens, fednl with a refresh every 2 of 6 steps, the example's lr
+MESH_TRAIN_ARGS = dict(smoke=False, steps=6, batch=8, seq=128, lr=1e-3,
+                       optimizer="fednl", refresh_every=2, curvature_k=2048)
+# the ranks played in turn on the card for one refresh
+PLAYED_RANKS = 4
+
+
+def params_digest(params) -> str:
+    """sha256 of every leaf's bytes in leaf order (a DTensor's local
+    tensor, all of it on one rank)."""
+    import hashlib
+
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    digest = hashlib.sha256()
+    for x in tree_leaves(params):
+        x = x.to_local() if hasattr(x, "to_local") else x
+        digest.update(x.detach().contiguous().reshape(-1).view(torch.uint8)
+                      .cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def plain_train_qwen2(dev) -> dict:
+    """Phase 14's run through the step without a mesh on plain tensors,
+    one silo, no hooks: its losses and the digest of its params."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import build_model
+
+    a = MESH_TRAIN_ARGS
+    cfg = get_config("qwen2-0.5b")
+    model = build_model(cfg, use_remat=True)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    opt = make_optimizer("fednl", a["lr"], k_per_block=a["curvature_k"],
+                         curvature="fisher")
+    state = opt.init(params)
+    step = make_train_step(model, opt, refresh_every=a["refresh_every"])
+    pipe = TokenPipeline(vocab_size=cfg.vocab, seq_len=a["seq"],
+                         global_batch=a["batch"], seed=0)
+    losses = []
+    for i in range(a["steps"]):
+        params, state, m = step(params, state, pipe.batch(i, device=dev))
+        losses.append(float(m["loss"]))
+    out = {"losses": losses, "digest": params_digest(params)}
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def played_refresh(model, params, h, batch) -> dict:
+    """One refresh of ``h`` from ``PLAYED_RANKS`` silos of ``batch``'s rows
+    at ``params``, per tensor twice: in one call (K1 over the stacked
+    silos, K4), and with the ranks played in turn (rank 0's
+    ``FedNLPrecondOptimizer.learn`` on its own silo, whose ``gather``
+    makes the other ranks' K1 calls, each on its own silo, and stacks the
+    payloads in silo order before K4). s and l bit for bit; the played
+    calls' launches."""
+    import torch
+    from repro_torch.kernels.block_topk import diff_topk_payload
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.second_order.fednl_precond import (
+        FedNLPrecondOptimizer,
+        _shape2d,
+    )
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    import repro_torch.kernels as K
+
+    opt = FedNLPrecondOptimizer(lr=MESH_TRAIN_ARGS["lr"],
+                                k_per_block=MESH_TRAIN_ARGS["curvature_k"])
+    rows = batch["tokens"].shape[0] // PLAYED_RANKS
+    obs = []
+    for r in range(PLAYED_RANKS):
+        mine = tree_map(lambda x: x[r * rows:(r + 1) * rows], batch)
+        _, _, g = value_and_grad(model, params, mine)
+        obs.append(tree_leaves(opt.observe(tree_unflatten(params, list(g)))))
+        del g
+    played = {"diff_topk_payload": 0, "block_scatter_accumulate": 0}
+    for t, ht in enumerate(tree_leaves(h)):
+        silos = [o[t].contiguous() for o in obs]
+        s1, l1 = opt.learn(ht, torch.stack(silos))
+        shape2 = _shape2d(ht.shape)
+
+        def gather(vals, idx, tile_sq):
+            parts = [(vals, idx, tile_sq)] + [
+                diff_topk_payload(o.reshape((1,) + shape2),
+                                  ht.reshape(shape2), opt._k(), opt.block,
+                                  tile_sums=True) for o in silos[1:]]
+            return tuple(torch.cat(x) for x in zip(*parts))
+
+        before = counts(K)
+        s4, l4 = opt.learn(ht, silos[0][None], gather=gather)
+        torch.cuda.synchronize()
+        after = counts(K)
+        for name in played:
+            played[name] += after[name] - before[name]
+        require(torch.equal(s1, s4) and torch.equal(l1, l4),
+                f"the played ranks' refresh of a {tuple(ht.shape)} tensor "
+                f"differs from the one-call refresh (l {float(l1)} vs "
+                f"{float(l4)})")
+        del s1, s4, silos
+    tensors = len(tree_leaves(h))
+    require(played == {"diff_topk_payload": PLAYED_RANKS * tensors,
+                       "block_scatter_accumulate": tensors},
+            f"the played refresh launched {played} for {tensors} tensors")
+    return {"tensors": tensors, **played}
+
+
+def mesh_train_qwen2(K, card: str, example: dict, dev) -> dict:
+    """Phase 15: ``launch.train.train`` itself with phase 14's example's
+    arguments on the one-rank NCCL mesh that ``make_host_mesh`` makes:
+    every param and state leaf a DTensor laid out by the rules (each
+    replicated on one rank), the hooks installed while it trains and
+    taken away after, the step on the mesh. Its losses and the digest of
+    its final params equal phase 14's run bit for bit, and the step
+    without a mesh on plain tensors gives them too; K1 and K4 once per
+    tensor on each refresh step and never on the others (path
+    ``mesh_train_qwen2``); ms a step and the peak memory. Then
+    ``played_refresh`` of the final H at the final params on the batch of
+    step 6, 4 ranks played in turn. Returns the driver run's launches."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    import repro_torch.launch.train as train_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import scoped_group
+    from repro_torch.models import build_model, common
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    plain = plain_train_qwen2(dev)
+    plain_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps, make, final = [], train_mod.make_train_step, {}
+
+    def timed_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(params, opt_state, batch):
+            if not steps:
+                leaves = tree_leaves(params) + tree_leaves(opt_state.h)
+                require(kw.get("mesh") is not None
+                        and dist.get_backend() == "nccl"
+                        and all(isinstance(x, DTensor) for x in leaves)
+                        and common._LAYER_PARAM_CONSTRAINT is not None
+                        and common._ACT_CONSTRAINT is not None,
+                        "the driver did not train on an NCCL mesh with "
+                        "DTensors and the hooks installed")
+            before = counts(K)
+            ms, out = host_ms(lambda: step(params, opt_state, batch))
+            after = counts(K)
+            final["params"], final["state"] = out[0], out[1]
+            steps.append({
+                "ms": ms, "loss": float(out[2]["loss"]),
+                "refreshed": bool(out[2]["curv_refreshed"] == 1.0),
+                "k1": after["diff_topk_payload"] - before["diff_topk_payload"],
+                "k4": (after["block_scatter_accumulate"]
+                       - before["block_scatter_accumulate"])})
+            return out
+
+        return timed
+
+    t0 = time.perf_counter()
+    K.reset_launches()
+    try:
+        train_mod.make_train_step = timed_make
+        with scoped_group():
+            train_mod.train("qwen2-0.5b", device=dev, **MESH_TRAIN_ARGS)
+            params = tree_map(lambda x: x.to_local(), final.pop("params"))
+            h = tree_map(lambda x: x.to_local(), final.pop("state").h)
+    finally:
+        train_mod.make_train_step = make
+    launches = counts(K)
+    seconds = time.perf_counter() - t0
+    require(common._LAYER_PARAM_CONSTRAINT is None
+            and common._ACT_CONSTRAINT is None and not dist.is_initialized(),
+            "the driver left its hooks or its process group behind")
+    losses = [s["loss"] for s in steps]
+    digest = params_digest(params)
+    require(losses == example["losses"] and digest == example["digest"],
+            f"the driver on a one-rank mesh differs from phase 14's run: "
+            f"losses {losses} vs {example['losses']}, digest {digest} vs "
+            f"{example['digest']}")
+    require(losses == plain["losses"] and digest == plain["digest"],
+            f"the driver on a one-rank mesh differs from the step without "
+            f"a mesh: losses {losses} vs {plain['losses']}")
+    tensors = len(tree_leaves(params))
+    refreshes = sum(s["refreshed"] for s in steps)
+    require([s["refreshed"] for s in steps] == [i % 2 == 0 for i in range(6)]
+            and all(s["k1"] == s["k4"] == (tensors if s["refreshed"] else 0)
+                    for s in steps)
+            and launches["diff_topk_payload"] == refreshes * tensors
+            and launches["block_scatter_accumulate"] == refreshes * tensors,
+            f"the driver's K1/K4 launches by step "
+            f"{[(s['k1'], s['k4']) for s in steps]}, in all {launches}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    t1 = time.perf_counter()
+    cfg = get_config("qwen2-0.5b")
+    pipe = TokenPipeline(vocab_size=cfg.vocab, seq_len=MESH_TRAIN_ARGS["seq"],
+                         global_batch=MESH_TRAIN_ARGS["batch"], seed=0)
+    played = played_refresh(build_model(cfg, use_remat=True), params, h,
+                            pipe.batch(MESH_TRAIN_ARGS["steps"], device=dev))
+    played_s = time.perf_counter() - t1
+    del params, h
+    torch.cuda.empty_cache()
+    refresh_ms = [s["ms"] for s in steps if s["refreshed"]]
+    plain_ms = [s["ms"] for s in steps if not s["refreshed"]]
+    rep = {"s": seconds, "plain_step_s": plain_s, "tensors": tensors,
+           "refreshes": refreshes, "k1": launches["diff_topk_payload"],
+           "k4": launches["block_scatter_accumulate"], "losses": losses,
+           "digest": digest, "equal_to_phase_14": True,
+           "equal_to_step_without_mesh": True,
+           "step_ms": [s["ms"] for s in steps],
+           "refresh_step_ms_median": statistics.median(refresh_ms[1:]),
+           "plain_step_ms_median": statistics.median(plain_ms),
+           "peak_memory_gb": peak, "played_refresh": played,
+           "played_refresh_bitwise": True, "played_s": played_s,
+           "card": card}
+    print(json.dumps({"mesh_train_qwen2": rep}), flush=True)
     return launches
 
 
@@ -5612,9 +5857,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         example_processes(card)
-        add_path_launches(kernels, "examples_train_lm",
-                          example_train_lm(K, card))
+        launches, example = example_train_lm(K, card)
+        add_path_launches(kernels, "examples_train_lm", launches)
         print(f"# examples phase in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        # -- 15. the train driver on a one-rank NCCL mesh, equal to phase
+        # 14's run; four ranks' refresh played in turn on the card ---------
+        t0 = time.perf_counter()
+        add_path_launches(kernels, "mesh_train_qwen2",
+                          mesh_train_qwen2(K, card, example, dev))
+        print(f"# mesh train phase in {time.perf_counter() - t0:.1f} s",
               flush=True)
     except SmokeFailure as exc:
         return fail(str(exc))

@@ -225,7 +225,7 @@ def _vec(block: int, ncols: int) -> bool:
     return block % 4 == 0 and ncols % 4 == 0
 
 
-def _diff_topk_params(a, b, k, block=128):
+def _diff_topk_params(a, b, k, block=128, tile_sums=False):
     return dict(dtype=torch.promote_types(a.dtype, b.dtype),
                 k=min(int(k), block * block), block=block,
                 vec=_vec(block, a.shape[-1]), shared_b=b.dim() == 2)

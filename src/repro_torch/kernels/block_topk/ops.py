@@ -36,20 +36,22 @@ def _grid(m: int, n: int, block: int) -> int:
 
 
 def diff_topk_payload(a: torch.Tensor, b: torch.Tensor, k: int,
-                      block: int = 128):
+                      block: int = 128, tile_sums: bool = False):
     """Block-Top-K payload of D_i = a_i - b_i for stacked a (n, M, N) and
     b (n, M, N), or one b (M, N) shared by every silo (read in place,
     never copied n times).
 
     Returns (values, indices, sumsq): values and in-tile flat indices
     are (n, tiles, min(k, block^2)) with tiles in row-major grid order
-    and -1 in empty slots; sumsq (n,) is ||D_i||_F^2. The dense
+    and -1 in empty slots; sumsq (n,) is ||D_i||_F^2, or with
+    ``tile_sums`` its per-tile terms (n, tiles), for a caller that sums
+    silos computed in separate calls in one reduction. The dense
     difference is never written to device memory on the kernel path."""
     dt = torch.promote_types(a.dtype, b.dtype)
     a, b = a.to(dt), b.to(dt)
     k = min(int(k), block * block)
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return diff_topk_payload_ref(a, b, k, block)
+        return diff_topk_payload_ref(a, b, k, block, tile_sums)
     if a.device != b.device:
         raise ValueError(f"a and b must lie on one CUDA device, got "
                          f"{a.device} and {b.device}")
@@ -72,7 +74,7 @@ def diff_topk_payload(a: torch.Tensor, b: torch.Tensor, k: int,
                  block, k, _cuda.stream())
     _cuda.check(err, "diff_topk_payload")
     _cuda.LAUNCHES["diff_topk_payload"] += 1
-    return vals, idx, torch.sum(sq, dim=1)
+    return vals, idx, sq if tile_sums else torch.sum(sq, dim=1)
 
 
 def block_topk_payload(x: torch.Tensor, k: int, block: int = 128,

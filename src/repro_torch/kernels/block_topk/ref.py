@@ -77,15 +77,16 @@ def _payload(tiles: torch.Tensor, k: int, bisect_all: bool = False):
 
 
 def diff_topk_payload_ref(a: torch.Tensor, b: torch.Tensor, k: int,
-                          block: int = 128):
+                          block: int = 128, tile_sums: bool = False):
     """a: (n, M, N), b: (n, M, N) or one (M, N) shared by every silo.
     Returns (values (n, tiles, k), in-tile indices (n, tiles, k) int32
-    with -1 in empty slots, ||a_i - b_i||_F^2 (n,))."""
+    with -1 in empty slots, ||a_i - b_i||_F^2 (n,), or with ``tile_sums``
+    its per-tile terms (n, tiles))."""
     tiles = to_tiles(a - b, block)
     k = min(int(k), tiles.shape[2])
-    sq = torch.sum(tiles * tiles, dim=2).sum(dim=1)
+    sq = torch.sum(tiles * tiles, dim=2)
     vals, idx = _payload(tiles, k)
-    return vals, idx, sq
+    return vals, idx, sq if tile_sums else sq.sum(dim=1)
 
 
 def block_topk_payload_ref(x: torch.Tensor, k: int, block: int = 128,

@@ -144,14 +144,15 @@ def kernels_counted(mode: CostMode):
                  _nbytes((q, k, v, out)))
         return out
 
-    def diff_topk_payload(_wrapper, a, b, k, block=128):
+    def diff_topk_payload(_wrapper, a, b, k, block=128, tile_sums=False):
         dt = torch.promote_types(a.dtype, b.dtype)
         n, m, nc = a.shape
         k = min(int(k), block * block)
         tiles = -(-m // block) * -(-nc // block)
         vals = torch.empty((n, tiles, k), dtype=dt, device=a.device)
         idx = torch.empty((n, tiles, k), dtype=torch.int32, device=a.device)
-        sq = torch.empty((n,), dtype=dt, device=a.device)
+        sq = torch.empty((n, tiles) if tile_sums else (n,), dtype=dt,
+                         device=a.device)
         reads_b = n if b.dim() == 2 else 1
         mode.add(0, _nbytes((a, vals, idx, sq)) + reads_b * _nbytes(b))
         return vals, idx, sq

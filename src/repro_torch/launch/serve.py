@@ -7,7 +7,9 @@ the counterpart of ``src/repro/launch/serve.py``.
 runs the full model on the card (``--smoke`` for the reduced one,
 ``--device cpu`` for the CPU). Weights, prompt, an encoder-decoder's
 memory and sampling all come from one ``torch.Generator`` seeded by
-``--seed``. A VLM serves text alone, as in the reference.
+``--seed``. A VLM serves text alone, as in the reference. Over the ranks
+of a mesh (``torchrun``; one rank when started alone) the weights are
+held whole on each rank and the batch is spread over the data axis.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import torch
 from ..configs import ARCHS, get_config
 from ..device import resolve_device
 from ..models import build_model
+from .mesh import make_host_mesh, scoped_group
+from .sharding import DataAxis
 from .steps import make_serve_step
 
 
@@ -32,32 +36,47 @@ def _sync(dev: torch.device) -> None:
 def generate(arch: str, smoke: bool = True, batch: int = 4,
              prompt_len: int = 16, gen: int = 16, seed: int = 0,
              temperature: float = 1.0, greedy: bool = False, device=None,
-             params=None, memory=None) -> torch.Tensor:
+             params=None, memory=None, mesh=None) -> torch.Tensor:
     """(batch, prompt_len + gen) token ids: a random prompt, then ``gen``
-    greedy or temperature-sampled tokens. ``params`` replaces the drawn
-    weights (a test hands in the reference's; the KV cache takes the
-    type of their embeddings, not of an MoE's f32 router). For an
-    encoder-decoder, the cache's encoder memory (batch, enc_seq, d) is
-    ``memory``, or else N(0, 1) * 0.02 drawn after the prompt, as in the
-    reference. Prints the host time of the prompt and of the decode
-    loop."""
+    greedy or temperature-sampled tokens (Gumbel-max over the logits /
+    ``temperature``, the reference's ``jax.random.categorical`` rule).
+    ``params`` replaces the drawn weights (a test hands in the
+    reference's; the KV cache takes the type of their embeddings, not of
+    an MoE's f32 router). For an encoder-decoder, the cache's encoder
+    memory (batch, enc_seq, d) is ``memory``, or else N(0, 1) * 0.02 drawn
+    after the prompt, as in the reference. Prints the host time of the
+    prompt and of the decode loop.
+
+    ``mesh``: each rank of its data axis decodes its own rows of the
+    batch with the weights whole; the prompt, the memory and every
+    sampling draw are made for the whole batch on every rank, each rank
+    keeping its rows, and the tokens are gathered at the end, so every
+    rank returns what one process would (an MoE routes each rank's rows
+    as its decode group)."""
     cfg = get_config(arch, smoke=smoke)
     if params is not None:
         dtype = str(params["embed"].dtype).removeprefix("torch.")
         cfg = dataclasses.replace(cfg, dtype=dtype)
     dev = resolve_device(device)
+    axis = None if mesh is None else DataAxis(mesh)
+    world, rank = (1, 0) if axis is None else (axis.world, axis.rank)
+    if batch % world:
+        raise ValueError(f"batch {batch} must divide into {world} ranks")
+    rows = batch // world
+    mine = slice(rank * rows, (rank + 1) * rows)
     model = build_model(cfg)
     g = torch.Generator(device=dev).manual_seed(seed)
     if params is None:
         params = model.init_params(g)
     serve = make_serve_step(model)
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
-                           device=dev)
-    cache = model.init_cache(batch, prompt_len + gen, dev)
+                           device=dev)[mine]
+    cache = model.init_cache(rows, prompt_len + gen, dev)
     if cfg.family == "encdec":
-        cache["enc"] = (torch.randn(cache["enc"].shape, generator=g,
-                                    device=dev).to(cfg.tdtype) * 0.02
-                        if memory is None else memory.to(dev, cfg.tdtype))
+        enc = (torch.randn((batch,) + tuple(cache["enc"].shape[1:]),
+                           generator=g, device=dev).to(cfg.tdtype) * 0.02
+               if memory is None else memory.to(dev, cfg.tdtype))
+        cache["enc"] = enc[mine]
 
     # the prompt goes in token by token through the serve path, as in the
     # reference (a fused prefill is the fast path)
@@ -73,16 +92,24 @@ def generate(arch: str, smoke: bool = True, batch: int = 4,
         if greedy:
             nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
         else:
-            probs = torch.softmax(logits[:, -1].float() / temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=g)
+            u = torch.rand((batch, logits.shape[-1]), generator=g,
+                           device=dev)[mine]
+            gumbel = -torch.log(-torch.log(
+                u.clamp_min(torch.finfo(torch.float32).tiny)))
+            nxt = torch.argmax(logits[:, -1].float() / temperature + gumbel,
+                               dim=-1)[:, None]
         out.append(nxt)
         logits, cache = serve(params, cache, nxt, prompt_len + i)
     _sync(dev)
     dt = time.perf_counter() - t1
-    print(f"prompt of {prompt_len} tokens x {batch} seqs in {t1 - t0:.4f}s; "
-          f"generated {gen} tokens x {batch} seqs in {dt:.4f}s "
-          f"({batch * gen / dt:.1f} tok/s)")
-    return torch.cat(out, dim=1)
+    if rank == 0:
+        print(f"prompt of {prompt_len} tokens x {batch} seqs in "
+              f"{t1 - t0:.4f}s; generated {gen} tokens x {batch} seqs in "
+              f"{dt:.4f}s ({batch * gen / dt:.1f} tok/s)")
+    seqs = torch.cat(out, dim=1)
+    if axis is not None:
+        seqs, = axis.gather(seqs)
+    return seqs
 
 
 def main():
@@ -99,11 +126,14 @@ def main():
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args()
-    seqs = generate(args.arch, smoke=args.smoke, batch=args.batch,
-                    prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
-                    temperature=args.temperature, greedy=args.greedy,
-                    device=args.device)
-    print("sample token ids:", seqs[0, : args.prompt_len + 8].tolist())
+    with scoped_group():
+        mesh = make_host_mesh(device=args.device)
+        seqs = generate(args.arch, smoke=args.smoke, batch=args.batch,
+                        prompt_len=args.prompt_len, gen=args.gen,
+                        seed=args.seed, temperature=args.temperature,
+                        greedy=args.greedy, device=args.device, mesh=mesh)
+        if DataAxis(mesh).rank == 0:
+            print("sample token ids:", seqs[0, : args.prompt_len + 8].tolist())
 
 
 if __name__ == "__main__":

@@ -17,16 +17,30 @@ Layout:
     the expert ffn dim (tensor parallel inside each expert).
 
 ``placements`` turns a spec into DTensor placements on a
-``DeviceMesh``. The port runs on one card, where every placement is
-replication; laying tensors out across several cards is ROADMAP item
-10b.
+``DeviceMesh``, and ``shard_tree`` lays a tree out by them (the
+reference's ``jax.device_put(tree, shardings)``). A step on a
+``("data", "model")`` mesh whose model axis is one rank
+(``launch.steps.make_train_step`` with ``mesh``) works on each rank's
+shards: ``DataAxis`` and ``LeafLayout`` are the collectives it makes
+for a leaf, ``LocalShard`` the form in which the model receives a split
+weight, and the installed hooks (``make_layer_param_constrainer``,
+``make_activation_constraint``) gather each split weight whole a layer
+at a time inside the model's loop.
 """
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
-from ..tree import tree_leaves
+import torch
+import torch.distributed as dist
+
+from ..tree import tree_leaves, tree_map
+
+# the flat collectives, by their names since torch 2.13 where there
+_all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
 
 Spec = tuple
 
@@ -260,3 +274,222 @@ def placements(mesh, spec: Spec) -> list:
             if mesh.shape[i] > 1:
                 out[i] = Shard(dim)
     return out
+
+
+# -- laying a tree out over the ranks ---------------------------------------------
+
+
+def _over(fn, tree, *rest):
+    """``tree_map`` that also walks the fields of an optimizer state (a
+    NamedTuple)."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[_over(fn, *xs) for xs in zip(tree, *rest)])
+    return tree_map(fn, tree, *rest)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def shard_tree(tree, mesh, specs):
+    """``tree``'s tensors as DTensors on ``mesh`` with the placements of
+    ``specs`` (``tree_param_specs``, or ``opt_state_shardings`` for an
+    optimizer state): every rank holds the same tree (drawn from one
+    seed) and keeps its own slice of each tensor, so no data moves.
+    Other leaves (a step count, an unset slot) stay as they are."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def leaf(x, spec):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return distribute_tensor(x, mesh, placements(mesh, spec),
+                                 src_data_rank=None)
+
+    return _over(leaf, tree, specs)
+
+
+def local_tree(tree):
+    """Each DTensor leaf's local tensor, this rank's shard (views, no
+    copy); other leaves as they are."""
+    return _over(lambda x: x.to_local() if _is_dtensor(x) else x, tree)
+
+
+def like_tree(new, like):
+    """``new``'s local tensors as DTensors laid out as the leaves of
+    ``like`` are; a leaf of ``like`` that is no DTensor keeps ``new``'s."""
+    from torch.distributed.tensor import DTensor
+
+    def leaf(n, old):
+        if not _is_dtensor(old):
+            return n
+        return DTensor.from_local(n, old.device_mesh, old.placements,
+                                  run_check=False, shape=old.shape,
+                                  stride=old.stride())
+
+    return _over(leaf, new, like)
+
+
+def whole_tree(tree):
+    """Each DTensor leaf gathered whole on every rank (a collective: every
+    rank calls it)."""
+    return _over(lambda x: x.full_tensor() if _is_dtensor(x) else x, tree)
+
+
+class DataAxis:
+    """The "data" axis of a mesh whose other axes are one rank each: its
+    process group, extent and this rank's place on it. A mesh that
+    splits tensors over another axis (tensor parallelism over "model")
+    is not laid out by the port and is refused."""
+
+    def __init__(self, mesh):
+        names = mesh.mesh_dim_names
+        wide = [n for n, e in zip(names, mesh.shape) if e > 1 and n != "data"]
+        if wide:
+            raise NotImplementedError(
+                f"the mesh splits over {wide}: only the data axis may hold "
+                f"more than one rank (a weight split over 'model' is not "
+                f"laid out)")
+        self.mesh = mesh
+        self.group = mesh.get_group("data")
+        self.world = int(mesh.size(names.index("data")))
+        self.rank = int(mesh.get_local_rank("data"))
+
+    def layout(self, x) -> "LeafLayout":
+        """A leaf's ``LeafLayout``: a DTensor's by its placement on this
+        axis; any other tensor is held whole by every rank."""
+        if not _is_dtensor(x):
+            return LeafLayout(None, self)
+        from torch.distributed.tensor import Shard
+
+        p = x.placements[self.mesh.mesh_dim_names.index("data")]
+        return LeafLayout(p.dim if isinstance(p, Shard) else None, self)
+
+    def gather(self, *parts: torch.Tensor) -> tuple:
+        """Each rank's tensors stacked on their leading axis in rank order
+        (all-gather)."""
+        if self.world == 1:
+            return parts
+        out = []
+        for x in parts:
+            x = x.contiguous()
+            buf = x.new_empty((self.world * x.shape[0],) + tuple(x.shape[1:]))
+            _all_gather(buf, x, group=self.group)
+            out.append(buf)
+        return tuple(out)
+
+    def sum(self, tensors: list, pick: list) -> list:
+        """``tensors`` with those where ``pick`` is true summed over the
+        ranks, in f32, in one all-reduce of them flattened; each cast
+        back to its own dtype."""
+        chosen = [t for t, p in zip(tensors, pick) if p]
+        if not chosen or self.world == 1:
+            return list(tensors)
+        flat = torch.cat([t.to(torch.float32).reshape(-1) for t in chosen])
+        dist.all_reduce(flat, group=self.group)
+        out, at = [], 0
+        for t, p in zip(tensors, pick):
+            if p:
+                out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
+                at += t.numel()
+            else:
+                out.append(t)
+        return out
+
+
+class LeafLayout:
+    """How one leaf lies on ``axis``: ``dim`` is the tensor dim split
+    evenly over its ranks, None when each rank holds the leaf whole. The
+    collectives a step makes for it."""
+
+    def __init__(self, dim: Optional[int], axis: DataAxis):
+        self.dim, self.axis = dim, axis
+
+    def whole(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from every rank's shard (all-gather); the
+        shard itself when the leaf is not split."""
+        if self.dim is None:
+            return local
+        out, = self.axis.gather(local.movedim(self.dim, 0))
+        return out.movedim(0, self.dim).contiguous()
+
+    def part(self, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a whole tensor (a view)."""
+        if self.dim is None:
+            return whole
+        size = whole.shape[self.dim] // self.axis.world
+        return whole.narrow(self.dim, self.axis.rank * size, size)
+
+    def sum_part(self, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the sum over the ranks of a whole tensor
+        each rank has its own of (reduce-scatter, in f32)."""
+        x = whole.movedim(self.dim, 0).to(torch.float32).contiguous()
+        out = x.new_empty((x.shape[0] // self.axis.world,) + tuple(x.shape[1:]))
+        _reduce_scatter(out, x, group=self.axis.group)
+        return out.movedim(0, self.dim).to(whole.dtype).contiguous()
+
+
+class _Gathered(torch.autograd.Function):
+    """A shard gathered whole for the forward; the backward gives this
+    rank's shard of the sum over the ranks of the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, local, lay):
+        ctx.lay = lay
+        return lay.whole(local)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.lay.sum_part(grad), None
+
+
+class LocalShard:
+    """A rank's shard of a split weight as the model receives it on a
+    mesh: indexing takes one layer of a stacked leaf (the layer axis is
+    never split), and the installed ``shard_layer_params`` gathers it."""
+
+    __slots__ = ("local", "dim")
+
+    def __init__(self, local: torch.Tensor, dim: int):
+        self.local, self.dim = local, dim
+
+    def __getitem__(self, i):
+        if self.dim == 0:
+            raise IndexError("a split weight's split dim cannot be indexed")
+        return LocalShard(self.local[i], self.dim - 1)
+
+    @property
+    def requires_grad(self) -> bool:
+        return self.local.requires_grad
+
+
+def make_layer_param_constrainer(mesh):
+    """The installed ``shard_layer_params`` on ``mesh``, called on each
+    layer's slice inside the model's loop and on the weights outside the
+    stacks: every ``LocalShard`` gathered whole on each rank, its
+    gradient summed over the ranks onto each rank's shard; other leaves
+    (held whole) as they are. Under remat the gather is recomputed in the
+    backward, so the peak holds one layer's gathered weights, not the
+    stack's (the reason the reference pins the slice inside the scan)."""
+    axis = DataAxis(mesh)
+
+    def constrain(tree):
+        return tree_map(
+            lambda x: (_Gathered.apply(x.local, LeafLayout(x.dim, axis))
+                       if isinstance(x, LocalShard) else x), tree)
+
+    return constrain
+
+
+def make_activation_constraint(mesh):
+    """The installed ``shard_act`` on ``mesh``: ``(x, kind) -> x``. Every
+    rule of ``make_activation_sharder`` asks the batch over ("pod",
+    "data") on dim 0, which is what a rank's own rows are, and "model"
+    elsewhere, which is one rank (``DataAxis`` refuses a wider one)."""
+    DataAxis(mesh)
+
+    def constrain(x, kind: str):
+        return x
+
+    return constrain

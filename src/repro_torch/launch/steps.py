@@ -19,6 +19,7 @@ import torch
 from ..models import Model
 from ..second_order import adamw, apply_updates, fednl_precond, sgd
 from ..tree import tree_leaves, tree_map, tree_unflatten
+from .sharding import DataAxis, LocalShard, like_tree, local_tree
 
 
 def make_optimizer(name: str, lr: float, moment_dtype=None, **kw):
@@ -56,12 +57,19 @@ class RademacherProbes:
         return tree_map(one, params)
 
 
-def value_and_grad(model: Model, params, batch, create_graph: bool = False):
+def value_and_grad(model: Model, params, batch, create_graph: bool = False,
+                   split_dims=None):
     """(loss, the leaves the gradient is taken at, the gradient leaves in
     ``tree_leaves`` order). ``create_graph`` keeps the gradient's graph
-    for a second backward."""
+    for a second backward. ``split_dims`` (one entry per leaf, on a
+    mesh): a leaf whose entry is a dim is this rank's shard of a weight
+    split on that dim; the model receives it as a ``LocalShard``, which
+    the installed ``shard_layer_params`` gathers, and its gradient is
+    this rank's shard of the sum over the ranks."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    loss = model.loss_fn(tree_unflatten(params, leaves), batch)
+    inputs = leaves if split_dims is None else [
+        x if d is None else LocalShard(x, d) for x, d in zip(leaves, split_dims)]
+    loss = model.loss_fn(tree_unflatten(params, inputs), batch)
     grads = torch.autograd.grad(loss, leaves, create_graph=create_graph)
     return loss, leaves, grads
 
@@ -82,12 +90,13 @@ def grad_and_hvp(model: Model, params, batch, z):
 
 def make_train_step(model: Model, optimizer, microbatches: int = 1,
                     refresh_every: int = 1, n_silos: int = 1,
-                    hvp: bool = False, probe_seed: int = 0, probes=None):
-    """``microbatches > 1`` splits the global batch and accumulates the
+                    hvp: bool = False, probe_seed: int = 0, probes=None,
+                    mesh=None):
+    """``microbatches > 1`` splits the batch and accumulates the
     gradients in f32 over the pieces, one piece's activations alive at a
     time; the sum is divided and cast to each parameter's dtype. A batch
-    that ``microbatches`` does not divide raises ``ValueError`` (the
-    reference's reshape raises too).
+    that ``microbatches`` does not divide raises ``ValueError`` before any
+    work (the reference's reshape raises too).
 
     Second-order optimizers (``optimizer.refresh`` set: fednl) get a
     curvature phase: every ``refresh_every`` steps, by
@@ -100,85 +109,123 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
     and K4 on a card), and every step's update is
     ``optimizer.precondition`` from the stored curvature. First-order
     optimizers take ``optimizer.update``. ``probes`` is the probes'
-    draw source (``RademacherProbes(probe_seed)`` by default)."""
+    draw source (``RademacherProbes(probe_seed)`` by default).
+
+    ``mesh`` (a ``("data", "model")`` mesh, model axis one rank): every
+    rank runs the step on its own rows of the global batch, with
+    ``params`` and ``opt_state`` laid out by ``sharding.shard_tree`` and
+    ``make_layer_param_constrainer(mesh)`` installed. The forward gathers
+    each split weight a layer at a time; the gradient is the mean over
+    the ranks, each split leaf's reduced onto its shards in the backward
+    and the replicated leaves' in one all-reduce; the update runs on the
+    shards. Each rank plays ``n_silos / W`` silos (one in the driver):
+    their observations are taken on its rows with the weights gathered
+    whole, before any reduction across ranks, and the refresh gathers
+    each H whole for K1 and the ranks' payloads in silo order for K4, each
+    rank keeping its shard of H. On one rank this is the step without a
+    mesh, bit for bit."""
     second_order = (getattr(optimizer, "refresh", None) is not None
                     and refresh_every >= 1)
     probes = RademacherProbes(probe_seed) if probes is None else probes
+    axis = None if mesh is None else DataAxis(mesh)
+    world, rank = (1, 0) if axis is None else (axis.world, axis.rank)
+    if n_silos % world:
+        raise ValueError(f"n_silos={n_silos} must divide over {world} ranks")
+    local_silos = n_silos // world
 
     def split(batch, parts: int, i: int):
         size = tree_leaves(batch)[0].shape[0] // parts
         return tree_map(lambda x: x[i * size:(i + 1) * size], batch)
 
-    def observe_and_refresh(state, params, batch):
-        """One refresh: an observation per silo shard, stacked on a
-        leading silo axis, then ``optimizer.refresh``."""
+    def observe_and_refresh(state, params, batch, lays):
+        """One refresh: an observation per silo of this rank's rows, on
+        the whole weights, stacked on a leading silo axis, then
+        ``optimizer.refresh`` (over the ranks with ``lays``)."""
+        whole = (params if lays is None else
+                 tree_map(lambda p, lay: lay.whole(p), params, lays))
         stack = None
-        for i in range(n_silos):
-            b_i = split(batch, n_silos, i)
+        for i in range(local_silos):
+            silo = rank * local_silos + i
+            b_i = split(batch, local_silos, i)
             if hvp:
-                z = probes(state.step, i, params)
-                g_i, hz = grad_and_hvp(model, params, b_i, z)
-                obs = optimizer.observe(g_i, params, hvp=(z, hz))
+                z = probes(state.step, silo, whole)
+                g_i, hz = grad_and_hvp(model, whole, b_i, z)
+                obs = optimizer.observe(g_i, whole, hvp=(z, hz))
                 del z, hz
             else:
-                _, _, g = value_and_grad(model, params, b_i)
+                _, _, g = value_and_grad(model, whole, b_i)
                 g_i = tree_unflatten(params, list(g))
                 obs = optimizer.observe(g_i)
             del g_i
             leaves = tree_leaves(obs)
             if stack is None:
-                stack = [torch.empty((n_silos,) + tuple(o.shape),
+                stack = [torch.empty((local_silos,) + tuple(o.shape),
                                      dtype=o.dtype, device=o.device)
                          for o in leaves]
             for s, o in zip(stack, leaves):
                 s[i].copy_(o)
             del obs, leaves
-        return optimizer.refresh(state, tree_unflatten(params, stack))
+        del whole
+        obs = tree_unflatten(params, stack)
+        if lays is None:
+            return optimizer.refresh(state, obs)
+        return optimizer.refresh(state, obs, layout=lays)
 
     def train_step(params, opt_state, batch):
         b0 = tree_leaves(batch)[0].shape[0]
         if b0 % microbatches:
-            raise ValueError(f"global batch {b0} must divide into "
-                             f"microbatches={microbatches}")
-        if microbatches == 1:
-            loss, _, g = value_and_grad(model, params, batch)
+            raise ValueError(f"global batch {b0 * world} must divide into "
+                             f"{world} rank(s) x microbatches={microbatches}")
+        if second_order and b0 % local_silos:
+            raise ValueError(f"global batch {b0 * world} must divide into "
+                             f"n_silos={n_silos}")
+        lays = None if axis is None else tree_map(axis.layout, params)
+        dims = None if lays is None else [lay.dim for lay in tree_leaves(lays)]
+        p_loc, state = local_tree(params), local_tree(opt_state)
+        p_leaves = tree_leaves(p_loc)
+        if microbatches == 1 and world == 1:
+            loss, _, g = value_and_grad(model, p_loc, batch)
             loss = loss.detach()
-            grads = tree_unflatten(params, list(g))
+            grads = list(g)
         else:
             loss = None
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in tree_leaves(params)]
+                   for p in p_leaves]
             for j in range(microbatches):
                 loss_j, _, g = value_and_grad(
-                    model, params, split(batch, microbatches, j))
+                    model, p_loc, split(batch, microbatches, j),
+                    split_dims=dims)
                 loss_j = loss_j.detach()
                 loss = loss_j if loss is None else loss + loss_j
                 for a, gj in zip(acc, g):
                     a.add_(gj.to(torch.float32))
                 del g
-            loss = loss / microbatches
-            grads = tree_unflatten(params, [
-                (a / microbatches).to(p.dtype)
-                for a, p in zip(acc, tree_leaves(params))])
+            if world > 1:
+                loss, = axis.sum([loss], [True])
+                acc = axis.sum(acc, [d is None for d in dims])
+            parts = microbatches * world
+            loss = loss / parts
+            grads = [(a / parts).to(p.dtype) for a, p in zip(acc, p_leaves)]
             del acc
+        grads = tree_unflatten(p_loc, grads)
 
         refreshed = 0.0
         if second_order:
-            if b0 % n_silos:
-                raise ValueError(
-                    f"global batch {b0} must divide into n_silos={n_silos}")
-            if opt_state.step % refresh_every == 0:
-                opt_state = observe_and_refresh(opt_state, params, batch)
+            if state.step % refresh_every == 0:
+                state = observe_and_refresh(state, p_loc, batch, lays)
                 refreshed = 1.0
-            updates, opt_state = optimizer.precondition(grads, opt_state,
-                                                        params)
+            updates, state = optimizer.precondition(grads, state, p_loc)
         else:
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in tree_leaves(grads)))
-        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
-                                   "curv_refreshed": refreshed}
+            updates, state = optimizer.update(grads, state, p_loc)
+        p_loc = apply_updates(p_loc, updates)
+        sums = [torch.sum(torch.square(g.to(torch.float32)))
+                for g in tree_leaves(grads)]
+        if world > 1:
+            sums = axis.sum(sums, [d is not None for d in dims])
+        gnorm = torch.sqrt(sum(sums))
+        return (like_tree(p_loc, params), like_tree(state, opt_state),
+                {"loss": loss, "grad_norm": gnorm,
+                 "curv_refreshed": refreshed})
 
     return train_step
 

@@ -9,12 +9,17 @@ published one. A VLM's batch gets patch embeddings and an
 encoder-decoder's frame embeddings (``add_modality_inputs``), and a
 VLM's text is ``--seq`` less the patches long. The mesh is
 ``make_host_mesh()`` over the ranks of the process group (one when
-started alone), and each rank on its data axis
-plays one FedNL silo for the curvature observations: on one card,
-``n_silos`` is 1. The sharding rules give every tensor's placement on
-that mesh; on one card each is replication, and laying tensors out over
-several cards is ROADMAP item 10b, so a mesh of more than one rank
-raises.
+started alone; ``torchrun`` starts several, e.g.
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --device cpu --optimizer fednl
+
+on the CPU). The params and the optimizer state are laid out on it by
+the sharding rules (``shard_tree``), the hooks gather each split weight
+a layer at a time inside the model's loop, each rank takes its own rows
+of every global batch, and each rank plays one FedNL silo for the
+curvature observations (``n_silos`` is the number of ranks). Rank 0
+prints.
 """
 
 from __future__ import annotations
@@ -30,23 +35,19 @@ from ..configs import ARCHS, get_config
 from ..data.tokens import TokenPipeline
 from ..device import resolve_device
 from ..models import build_model
-from ..tree import tree_leaves
-from .mesh import extents, make_host_mesh
-from .sharding import opt_state_shardings, placements, tree_param_specs
+from ..models.common import set_activation_sharder
+from ..tree import tree_map
+from .mesh import extents, make_host_mesh, scoped_group
+from .sharding import (
+    DataAxis,
+    make_activation_constraint,
+    make_layer_param_constrainer,
+    opt_state_shardings,
+    shard_tree,
+    tree_param_specs,
+    whole_tree,
+)
 from .steps import make_optimizer, make_train_step
-
-
-def _require_replicated(mesh, specs) -> None:
-    from torch.distributed.tensor import Replicate
-
-    fields = specs if hasattr(specs, "_fields") else (specs,)
-    for spec in (s for f in fields for s in tree_leaves(f)):
-        if spec is None:
-            continue
-        if any(not isinstance(p, Replicate) for p in placements(mesh, spec)):
-            raise NotImplementedError(
-                "training over a mesh of more than one rank lays tensors out "
-                "across cards: ROADMAP item 10b, not ported yet")
 
 
 def add_modality_inputs(batch: dict, cfg, step: int) -> dict:
@@ -79,13 +80,17 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
     cfg = get_config(arch, smoke=smoke)
     mesh = make_host_mesh(device=dev)
     ext = extents(mesh)
+    axis = DataAxis(mesh)
+    world, rank = axis.world, axis.rank
+    if batch % world:
+        raise ValueError(f"global batch {batch} must divide into {world} "
+                         f"ranks")
     if dev.type == "cuda":
         from ..kernels import build_all
 
         build_all()
     model = build_model(cfg, use_remat=True)
     params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
-    _require_replicated(mesh, tree_param_specs(params, ext))
 
     opt_kw = {}
     if optimizer == "fednl":
@@ -93,46 +98,60 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
                       curvature="hutchinson" if hvp else "fisher")
     opt = make_optimizer(optimizer, lr, **opt_kw)
     opt_state = opt.init(params)
-    # the optimizer state takes the params' own placements
-    _require_replicated(mesh, opt_state_shardings(opt_state, params, ext))
+    # the params, and the optimizer state with the params' own layout
+    # (H and the momentum as the params; the step and the ridge l
+    # replicated), laid out by the rules: each rank keeps its shards
+    state_specs = opt_state_shardings(opt_state, params, ext)
+    opt_state = shard_tree(opt_state, mesh, state_specs)
+    params = shard_tree(params, mesh, tree_param_specs(params, ext))
 
     # every rank on the mesh's data axis plays one FedNL silo for the
-    # curvature observations (when the batch divides across them)
-    n_silos = ext.get("data", 1)
-    if batch % max(n_silos, 1):
-        n_silos = 1
+    # curvature observations
+    n_silos = world
     step_fn = make_train_step(model, opt, microbatches=microbatches,
                               refresh_every=refresh_every, n_silos=n_silos,
-                              hvp=hvp, probe_seed=seed)
+                              hvp=hvp, probe_seed=seed, mesh=mesh)
+
+    def say(msg: str) -> None:
+        if rank == 0:
+            print(msg, flush=True)
 
     # host-side wire accounting: what one curvature refresh ships
     curv_bits = (opt.uplink_bits(params, n_silos=n_silos)
                  if opt.uplink_bits is not None else 0)
     if curv_bits:
-        print(f"curvature uplink: {curv_bits} bits/refresh "
-              f"({n_silos} silo(s), refresh_every={refresh_every})",
-              flush=True)
+        say(f"curvature uplink: {curv_bits} bits/refresh "
+            f"({n_silos} silo(s), refresh_every={refresh_every})")
 
     t_text = seq - (cfg.vision_tokens if cfg.family == "vlm" else 0)
     pipe = TokenPipeline(vocab_size=cfg.vocab, seq_len=t_text,
                          global_batch=batch, seed=seed)
+    rows = batch // world
     history = []
     refreshes = 0
-    t0 = time.time()
-    for i in range(steps):
-        b = add_modality_inputs(pipe.batch(i, device=dev), cfg, i)
-        params, opt_state, metrics = step_fn(params, opt_state, b)
-        history.append(float(metrics["loss"]))
-        refreshes += int(metrics["curv_refreshed"])
-        if i % log_every == 0 or i == steps - 1:
-            extra = (f" curv_bits {curv_bits * refreshes}"
-                     if curv_bits else "")
-            print(f"step {i:5d} loss {history[-1]:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f}"
-                  f"{extra} ({(time.time()-t0):.1f}s)", flush=True)
+    set_activation_sharder(make_activation_constraint(mesh),
+                           make_layer_param_constrainer(mesh))
+    try:
+        t0 = time.time()
+        for i in range(steps):
+            b = add_modality_inputs(pipe.batch(i, device=dev), cfg, i)
+            b = tree_map(lambda x: x[rank * rows:(rank + 1) * rows], b)
+            params, opt_state, metrics = step_fn(params, opt_state, b)
+            history.append(float(metrics["loss"]))
+            refreshes += int(metrics["curv_refreshed"])
+            if i % log_every == 0 or i == steps - 1:
+                extra = (f" curv_bits {curv_bits * refreshes}"
+                         if curv_bits else "")
+                say(f"step {i:5d} loss {history[-1]:.4f} "
+                    f"gnorm {float(metrics['grad_norm']):.3f}"
+                    f"{extra} ({(time.time()-t0):.1f}s)")
+    finally:
+        set_activation_sharder(None, None)
     if ckpt:
-        save_ckpt(ckpt, {"params": params}, step=steps)
-        print(f"checkpoint -> {ckpt}")
+        whole = whole_tree(params)
+        if rank == 0:
+            save_ckpt(ckpt, {"params": whole}, step=steps)
+            print(f"checkpoint -> {ckpt}")
     return history
 
 
@@ -162,13 +181,16 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    return train(args.arch, smoke=args.smoke, steps=args.steps,
-                 batch=args.batch, seq=args.seq, lr=args.lr,
-                 optimizer=args.optimizer, microbatches=args.microbatches,
-                 ckpt=args.ckpt, seed=args.seed,
-                 refresh_every=args.refresh_every,
-                 curvature_k=args.curvature_k, hvp=args.hvp,
-                 device=args.device)
+    # the group train's mesh makes (a one-rank one, or torchrun's) is
+    # destroyed when training ends
+    with scoped_group():
+        return train(args.arch, smoke=args.smoke, steps=args.steps,
+                     batch=args.batch, seq=args.seq, lr=args.lr,
+                     optimizer=args.optimizer, microbatches=args.microbatches,
+                     ckpt=args.ckpt, seed=args.seed,
+                     refresh_every=args.refresh_every,
+                     curvature_k=args.curvature_k, hvp=args.hvp,
+                     device=args.device)
 
 
 if __name__ == "__main__":

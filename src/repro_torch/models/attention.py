@@ -22,7 +22,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
-from .common import apply_rope, causal_mask, decode_mask, dense_init
+from .common import (apply_rope, causal_mask, decode_mask, dense_init,
+                     shard_act)
 from .config import ModelConfig, require_ported
 
 # ---------------------------------------------------------------------------
@@ -117,6 +118,7 @@ def gqa_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions=None):
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = (shard_act(a, "bthd") for a in (q, k, v))
     n_rep, window = cfg.n_heads // cfg.kv_heads, cfg.sliding_window
     if t <= 2 * SDPA_CHUNK:
         out = _sdpa(q, k, v, causal_mask(t, window, device=x.device), n_rep)
@@ -128,7 +130,7 @@ def gqa_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions=None):
     else:
         out = flash_attention(q, k, v, window=window)
     y = out.reshape(b, t, cfg.n_heads * cfg.hd) @ p["wo"]
-    return y, {"k": k, "v": v}
+    return shard_act(y, "btd"), {"k": k, "v": v}
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
@@ -278,7 +280,7 @@ def mla_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions=None):
     else:
         mask = causal_mask(t, cfg.sliding_window, device=x.device)
         y = _mla_attend(p, q_nope, q_rope, ckv, krope, mask, cfg)
-    return y, {"ckv": ckv, "krope": krope}
+    return shard_act(y, "btd"), {"ckv": ckv, "krope": krope}
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:

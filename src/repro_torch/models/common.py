@@ -1,11 +1,13 @@
-"""Shared building blocks: initializers, norms, RoPE, masks and the loss,
-the counterparts of ``src/repro/models/common.py``.
+"""Shared building blocks: the sharding hooks, initializers, norms,
+RoPE, masks and the loss, the counterparts of
+``src/repro/models/common.py``.
 
-The reference's sharding hooks (``shard_act``) have no counterpart:
-the rules are ported as specs (``launch/sharding.py``), and on one card
-each is replication, so the model applies none (laying tensors out over
-several cards is ROADMAP item 10b). Initializers draw from an explicit
-``torch.Generator`` and put the weights on its device.
+The hooks are the identity until a launcher installs them
+(``set_activation_sharder``): the train driver on a mesh installs
+``launch.sharding.make_activation_constraint`` and
+``make_layer_param_constrainer``, and the model's loop then gathers each
+layer's split weights whole as it reaches the layer. Initializers draw
+from an explicit ``torch.Generator`` and put the weights on its device.
 """
 
 from __future__ import annotations
@@ -14,6 +16,39 @@ import math
 from typing import Optional
 
 import torch
+
+# ---------------------------------------------------------------------------
+# Sharding hooks: the launcher installs them; the models call shard_act(x,
+# kind) where the reference does, and shard_layer_params on each layer's
+# slice inside the loop and on the weights outside the stacks.
+# ---------------------------------------------------------------------------
+
+_ACT_CONSTRAINT = None          # (tensor, kind) -> tensor, or None
+_LAYER_PARAM_CONSTRAINT = None  # (tree) -> tree, or None
+
+
+def set_activation_sharder(fn, layer_param_fn=None) -> None:
+    global _ACT_CONSTRAINT, _LAYER_PARAM_CONSTRAINT
+    _ACT_CONSTRAINT = fn
+    _LAYER_PARAM_CONSTRAINT = layer_param_fn
+
+
+def shard_act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """kind in {'btd', 'btf', 'bthd', 'logits', 'ecf', 'moe_route',
+    'carry'}: see ``launch/sharding.py``."""
+    if _ACT_CONSTRAINT is None:
+        return x
+    return _ACT_CONSTRAINT(x, kind)
+
+
+def shard_layer_params(tree):
+    """A layer's slice of the stacked weights (or the weights outside the
+    stacks) as the layer computes with them: on a mesh, each split
+    weight gathered whole inside the loop, so the peak holds one layer's
+    gathered weights, not every layer's."""
+    if _LAYER_PARAM_CONSTRAINT is None:
+        return tree
+    return _LAYER_PARAM_CONSTRAINT(tree)
 
 # ---------------------------------------------------------------------------
 # Initializers

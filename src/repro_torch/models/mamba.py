@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .common import dense_init
+from .common import dense_init, shard_act
 from .config import ModelConfig
 
 
@@ -165,11 +165,11 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     u, z = (x @ p["win"]).chunk(2, dim=-1)                   # (B,T,Di) each
     u_pad = F.pad(u, (0, 0, m.d_conv - 1, 0))
     conv = sum(u_pad[:, i:i + t] * p["conv"][i] for i in range(m.d_conv))
-    u = F.silu(conv + p["conv_b"])
+    u = shard_act(F.silu(conv + p["conv_b"]), "btf")
     b_in, c_in, dt, a = _project(p, u)
     y = _ssm_scan(u.float(), dt, b_in, c_in, a)
     y = y + p["d_skip"] * u.float()
-    return (y.to(x.dtype) * F.silu(z)) @ p["wout"]
+    return shard_act((y.to(x.dtype) * F.silu(z)) @ p["wout"], "btd")
 
 
 def mamba_init_cache(cfg: ModelConfig, batch: int, device) -> dict:

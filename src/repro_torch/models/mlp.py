@@ -19,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init
+from .common import dense_init, shard_act
 from .config import ModelConfig
 
 # ---------------------------------------------------------------------------
@@ -48,7 +48,8 @@ def _act(h: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
 
 def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gate = x @ p["wg"] if cfg.mlp_type == "swiglu" else None
-    return (_act(x @ p["wi"], gate) @ p["wo"]).to(x.dtype)
+    h = shard_act(_act(x @ p["wi"], gate), "btf")
+    return (h @ p["wo"]).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -141,27 +142,31 @@ def group_tokens(x: torch.Tensor, cfg: ModelConfig):
     pad = (-n_tok) % gsz
     if pad:
         tokens = F.pad(tokens, (0, 0, 0, pad))
-    return tokens.reshape(-1, gsz, d), n_tok
+    return shard_act(tokens.reshape(-1, gsz, d), "moe_route"), n_tok
 
 
 def route_groups(p: dict, groups: torch.Tensor, cfg: ModelConfig):
     """The router: f32 logits of the groups, then ``_route``."""
     logits = torch.einsum("ngd,de->nge", groups.float(), p["router"])
-    return _route(logits, cfg)
+    dispatch, combine, aux = _route(logits, cfg)
+    return (shard_act(dispatch, "moe_route"), shard_act(combine, "moe_route"),
+            aux)
 
 
 def dispatch_tokens(dispatch: torch.Tensor,
                     groups: torch.Tensor) -> torch.Tensor:
     """Each expert's slots (NG, E, C, d), ``dispatch`` cast to the
     activations' type."""
-    return torch.einsum("ngec,ngd->necd", dispatch.to(groups.dtype), groups)
+    return shard_act(torch.einsum("ngec,ngd->necd", dispatch.to(groups.dtype),
+                                  groups), "ecf")
 
 
 def run_experts(p: dict, xin: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The experts' MLPs on their slots: (NG, E, C, d) -> (NG, E, C, d)."""
     gate = (torch.einsum("necd,edf->necf", xin, p["wg"])
             if cfg.mlp_type == "swiglu" else None)
-    h = _act(torch.einsum("necd,edf->necf", xin, p["wi"]), gate)
+    h = shard_act(_act(torch.einsum("necd,edf->necf", xin, p["wi"]), gate),
+                  "ecf")
     del gate
     return torch.einsum("necf,efd->necd", h, p["wo"])
 

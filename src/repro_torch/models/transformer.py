@@ -23,7 +23,10 @@ positions, where the reference scans over segments. With ``use_remat``
 (the default, as the reference's) each layer runs under
 ``torch.utils.checkpoint`` while autograd records, so the backward keeps
 one (B, T, d) input per layer and recomputes the rest; a call without a
-gradient runs the layers directly.
+gradient runs the layers directly. Each layer's slice passes through
+``shard_layer_params`` inside the checkpointed function, and the weights
+outside the stacks through it once a forward: on a mesh, the train
+driver's hook gathers the split weights there, a layer at a time.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from . import attention as attn
 from . import mamba as mam
 from . import mlp as ff
 from . import xlstm as xl
-from .common import apply_norm, cross_entropy, embed_init, norm_params
+from .common import (apply_norm, cross_entropy, embed_init, norm_params,
+                     shard_act, shard_layer_params)
 from .config import ModelConfig, require_ported
 
 Params = Dict[str, Any]
@@ -180,6 +184,15 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _slice_forward(p: Params, *args):
+    """``_layer_forward`` of a layer's slice as ``shard_layer_params``
+    gives it: inside a checkpoint, the backward gathers it again."""
+    return _layer_forward(shard_layer_params(p), *args)
+
+
+_STACKS = ("layers", "enc_layers")
+
+
 def _stacked(makes: list, n: int) -> list:
     """``n`` segments of the layers that ``makes`` draw (one maker per
     position in the period), drawn segment by segment and each layer
@@ -281,11 +294,12 @@ class Model:
             for stack, kind in zip(stacks, kinds):
                 args = (_layer(stack, i), x, self.cfg, *kind, memory, causal)
                 if remat:
-                    x, a = checkpoint(_layer_forward, *args,
+                    x, a = checkpoint(_slice_forward, *args,
                                       use_reentrant=False)
                 else:
-                    x, a = _layer_forward(*args)
+                    x, a = _slice_forward(*args)
                 aux = aux + a
+            x = shard_act(x, "carry")
         return x, aux
 
     def _embed_inputs(self, params: Params, batch: dict) -> torch.Tensor:
@@ -295,7 +309,7 @@ class Model:
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         if self.cross:
             x = x + sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)
-        return x
+        return shard_act(x, "btd")
 
     def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """The encoder stack over frame embeddings (B, S, d), then its
@@ -311,13 +325,16 @@ class Model:
         cfg = self.cfg
         x = apply_norm(x, params["norm_f"], cfg.norm)
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-        return torch.einsum("btd,vd->btv", x, head)
+        return shard_act(torch.einsum("btd,vd->btv", x, head), "logits")
 
     def forward(self, params: Params, batch: dict):
         """Logits (B, T, V) of the batch (``tokens``; ``patches`` before
         them for vlm, ``frames`` for the encoder of encdec) and the sum of
         the layers' aux losses (0 without MoE), as the reference returns
-        them."""
+        them. The weights outside the stacks pass ``shard_layer_params``
+        once, before the layers."""
+        params = {k: v if k in _STACKS else shard_layer_params(v)
+                  for k, v in params.items()}
         memory = (self._encode(params, batch["frames"]) if self.cross
                   else None)
         x = self._embed_inputs(params, batch)

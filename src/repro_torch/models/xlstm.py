@@ -22,7 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init
+from .common import dense_init, shard_act
 from .config import ModelConfig
 
 # ---------------------------------------------------------------------------
@@ -120,7 +120,7 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = _mlstm_chunk_scan(q, k, v, logf, logi, chunk)
     y = y.transpose(1, 2).reshape(b, t + pad, d)[:, :t]
     o = torch.sigmoid(x @ p["wo_gate"])
-    return (y.to(x.dtype) * o) @ p["wout"]
+    return shard_act((y.to(x.dtype) * o) @ p["wout"], "btd")
 
 
 def mlstm_init_cache(cfg: ModelConfig, batch: int, device) -> dict:
@@ -202,7 +202,7 @@ def slstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         c, n, h, m = _slstm_cell(c, n, m, pre)
         hs.append(h)
     y = torch.stack(hs, dim=1).to(x.dtype)
-    return y @ p["wout"]
+    return shard_act(y @ p["wout"], "btd")
 
 
 def slstm_init_cache(cfg: ModelConfig, batch: int, device) -> dict:

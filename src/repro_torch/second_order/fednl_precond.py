@@ -28,7 +28,11 @@ the CPU their plain versions. Each ``a + c * b`` of the reference is
 ``torch.add(a, b, alpha=c)``: one rounding, as XLA fuses it.
 ``uplink_bits`` is the wire cost of one refresh (``wire.wire_cost``'s
 analytic count, from shapes alone), bound in the ``Optimizer`` adapter
-as the reference binds it.
+as the reference binds it. On a mesh (``launch.steps.make_train_step``
+with ``mesh``), H and the momentum are laid out over the ranks, each
+rank plays one silo, and ``refresh`` takes the layout: per tensor, H is
+gathered whole for K1, the ranks' payloads cross as the uplink before
+K4, and each rank keeps its own shard of the increment.
 """
 
 from __future__ import annotations
@@ -120,22 +124,43 @@ class FedNLPrecondOptimizer:
                                       universe=self.block * self.block)
         return self.compressor.aggregate(payloads, shape2)
 
-    def _learn_tensor(self, h, d_obs):
+    def learn(self, h, d_obs, gather=None):
         """One tensor's compressed learning: the increment s = C(D - H)
         (the server mean of per-silo payloads when ``d_obs`` carries a
-        leading silo axis) and the ridge l. Returns (s, l)."""
+        leading silo axis) and the ridge l. Returns (s, l).
+
+        ``gather`` maps this call's payload (values, indices and the
+        per-tile ||D_i - H||^2 terms, each on a leading silo axis) to
+        every silo's, stacked in silo order: on a mesh, each rank's
+        silos cross the ranks there as a payload before the server
+        mean. The ridge sums each silo's terms in one reduction over the
+        stack, so a silo's l does not depend on which call made it."""
         shape2 = _shape2d(h.shape)
         h2 = h.reshape(shape2)
-        if d_obs.dim() == h.dim() + 1:
-            obs = d_obs.to(torch.float32).reshape((d_obs.shape[0],) + shape2)
-            vals, idx, sq = diff_topk_payload(obs, h2, self._k(), self.block)
+        stacked = d_obs.dim() == h.dim() + 1
+        obs = (d_obs.to(torch.float32).reshape((d_obs.shape[0],) + shape2)
+               if stacked else d_obs.reshape((1,) + shape2))
+        vals, idx, tile_sq = diff_topk_payload(obs, h2, self._k(), self.block,
+                                               tile_sums=True)
+        if gather is not None:
+            vals, idx, tile_sq = gather(vals, idx, tile_sq)
+        sq = torch.sum(tile_sq, dim=1)
+        if stacked:
             l = torch.mean(torch.sqrt(sq / h.numel() + 1e-30))
         else:
-            vals, idx, sq = diff_topk_payload(d_obs.reshape((1,) + shape2),
-                                              h2, self._k(), self.block)
             l = torch.sqrt(sq[0] / h.numel() + 1e-30)
         s = self._payload_mean(vals, idx, shape2).reshape(h.shape)
         return s, l
+
+    def _learn_laid_out(self, h, d_obs, lay=None):
+        """``learn`` of a rank's shard ``h`` of a tensor laid out by
+        ``lay`` (``launch.sharding.LeafLayout``): H gathered whole for
+        K1, the ranks' payloads gathered for K4, and this rank's shard
+        of s kept. ``lay`` None: ``h`` is the whole tensor."""
+        if lay is None:
+            return self.learn(h, d_obs)
+        s, l = self.learn(lay.whole(h), d_obs, gather=lay.axis.gather)
+        return lay.part(s), l
 
     def _precond_tensor(self, g, h, m, p, l):
         """The per-step preconditioned update from stored (h, l)."""
@@ -149,11 +174,17 @@ class FedNLPrecondOptimizer:
         u = (-self.lr * m_new).to(p.dtype)
         return u, m_new
 
-    def refresh(self, state: FedNLPrecondState,
-                observations) -> FedNLPrecondState:
+    def refresh(self, state: FedNLPrecondState, observations,
+                layout=None) -> FedNLPrecondState:
         """Learn curvature from (possibly silo-stacked) observations:
-        new h and stored ridge l; step and mu untouched."""
-        out = tree_map(self._learn_tensor, state.h, observations)
+        new h and stored ridge l; step and mu untouched. ``layout`` (a
+        tree like ``state.h`` of ``LeafLayout``s) says how each H is laid
+        out over the ranks of a mesh when ``state.h`` holds this rank's
+        shards and ``observations`` this rank's silos; None: one process
+        holds every tensor and every silo."""
+        if layout is None:
+            layout = tree_map(lambda _: None, state.h)
+        out = tree_map(self._learn_laid_out, state.h, observations, layout)
         s, l = _pick(out, 0), _pick(out, 1)
         h_new = tree_map(lambda h, si: torch.add(h, si, alpha=self.alpha),
                          state.h, s)
@@ -194,7 +225,7 @@ class FedNLPrecondOptimizer:
         obs = observations if observations is not None else self.observe(grads)
 
         def per_tensor(g, h, m, p, d_obs):
-            s, l = self._learn_tensor(h, d_obs)
+            s, l = self.learn(h, d_obs)
             u, m_new = self._precond_tensor(g, h, m, p, l)
             return u, torch.add(h, s, alpha=self.alpha), m_new, l
 

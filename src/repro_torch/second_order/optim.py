@@ -34,8 +34,9 @@ class Optimizer:
 
     A second-order optimizer also binds the amortized hooks:
     ``observe(grads, params=None, hvp=None) -> obs`` (curvature
-    observation per tensor), ``refresh(state, observations) -> state``
-    (learn curvature, the expensive phase) and
+    observation per tensor), ``refresh(state, observations, layout=None)
+    -> state`` (learn curvature, the expensive phase; ``layout`` when the
+    state is laid out over the ranks of a mesh) and
     ``precondition(grads, state, params) -> (updates, state)`` (the cheap
     step from stored curvature), and ``uplink_bits(params, n_silos=1)
     -> int``, the host-side wire cost of one curvature refresh."""

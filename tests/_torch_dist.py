@@ -126,3 +126,121 @@ def split_aggregates(mesh, family, level, diffs, shape):
     mine = torch.from_numpy(np.ascontiguousarray(diffs[lo:lo + per]))
     method = FedNL(None, None, comp, group=mesh.get_group("data"))
     return method._server_aggregate(comp.compress(mine), shape)
+
+
+# -- the train driver and the serving loop on a mesh -------------------------------
+
+
+def _describe(x) -> object:
+    """A leaf's placements as strings ("Shard1", "Replicate"), or its type
+    name when it is no DTensor (a step count)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return [type(p).__name__ + str(getattr(p, "dim", "")) for p in
+                x.placements]
+    return type(x).__name__
+
+
+def driver_runs(mesh, arch, overrides, argvs):
+    """``driver_run`` of each argv in ``argvs`` in turn."""
+    return [driver_run(mesh, arch, overrides, argv) for argv in argvs]
+
+
+def driver_run(mesh, arch, overrides, argv):
+    """``launch.train.main(argv)`` on this rank with ``arch``'s config
+    ``.reduced(**overrides)``: every step's loss and grad_norm, the
+    placements of the params' and the optimizer state's leaves, this
+    rank's local bytes of them and the bytes of their replicated leaves,
+    the shapes the installed ``shard_layer_params`` gathered in the first
+    step, the first step's H and l gathered whole (fednl), and the final
+    params gathered whole. A ``ValueError`` of the run comes back as its
+    message."""
+    import repro_torch.launch.train as train_mod
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import whole_tree
+    from repro_torch.tree import tree_leaves, tree_map
+
+    rec = {"loss": [], "gnorm": [], "gathered": [], "error": None}
+    make, constrainer = (train_mod.make_train_step,
+                         train_mod.make_layer_param_constrainer)
+    get = train_mod.get_config
+
+    def recording_constrainer(mesh):
+        fn = constrainer(mesh)
+
+        def constrain(tree):
+            out = fn(tree)
+            if not rec["loss"]:
+                for a, b in zip(tree_leaves(tree), tree_leaves(out)):
+                    if a is not b:
+                        rec["gathered"].append(tuple(b.shape))
+            return out
+
+        return constrain
+
+    def recording_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def run(params, opt_state, batch):
+            if "params_layout" not in rec:
+                def local_bytes(tree):
+                    return sum(x.to_local().numel() * x.element_size()
+                               for x in tree_leaves(tree)
+                               if hasattr(x, "to_local"))
+
+                def whole_bytes(tree, replicated_only=False):
+                    return sum(x.numel() * x.element_size()
+                               for x in tree_leaves(tree)
+                               if hasattr(x, "to_local") and not (
+                                   replicated_only and any(
+                                       type(p).__name__ == "Shard"
+                                       for p in x.placements)))
+
+                trees = [params] + [f for f in opt_state
+                                    if isinstance(f, (dict, list))]
+                rec["params_layout"] = tree_map(_describe, params)
+                rec["state_layout"] = {
+                    f: tree_map(_describe, getattr(opt_state, f))
+                    for f in opt_state._fields}
+                rec["local_bytes"] = sum(local_bytes(t) for t in trees)
+                rec["whole_bytes"] = sum(whole_bytes(t) for t in trees)
+                rec["replicated_bytes"] = sum(whole_bytes(t, True)
+                                              for t in trees)
+                rec["batch_rows"] = int(batch["tokens"].shape[0])
+            params, opt_state, m = step(params, opt_state, batch)
+            rec["loss"].append(float(m["loss"]))
+            rec["gnorm"].append(float(m["grad_norm"]))
+            if len(rec["loss"]) == 1 and hasattr(opt_state, "h"):
+                rec["h1"] = whole_tree(opt_state.h)
+                rec["l1"] = whole_tree(opt_state.l)
+            rec["params"] = params
+            return params, opt_state, m
+
+        return run
+
+    train_mod.make_train_step = recording_make
+    train_mod.make_layer_param_constrainer = recording_constrainer
+    train_mod.get_config = lambda a, smoke=True: get_config(arch).reduced(
+        **overrides)
+    try:
+        train_mod.main(list(argv))
+    except ValueError as exc:
+        rec["error"] = str(exc)
+    finally:
+        train_mod.make_train_step = make
+        train_mod.make_layer_param_constrainer = constrainer
+        train_mod.get_config = get
+    if "params" in rec:
+        rec["params"] = whole_tree(rec["params"])
+    return rec
+
+
+def generate_run(mesh, arch, batch, prompt_len, gen, greedy, seed):
+    """``launch.serve.generate`` of the reduced ``arch`` over the mesh's
+    ranks: the tokens every rank holds at the end (rank 0's come back)."""
+    from repro_torch.launch.serve import generate
+
+    return generate(arch, smoke=True, batch=batch, prompt_len=prompt_len,
+                    gen=gen, seed=seed, greedy=greedy, device="cpu",
+                    mesh=mesh)
