@@ -212,9 +212,10 @@ Phases, each failing the run with a non-zero exit:
      aux loss; the reduced model's gradient at B=2, T=600 in f32 on the
      card against the CPU port (1e-4 of each leaf's largest |grad|);
   11c. (right after 11b) the hybrid and ssm families trained:
-     xlstm-350m whole as phase 11 (fednl k=2,048, 4 microbatches, 4 silos,
+     xlstm-350m as phase 11 (fednl k=2,048, 4 microbatches, 4 silos,
      a refresh every 2 steps, 3 steps), train_4k's batch cut to 4 and its
-     T to 512 (the sLSTM's step loop is host-bound): K1 once per tensor and
+     T to 512 (the sLSTM's step loop is host-bound), its depth to one
+     period of 8 layers (all 57 tensors): K1 once per tensor and
      K4 on the refresh steps, no K9, every mLSTM and sLSTM leaf with a
      nonzero curvature, ms per step, peak memory, K1 and K4 on the last
      refresh's mLSTM and sLSTM leaves against their plain versions;
@@ -265,6 +266,19 @@ Phases, each failing the run with a non-zero exit:
      with the ranks played in turn (4 per-rank K1 calls, the payloads
      stacked in silo order, K4) equal to the one-call refresh bit for bit
      on all 14 tensors;
+  16. the mesh's "model" axis: starcoder2-15b at its published width, 2
+     of 40 layers, 4 model ranks played by threads on the card
+     (``played_model_axis``): in bf16 and f32, each rank's prefill of a
+     4,096-token prompt on its shards through the tensor-parallel layers
+     (K9 on its 12 q heads over 1 KV head with the window: 8 launches a
+     dtype, path ``model_axis_starcoder2_15b``), the ranks' logits
+     against the unsplit model's (f32 within 1e-4 of the largest, bf16
+     within 8 bf16 steps), the greedy token through the vocab-parallel
+     argmax, the vocab-parallel loss (f32); K9 at n_rep 12 against its
+     plain version with its time, bound, plain and SDPA time (the kernel
+     line's ``n_rep12_window``); a refresh played on the model shards
+     (each rank's K1 on its tiles, then K4) equal to the one-call refresh
+     bit for bit on every tensor split on tile bounds;
   then print what the profiler failed to record (each such figure timed
   by CUDA events instead, or not measured), the kernel line (with each
   wrapper's registers and shared bytes, ``launch``, and its tuned cases,
@@ -4587,8 +4601,10 @@ def train_granite(dev, seed: int, K, card: str) -> dict:
 # xlstm-350m as phase 11 (fednl k = 2,048, 4 microbatches, 4 silos, a
 # refresh every 2 steps, 3 steps), train_4k's batch of 256 cut to 4 and its
 # T of 4,096 to 512: the sLSTM's step loop is host-bound (about 22
-# launches a token, PERF.md section 5)
-XLSTM_TRAIN_T = 512
+# launches a token, PERF.md section 5); its depth cut 24 -> 8 layers, one
+# period of 7 mLSTM and 1 sLSTM blocks (every one of its 57 tensors, each
+# a stack of one layer), to keep the script inside its time
+XLSTM_TRAIN_T, XLSTM_TRAIN_LAYERS = 512, 8
 # one full-width jamba Mamba mixer, forward and backward at B = 1
 MAMBA_BWD_T = 4096
 # its bf16 input gradient against f32: within 8 bf16 steps of the largest
@@ -4596,7 +4612,8 @@ MAMBA_GRAD_STEPS = 8
 
 
 def train_xlstm(dev, seed: int, K, card: str) -> dict:
-    """``make_train_step`` on xlstm-350m whole: refresh flags [1, 0, 1],
+    """``make_train_step`` on xlstm-350m at its published width, one
+    period deep (``XLSTM_TRAIN_LAYERS``): refresh flags [1, 0, 1],
     H bit for bit unchanged on step 1, finite loss and H, K1 once per
     tensor and K4 launched on the refresh steps alone, K9 never; ms per
     step, of each refresh and precondition, peak memory; K1 and K4 on the
@@ -4610,7 +4627,7 @@ def train_xlstm(dev, seed: int, K, card: str) -> dict:
     from repro_torch.tree import tree_leaves
 
     t_phase = time.perf_counter()
-    cfg = get_config(XLSTM)
+    cfg = dataclasses.replace(get_config(XLSTM), n_layers=XLSTM_TRAIN_LAYERS)
     model = build_model(cfg, use_remat=True)
     params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
     n_leaves = len(tree_leaves(params))
@@ -4741,10 +4758,11 @@ def train_jamba(dev, seed: int, K, card: str) -> dict:
 
 # -- phase 12: the roofline of the measured train steps ------------------------------
 
-# (arch, batch, T) of each measured train step (phases 11, 11b, 11c)
-ROOFLINE_STEPS = [("qwen2-0.5b", TRAIN_B, TRAIN_T),
-                  ("granite-moe-1b-a400m", TRAIN_B, TRAIN_T),
-                  (XLSTM, TRAIN_B, XLSTM_TRAIN_T)]
+# (arch, batch, T, layers: None for the published depth) of each
+# measured train step (phases 11, 11b, 11c)
+ROOFLINE_STEPS = [("qwen2-0.5b", TRAIN_B, TRAIN_T, None),
+                  ("granite-moe-1b-a400m", TRAIN_B, TRAIN_T, None),
+                  (XLSTM, TRAIN_B, XLSTM_TRAIN_T, XLSTM_TRAIN_LAYERS)]
 
 
 def count_train_steps() -> int:
@@ -4759,11 +4777,14 @@ def count_train_steps() -> int:
 
     torch.set_num_threads(1)
     out = {}
-    for arch, b, t in ROOFLINE_STEPS:
+    for arch, b, t, layers in ROOFLINE_STEPS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
         for refresh in (True, False):
             t0 = time.perf_counter()
-            rl, c = train_step_roofline(get_config(arch), b, t, "fednl",
-                                        refresh, k_per_block=CURVATURE_K)
+            rl, c = train_step_roofline(cfg, b, t, "fednl", refresh,
+                                        k_per_block=CURVATURE_K)
             out[f"{arch}:{'refresh' if refresh else 'plain'}"] = {
                 "flops": rl.flops, "bytes": rl.bytes_hbm,
                 "t_compute_s": rl.t_compute, "t_memory_s": rl.t_memory,
@@ -4797,7 +4818,7 @@ def roofline_of_steps(counter, card: str) -> dict:
             f"the train steps' count failed: {err[-2000:]}")
     rows = json.loads(out.strip().splitlines()[-1])
     report = {}
-    for arch, b, t in ROOFLINE_STEPS:
+    for arch, b, t, layers in ROOFLINE_STEPS:
         require(arch in MEASURED_STEPS, f"no measured train step of {arch}")
         for i, st in enumerate(MEASURED_STEPS[arch]):
             rl = rows[f"{arch}:{'refresh' if st['refreshed'] else 'plain'}"]
@@ -4808,7 +4829,9 @@ def roofline_of_steps(counter, card: str) -> dict:
                     f"roofline's compute {1e3 * rl['t_compute_s']:.1f} ms or "
                     f"memory {1e3 * rl['t_memory_s']:.1f} ms term")
             report[f"{arch} step {i}"] = {
-                "shape": f"B={b}, T={t}", "refreshed": st["refreshed"],
+                "shape": f"B={b}, T={t}" + (f", {layers} layers" if layers
+                                            else ""),
+                "refreshed": st["refreshed"],
                 "ms": st["ms"], "compute_ms": 1e3 * rl["t_compute_s"],
                 "memory_ms": 1e3 * rl["t_memory_s"],
                 "ms_over_roofline": st["ms"] / floor_ms,
@@ -5672,6 +5695,339 @@ def mesh_train_qwen2(K, card: str, example: dict, dev) -> dict:
     return launches
 
 
+# phase 16: starcoder2-15b at its published width, depth cut to 2 of 40
+# layers, its "model" axis of 4 ranks played in turn on the card
+MODEL_AXIS_ARCH, MODEL_AXIS_LAYERS, MODEL_AXIS_RANKS = "starcoder2-15b", 2, 4
+MODEL_AXIS_T, MODEL_AXIS_K = 4096, 2048
+# the played logits against the unsplit model's: f32 within 1e-4 of the
+# largest; bf16 within DECODE_TOL (8 bf16 steps) of the largest, since
+# each layer's row-parallel partials are rounded to bf16, summed over the
+# ranks in f32 and rounded again, where one GEMM rounds once
+MODEL_AXIS_F32_REL = 1e-4
+
+
+def played_model_axis(world: int):
+    """A ``ModelAxis`` of ``world`` ranks played by threads of this
+    process on one card: each thread sets its ``rank`` (thread-local) and
+    the collectives meet at a barrier, each rank's tensor copied into a
+    slot and the reduction made in rank order by every thread alike.
+    Forward only: the played ranks make no backward (autograd runs a
+    device's backward on one thread, where two ranks would wait on each
+    other)."""
+    import threading
+
+    import torch
+    from repro_torch.launch.sharding import ModelAxis
+
+    class Played(ModelAxis):
+        def __init__(self):
+            self._local = threading.local()
+            super().__init__(None)
+            self.world = world
+            self.barrier = threading.Barrier(world, timeout=600)
+            self._slots = [None] * world
+
+        @property
+        def rank(self):
+            return self._local.rank
+
+        @rank.setter
+        def rank(self, r):
+            self._local.rank = r
+
+        def _exchange(self, x):
+            self._slots[self.rank] = x.clone()
+            self.barrier.wait()
+            parts = list(self._slots)
+            self.barrier.wait()
+            return parts
+
+        def _all_gather(self, x):
+            return torch.cat(self._exchange(x))
+
+        def _all_reduce(self, x, op="sum"):
+            parts = self._exchange(x)
+            acc = parts[0].clone()
+            for p in parts[1:]:
+                acc = torch.maximum(acc, p) if op == "max" else acc.add_(p)
+            return x.copy_(acc)
+
+        def _reduce_scatter(self, x):
+            raise NotImplementedError("the played ranks run no backward")
+
+    return Played()
+
+
+def play_ranks(axis, fn) -> list:
+    """``fn(rank)`` on a thread per rank of the played ``axis``, with the
+    axis installed as the models' model axis; the results in rank order.
+    A rank that raises breaks the barrier, so the others stop too."""
+    import threading
+
+    from repro_torch.models.common import set_activation_sharder
+
+    out, errors = [None] * axis.world, []
+
+    def run(r):
+        try:
+            axis.rank = r
+            out[r] = fn(r)
+        except BaseException as exc:   # re-raised below, after the join
+            errors.append(exc)
+            axis.barrier.abort()
+
+    set_activation_sharder(None, None, axis)
+    try:
+        threads = [threading.Thread(target=run, args=(r,))
+                   for r in range(axis.world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        set_activation_sharder(None, None, None)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def model_axis_k9(dev, seed: int) -> dict:
+    """K9 on one played rank's heads of starcoder2-15b at T = 4,096: 12 q
+    heads over 1 KV head (n_rep 12), hd 128, window 4,096. Every head
+    against its plain version in bf16 and f32 (``check_flash``), then
+    the bf16 call's ms, device ms, bound, plain and SDPA ms."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+    )
+
+    h, kvh, hd, t, w = 12, 1, 128, MODEL_AXIS_T, 4096
+    g = torch.Generator(device=dev).manual_seed(seed)
+    err = {"flash_attention": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((1, t, n, hd), generator=g, device=dev)
+                   .to(dtype) for n in (h, kvh, kvh))
+        check_flash(q, k, v, range(h), err, f"n_rep 12 {dtype}", window=w)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    pairs = window_pairs(t, w)
+    flops = 4 * h * hd * pairs
+    b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                       {"bf16": flops})
+    dev_ms = device_ms(lambda: flash_attention(q, k, v, window=w),
+                       "flash_attention_kernel_wgmma", reps=10)
+
+    def plain_all_heads():
+        for head in range(h):
+            flash_attention_ref(q[0, :, head][None], k[0, :, 0][None],
+                                v[0, :, 0][None], w)
+
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(h, dim=2).transpose(1, 2) for x in (k, v))
+    out = dict(shape=f"q (1, {t}, {h}, {hd}), k and v (1, {t}, {kvh}, {hd}) "
+                     f"bf16, n_rep {h // kvh}, window {w}",
+               ms=time_cuda(lambda: flash_attention(q, k, v, window=w),
+                            reps=10),
+               device_ms=dev_ms, tflops=flops / dev_ms / 1e9, pairs=pairs,
+               bound_ms=b_ms, bound_by=b_by,
+               plain_ms=time_cuda(plain_all_heads, reps=1, warmup=1),
+               library_ms=time_cuda(lambda: sdpa(qt, kt, vt, w), reps=5,
+                                    warmup=1),
+               library_call="scaled_dot_product_attention with a boolean "
+                            "window mask, KV heads expanded beforehand",
+               max_abs_err=err["flash_attention_bf16"]["max_abs_err"],
+               bf16_check={key: val for key, val in
+                           err["flash_attention_bf16"].items()
+                           if key != "max_abs_err"},
+               f32_max_abs_err=err["flash_attention"])
+    del q, k, v, qt, kt, vt
+    return out
+
+
+def model_axis_refresh(cfg, dev, seed: int, K) -> dict:
+    """A refresh of the 2-layer model's H from one silo's observation
+    (random, f32), per tensor split over "model": in one call
+    (``learn``: K1, K4 on the whole tensor), then through the port's own
+    route on the played ranks (``_learn_laid_out`` with each rank's
+    ``LeafLayout``: K1 and K4 on its model shard where the split is on
+    tile bounds, else on the tensor gathered over "model"; the ridge's
+    per-tile terms gathered in the whole tensor's tile order), with the
+    counts set to 0 just before and read just after. Each rank's s and
+    l bit for bit against the one call's; the played launches."""
+    import torch
+    from repro_torch.configs import model_param_shapes
+    from repro_torch.launch.sharding import (DataAxis, LeafLayout,
+                                             model_parts, tree_param_specs)
+    from repro_torch.second_order.fednl_precond import (
+        FedNLPrecondOptimizer,
+        _tile_grid,
+    )
+    from repro_torch.tree import tree_leaves, tree_map
+
+    ext = {"data": 1, "model": MODEL_AXIS_RANKS}
+    m = MODEL_AXIS_RANKS
+    opt = FedNLPrecondOptimizer(k_per_block=MODEL_AXIS_K)
+    axis = played_model_axis(m)
+    data = DataAxis(None, model=axis)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tree = tree_map(lambda s: torch.empty(s.shape, device="meta"),
+                    model_param_shapes(cfg))
+    specs = tree_leaves(tree_param_specs(tree, ext))
+    played = {"diff_topk_payload": 0, "block_scatter_accumulate": 0}
+    aligned = routes = 0
+    for shape, spec in zip((s.shape for s in tree_leaves(tree)), specs):
+        split = [d for d, e in enumerate(spec)
+                 if "model" in (e if isinstance(e, tuple) else (e,))]
+        if not split:
+            continue
+        dim = split[0]
+        routes += 1
+        local = list(shape)
+        local[dim] //= m
+        aligned += _tile_grid(local, dim, opt.block) is not None
+        h = torch.rand(shape, generator=g, device=dev)
+        obs = torch.rand((1,) + tuple(shape), generator=g, device=dev)
+        s1, l1 = opt.learn(h, obs)
+        # each rank's shards of H and of the observation, as a rank holds
+        # them (contiguous), and its layout: split on "model" only
+        mine = play_ranks(axis, lambda r: tuple(
+            x.contiguous() for x in model_parts(
+                [h, obs], [spec, (None,) + tuple(spec)], axis)))
+        lay = LeafLayout(None, data, dim)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        out = play_ranks(axis, lambda r: opt._learn_laid_out(*mine[r], lay))
+        torch.cuda.synchronize()
+        got = counts(K)
+        for name in played:
+            played[name] += got[name]
+        size = local[dim]
+        require(all(torch.equal(l1, l) and torch.equal(
+            s1.narrow(dim, r * size, size), s) for r, (s, l) in enumerate(out)),
+            f"the played model shards' refresh of a {tuple(shape)} tensor "
+            f"split on dim {dim} differs from the one-call refresh (l "
+            f"{float(l1)} vs {[float(l) for _, l in out]})")
+        del h, obs, s1, mine, out
+    require(aligned > 0 and played == {"diff_topk_payload": m * routes,
+                                       "block_scatter_accumulate": m * routes},
+            f"the played model-shard refresh launched {played} for "
+            f"{routes} tensors")
+    return {"tensors_split": routes, "tensors_on_tile_bounds": aligned,
+            "route": "FedNLPrecondOptimizer._learn_laid_out", **played}
+
+
+def model_axis_starcoder2_15b(K, card: str, dev, seed: int) -> tuple:
+    """Phase 16: starcoder2-15b at its published width, 2 of 40 layers,
+    the mesh's "model" axis of 4 ranks played by threads on the card
+    (``played_model_axis``). In bf16 and in f32: the unsplit model's
+    prefill of one 4,096-token prompt, then each played rank's prefill
+    through the tensor-parallel layers on its shards (its 12 q heads
+    over 1 KV head through K9 with the window, its d_ff / 4 columns, its
+    12,288 vocab rows) with the counts set to 0 just before and read just
+    after (path ``model_axis_starcoder2_15b``: K9 on 4 ranks x 2 layers
+    a dtype), the ranks' logits against the unsplit model's (f32 within
+    ``MODEL_AXIS_F32_REL`` of the largest, bf16 within ``DECODE_TOL``),
+    the greedy token through ``argmax_over`` and (f32) the vocab-parallel
+    loss through each rank's shard. Then K9 at n_rep 12 alone
+    (``model_axis_k9``) and a refresh played on the model shards
+    (``model_axis_refresh``). Returns (the path's launches, K9's
+    fields)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import argmax_over
+    from repro_torch.launch.sharding import model_parts, tree_param_specs
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import build_model
+    from repro_torch.models.common import (cross_entropy,
+                                           vocab_parallel_cross_entropy)
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    ext = {"data": 1, "model": MODEL_AXIS_RANKS}
+    launches = {"flash_attention": 0, "flash_attention:wgmma": 0,
+                "flash_attention:ffma": 0}
+    rep = {"arch": MODEL_AXIS_ARCH, "layers": MODEL_AXIS_LAYERS,
+           "ranks_played": MODEL_AXIS_RANKS, "t": MODEL_AXIS_T, "card": card}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config(MODEL_AXIS_ARCH),
+                                  n_layers=MODEL_AXIS_LAYERS, dtype=dtype)
+        model = build_model(cfg)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        params = model.init_params(g)
+        tokens = torch.randint(0, cfg.vocab, (1, MODEL_AXIS_T), generator=g,
+                               device=dev)
+        prefill = make_prefill(model)
+        whole_ms, whole = host_ms(lambda: prefill(params, {"tokens": tokens}))
+        axis = played_model_axis(MODEL_AXIS_RANKS)
+        # each rank's shards by the rules (contiguous, as a rank holds them)
+        specs = tree_param_specs(params, ext)
+        shards = play_ranks(axis, lambda r: tree_map(
+            lambda x: x.contiguous(), model_parts(params, specs, axis)))
+        del params
+
+        def rank_prefill(r):
+            return prefill(shards[r], {"tokens": tokens})
+
+        play_ranks(axis, rank_prefill)                  # warm-up
+        torch.cuda.synchronize()
+        K.reset_launches()
+        played_ms, logits = host_ms(lambda: play_ranks(axis, rank_prefill))
+        got = counts(K)
+        n = MODEL_AXIS_RANKS * MODEL_AXIS_LAYERS
+        route = "wgmma" if dtype == "bfloat16" else "ffma"
+        require(got["flash_attention"] == n
+                and got[f"flash_attention:{route}"] == n,
+                f"{dtype}: the played ranks' prefill launched K9 "
+                f"{got['flash_attention']} times ({route} "
+                f"{got[f'flash_attention:{route}']}), not {n}")
+        for key in launches:
+            launches[key] += got[key]
+        joined = torch.cat(logits, dim=-1).float()
+        top = float(whole.float().abs().max())
+        gap = float((joined - whole.float()).abs().max())
+        tol = (MODEL_AXIS_F32_REL if dtype == "float32" else DECODE_TOL) * top
+        require(bool(torch.isfinite(joined).all()) and gap <= tol,
+                f"{dtype}: the played ranks' logits are {gap} from the unsplit "
+                f"model's (bound {tol})")
+        want = int(torch.argmax(whole[0, -1]))
+        toks = play_ranks(axis, lambda r: int(argmax_over(
+            logits[r][0, -1:], axis)[0]))
+        agree = float((torch.argmax(joined[0], -1)
+                       == torch.argmax(whole[0].float(), -1)).float().mean())
+        entry = {"whole_prefill_ms": whole_ms, "played_prefill_ms": played_ms,
+                 "k9_launches": got["flash_attention"], "route": route,
+                 "logit_gap": gap, "logit_max": top, "bound": tol,
+                 "greedy_token": toks[0], "argmax_agree_all_positions": agree}
+        require(toks == [want] * MODEL_AXIS_RANKS,
+                f"{dtype}: the vocab-parallel greedy token {toks} is not the "
+                f"unsplit model's {want}")
+        if dtype == "float32":
+            targets = torch.roll(tokens, -1, dims=1)
+            losses = play_ranks(axis, lambda r: float(
+                vocab_parallel_cross_entropy(logits[r], targets, axis)))
+            ref = float(cross_entropy(joined, targets))
+            require(all(abs(x - ref) <= 1e-6 * abs(ref) for x in losses),
+                    f"the vocab-parallel loss {losses} is not {ref}")
+            entry["vocab_parallel_loss"] = losses[0]
+        rep[dtype] = entry
+        del shards, whole, logits, joined, model
+        torch.cuda.empty_cache()
+    k9 = model_axis_k9(dev, seed)
+    rep["k9_n_rep12"] = k9
+    torch.cuda.empty_cache()
+    K.reset_launches()
+    cfg = dataclasses.replace(get_config(MODEL_AXIS_ARCH),
+                              n_layers=MODEL_AXIS_LAYERS, dtype="float32")
+    refresh = model_axis_refresh(cfg, dev, seed, K)
+    rep["played_refresh"] = refresh
+    launches["diff_topk_payload"] = refresh["diff_topk_payload"]
+    launches["block_scatter_accumulate"] = refresh["block_scatter_accumulate"]
+    rep["s"] = time.perf_counter() - t0
+    print(json.dumps({"model_axis_starcoder2_15b": rep}), flush=True)
+    torch.cuda.empty_cache()
+    return launches, k9
+
+
 def add_path_launches(kernels: list, path: str, launches: dict) -> None:
     """``path``'s launches added to each kernel line entry it launched."""
     for entry in kernels:
@@ -5868,6 +6224,20 @@ def main() -> int:
         add_path_launches(kernels, "mesh_train_qwen2",
                           mesh_train_qwen2(K, card, example, dev))
         print(f"# mesh train phase in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        # -- 16. starcoder2-15b's "model" axis: 4 ranks played on the card
+        t0 = time.perf_counter()
+        launches, k9_rep12 = model_axis_starcoder2_15b(K, card, dev,
+                                                       args.seed)
+        add_path_launches(kernels, "model_axis_starcoder2_15b", launches)
+        for entry in kernels:
+            if entry["name"] == "flash_attention":
+                for r in entry["launches_by_route"]:
+                    entry["launches_by_route"][r] += launches[
+                        f"flash_attention:{r}"]
+                entry["n_rep12_window"] = k9_rep12
+        print(f"# model axis phase in {time.perf_counter() - t0:.1f} s",
               flush=True)
     except SmokeFailure as exc:
         return fail(str(exc))

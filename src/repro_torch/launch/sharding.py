@@ -17,15 +17,18 @@ Layout:
     the expert ffn dim (tensor parallel inside each expert).
 
 ``placements`` turns a spec into DTensor placements on a
-``DeviceMesh``, and ``shard_tree`` lays a tree out by them (the
-reference's ``jax.device_put(tree, shardings)``). A step on a
-``("data", "model")`` mesh whose model axis is one rank
+``DeviceMesh``; ``local_keep`` narrows each leaf a model draws to this
+rank's shard and ``from_local_tree`` makes the shards DTensors (the
+reference's ``jax.device_put(tree, shardings)``, without the whole tree
+on any rank). A step on a ``("data", "model")`` mesh
 (``launch.steps.make_train_step`` with ``mesh``) works on each rank's
-shards: ``DataAxis`` and ``LeafLayout`` are the collectives it makes
-for a leaf, ``LocalShard`` the form in which the model receives a split
-weight, and the installed hooks (``make_layer_param_constrainer``,
-``make_activation_constraint``) gather each split weight whole a layer
-at a time inside the model's loop.
+shards: ``DataAxis`` (with ``model``, a ``ModelAxis``) and
+``LeafLayout`` are the collectives it makes for a leaf, ``LocalShard``
+the form in which the model receives a "data"-split weight, and the
+installed hooks (``make_layer_param_constrainer``,
+``make_activation_constraint``, ``make_model_axis``) gather each such
+weight a layer at a time inside the model's loop while the layers
+compute tensor-parallel on their "model" shards.
 """
 
 from __future__ import annotations
@@ -293,23 +296,6 @@ def _is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
-def shard_tree(tree, mesh, specs):
-    """``tree``'s tensors as DTensors on ``mesh`` with the placements of
-    ``specs`` (``tree_param_specs``, or ``opt_state_shardings`` for an
-    optimizer state): every rank holds the same tree (drawn from one
-    seed) and keeps its own slice of each tensor, so no data moves.
-    Other leaves (a step count, an unset slot) stay as they are."""
-    from torch.distributed.tensor import distribute_tensor
-
-    def leaf(x, spec):
-        if not isinstance(x, torch.Tensor):
-            return x
-        return distribute_tensor(x, mesh, placements(mesh, spec),
-                                 src_data_rank=None)
-
-    return _over(leaf, tree, specs)
-
-
 def local_tree(tree):
     """Each DTensor leaf's local tensor, this rank's shard (views, no
     copy); other leaves as they are."""
@@ -337,47 +323,53 @@ def whole_tree(tree):
     return _over(lambda x: x.full_tensor() if _is_dtensor(x) else x, tree)
 
 
-class DataAxis:
-    """The "data" axis of a mesh whose other axes are one rank each: its
-    process group, extent and this rank's place on it. A mesh that
-    splits tensors over another axis (tensor parallelism over "model")
-    is not laid out by the port and is refused."""
+class _Axis:
+    """One axis of a mesh: its process group, extent and this rank's place
+    on it, and the collectives over it. Sums run in f32 on the calling
+    stream. A mesh without the axis gives an axis of one rank. The three
+    primitives are the only calls that cross ranks (``chip_smoke.py``
+    plays the ranks of one card in turn through a subclass that replaces
+    them)."""
 
-    def __init__(self, mesh):
-        names = mesh.mesh_dim_names
-        wide = [n for n, e in zip(names, mesh.shape) if e > 1 and n != "data"]
-        if wide:
-            raise NotImplementedError(
-                f"the mesh splits over {wide}: only the data axis may hold "
-                f"more than one rank (a weight split over 'model' is not "
-                f"laid out)")
-        self.mesh = mesh
-        self.group = mesh.get_group("data")
-        self.world = int(mesh.size(names.index("data")))
-        self.rank = int(mesh.get_local_rank("data"))
+    def __init__(self, mesh, name: str):
+        names = mesh.mesh_dim_names if mesh is not None else ()
+        self.name = name
+        if name in names:
+            self.world = int(mesh.size(names.index(name)))
+            self.rank = int(mesh.get_local_rank(name))
+            self.group = mesh.get_group(name)
+        else:
+            self.world, self.rank, self.group = 1, 0, None
 
-    def layout(self, x) -> "LeafLayout":
-        """A leaf's ``LeafLayout``: a DTensor's by its placement on this
-        axis; any other tensor is held whole by every rank."""
-        if not _is_dtensor(x):
-            return LeafLayout(None, self)
-        from torch.distributed.tensor import Shard
+    # -- the primitives ----------------------------------------------------
 
-        p = x.placements[self.mesh.mesh_dim_names.index("data")]
-        return LeafLayout(p.dim if isinstance(p, Shard) else None, self)
+    def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Each rank's contiguous ``x`` concatenated on dim 0 in rank
+        order."""
+        buf = x.new_empty((self.world * x.shape[0],) + tuple(x.shape[1:]))
+        _all_gather(buf, x, group=self.group)
+        return buf
+
+    def _all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``x`` reduced over the ranks in place ("sum" or "max")."""
+        dist.all_reduce(x, op=(dist.ReduceOp.SUM if op == "sum"
+                               else dist.ReduceOp.MAX), group=self.group)
+        return x
+
+    def _reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of dim 0 of the sum over the ranks of ``x``."""
+        out = x.new_empty((x.shape[0] // self.world,) + tuple(x.shape[1:]))
+        _reduce_scatter(out, x, group=self.group)
+        return out
+
+    # -- built on them -------------------------------------------------------
 
     def gather(self, *parts: torch.Tensor) -> tuple:
         """Each rank's tensors stacked on their leading axis in rank order
         (all-gather)."""
         if self.world == 1:
             return parts
-        out = []
-        for x in parts:
-            x = x.contiguous()
-            buf = x.new_empty((self.world * x.shape[0],) + tuple(x.shape[1:]))
-            _all_gather(buf, x, group=self.group)
-            out.append(buf)
-        return tuple(out)
+        return tuple(self._all_gather(x.contiguous()) for x in parts)
 
     def sum(self, tensors: list, pick: list) -> list:
         """``tensors`` with those where ``pick`` is true summed over the
@@ -387,7 +379,7 @@ class DataAxis:
         if not chosen or self.world == 1:
             return list(tensors)
         flat = torch.cat([t.to(torch.float32).reshape(-1) for t in chosen])
-        dist.all_reduce(flat, group=self.group)
+        self._all_reduce(flat)
         out, at = [], 0
         for t, p in zip(tensors, pick):
             if p:
@@ -397,42 +389,206 @@ class DataAxis:
                 out.append(t)
         return out
 
+    def whole(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole tensor from every rank's shard split on ``dim``."""
+        if self.world == 1:
+            return x
+        buf = self._all_gather(x.movedim(dim, 0).contiguous())
+        return buf.movedim(0, dim).contiguous()
+
+    def part(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's shard on ``dim`` of a whole tensor (a view)."""
+        size = x.shape[dim] // self.world
+        return x.narrow(dim, self.rank * size, size)
+
+    def sum_part(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's shard on ``dim`` of the sum over the ranks of a
+        whole tensor each rank has its own of (reduce-scatter, in f32)."""
+        y = x.movedim(dim, 0).to(torch.float32).contiguous()
+        return self._reduce_scatter(y).movedim(0, dim).to(x.dtype).contiguous()
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """A new tensor: ``x`` reduced over the ranks in f32 (the max in
+        ``x``'s own type), cast back to its type."""
+        if self.world == 1:
+            return x
+        if op == "max":
+            return self._all_reduce(x.clone(), "max")
+        return self._all_reduce(x.to(torch.float32, copy=True)).to(x.dtype)
+
+
+class ModelAxis(_Axis):
+    """The mesh's "model" axis and the tensor-parallel operators of a
+    model laid out over it (Megatron's pairs, as autograd functions):
+
+    * ``copy_in`` at a column-parallel input: identity forward, the
+      gradient summed over the ranks backward;
+    * ``reduce_out`` at a row-parallel output: the partial products summed
+      over the ranks forward, identity backward;
+    * ``gather_weight``: a weight's shards gathered whole forward, this
+      rank's shard of the summed gradient backward (a layer that needs the
+      whole of a split weight: the reference's reshard where a head count
+      does not divide);
+    * ``split_seq`` / ``gather_seq``, the ``carry`` hint's sequence
+      parallel pair on dim 1 (T): keep this rank's T / M rows forward and
+      all-gather the gradient backward; all-gather T forward and keep the
+      rank's rows of the gradient backward. The gradient that reaches a
+      gathered carry is whole on every rank (the residual stream's is,
+      by the pairs above), so its rows need no sum.
+    """
+
+    def __init__(self, mesh=None):
+        super().__init__(mesh, "model")
+
+    def copy_in(self, x):
+        return _CopyIn.apply(x, self)
+
+    def reduce_out(self, x):
+        return _ReduceOut.apply(x, self)
+
+    def gather_weight(self, x, dim: int):
+        return _GatherWeight.apply(x, self, dim)
+
+    def split_seq(self, x):
+        return _SplitSeq.apply(x, self)
+
+    def gather_seq(self, x):
+        return _GatherSeq.apply(x, self)
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.all_reduce(grad), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherWeight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.whole(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.sum_part(grad, ctx.dim), None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.part(x, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.whole(grad, 1), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.whole(x, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.part(grad, 1).contiguous(), None
+
+
+class DataAxis(_Axis):
+    """The mesh's "data" axis as a step sees it (a FedNL silo per index,
+    the batch's rows split over it, FSDP's second weight split), with the
+    "model" axis beside it as ``model`` (a ``ModelAxis``, one rank when
+    the mesh has no wider one). Any other axis wider than one rank (a
+    "pod" axis) is not laid out and is refused. ``mesh`` None is a data
+    axis of one rank; ``model`` replaces the mesh's model axis (the
+    ranks that ``chip_smoke.py`` plays on one card)."""
+
+    def __init__(self, mesh, model: Optional[ModelAxis] = None):
+        if mesh is not None:
+            wide = [n for n, e in zip(mesh.mesh_dim_names, mesh.shape)
+                    if e > 1 and n not in ("data", "model")]
+            if wide:
+                raise NotImplementedError(
+                    f"the mesh splits over {wide}: only the 'data' and "
+                    f"'model' axes are laid out")
+        super().__init__(mesh, "data")
+        self.mesh = mesh
+        self.model = ModelAxis(mesh) if model is None else model
+
+    def layout(self, x) -> "LeafLayout":
+        """A leaf's ``LeafLayout``: a DTensor's by its placements on the
+        two axes; any other tensor is held whole by every rank."""
+        if not _is_dtensor(x):
+            return LeafLayout(None, self)
+        from torch.distributed.tensor import Shard
+
+        names = self.mesh.mesh_dim_names
+
+        def dim(axis):
+            if axis not in names:
+                return None
+            p = x.placements[names.index(axis)]
+            return p.dim if isinstance(p, Shard) else None
+
+        return LeafLayout(dim("data"), self, dim("model"))
+
 
 class LeafLayout:
-    """How one leaf lies on ``axis``: ``dim`` is the tensor dim split
-    evenly over its ranks, None when each rank holds the leaf whole. The
-    collectives a step makes for it."""
+    """How one leaf lies on a mesh: ``dim`` is the tensor dim split evenly
+    over the "data" ranks and ``mdim`` the one split over the "model"
+    ranks, None where the ranks of that axis hold it whole. The data-axis
+    collectives a step makes for it (the model axis's are ``model``'s,
+    called with ``mdim``)."""
 
-    def __init__(self, dim: Optional[int], axis: DataAxis):
-        self.dim, self.axis = dim, axis
+    def __init__(self, dim: Optional[int], axis: DataAxis,
+                 mdim: Optional[int] = None):
+        self.dim, self.axis, self.mdim = dim, axis, mdim
+
+    @property
+    def model(self) -> ModelAxis:
+        return self.axis.model
 
     def whole(self, local: torch.Tensor) -> torch.Tensor:
-        """The whole tensor from every rank's shard (all-gather); the
-        shard itself when the leaf is not split."""
+        """The tensor whole over "data" from every data rank's shard (its
+        model shard stays this rank's); the shard itself when the leaf is
+        not split on "data"."""
         if self.dim is None:
             return local
-        out, = self.axis.gather(local.movedim(self.dim, 0))
-        return out.movedim(0, self.dim).contiguous()
+        return self.axis.whole(local, self.dim)
 
     def part(self, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of a whole tensor (a view)."""
+        """This rank's "data" shard of a tensor whole over "data" (a
+        view)."""
         if self.dim is None:
             return whole
-        size = whole.shape[self.dim] // self.axis.world
-        return whole.narrow(self.dim, self.axis.rank * size, size)
+        return self.axis.part(whole, self.dim)
 
     def sum_part(self, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of the sum over the ranks of a whole tensor
-        each rank has its own of (reduce-scatter, in f32)."""
-        x = whole.movedim(self.dim, 0).to(torch.float32).contiguous()
-        out = x.new_empty((x.shape[0] // self.axis.world,) + tuple(x.shape[1:]))
-        _reduce_scatter(out, x, group=self.axis.group)
-        return out.movedim(0, self.dim).to(whole.dtype).contiguous()
+        """This rank's "data" shard of the sum over the data ranks of a
+        tensor each has its own of (reduce-scatter, in f32)."""
+        return self.axis.sum_part(whole, self.dim)
 
 
 class _Gathered(torch.autograd.Function):
-    """A shard gathered whole for the forward; the backward gives this
-    rank's shard of the sum over the ranks of the whole gradient."""
+    """A shard gathered whole over "data" for the forward; the backward
+    gives this rank's shard of the sum over the data ranks of the
+    gradient."""
 
     @staticmethod
     def forward(ctx, local, lay):
@@ -445,8 +601,8 @@ class _Gathered(torch.autograd.Function):
 
 
 class LocalShard:
-    """A rank's shard of a split weight as the model receives it on a
-    mesh: indexing takes one layer of a stacked leaf (the layer axis is
+    """A rank's "data" shard of a split weight as the model receives it on
+    a mesh: indexing takes one layer of a stacked leaf (the layer axis is
     never split), and the installed ``shard_layer_params`` gathers it."""
 
     __slots__ = ("local", "dim")
@@ -467,11 +623,13 @@ class LocalShard:
 def make_layer_param_constrainer(mesh):
     """The installed ``shard_layer_params`` on ``mesh``, called on each
     layer's slice inside the model's loop and on the weights outside the
-    stacks: every ``LocalShard`` gathered whole on each rank, its
-    gradient summed over the ranks onto each rank's shard; other leaves
-    (held whole) as they are. Under remat the gather is recomputed in the
-    backward, so the peak holds one layer's gathered weights, not the
-    stack's (the reason the reference pins the slice inside the scan)."""
+    stacks: every ``LocalShard`` gathered whole over "data" on each rank,
+    its gradient summed over the data ranks onto each rank's shard; other
+    leaves as they are. A weight split over "model" stays this rank's
+    shard: the layer computes on its own columns or rows. Under remat the
+    gather is recomputed in the backward, so the peak holds one layer's
+    gathered weights, not the stack's (the reason the reference pins the
+    slice inside the scan)."""
     axis = DataAxis(mesh)
 
     def constrain(tree):
@@ -485,11 +643,124 @@ def make_layer_param_constrainer(mesh):
 def make_activation_constraint(mesh):
     """The installed ``shard_act`` on ``mesh``: ``(x, kind) -> x``. Every
     rule of ``make_activation_sharder`` asks the batch over ("pod",
-    "data") on dim 0, which is what a rank's own rows are, and "model"
-    elsewhere, which is one rank (``DataAxis`` refuses a wider one)."""
-    DataAxis(mesh)
+    "data") on dim 0, which is what a rank's own rows are. Over "model",
+    "btf", "bthd" and "logits" are what the tensor-parallel layers compute
+    (their own columns, heads or vocab rows), and "carry" keeps this
+    rank's T / M rows of the residual between segments (``split_seq``;
+    the next layer gathers T inside its checkpoint, ``models.common.
+    gather_carry``), or all of them where T does not divide."""
+    model = DataAxis(mesh).model
 
     def constrain(x, kind: str):
+        if (kind == "carry" and model.world > 1
+                and x.shape[1] % model.world == 0):
+            return model.split_seq(x)
         return x
 
     return constrain
+
+
+def make_model_axis(mesh) -> Optional[ModelAxis]:
+    """The ``ModelAxis`` the models compute over on ``mesh``
+    (``models.common.set_activation_sharder``'s third hook), or None
+    where the axis is one rank: the step is then the data-axis step."""
+    model = DataAxis(mesh).model
+    return model if model.world > 1 else None
+
+
+# the families and the mixer the model axis lays out; each other raises
+TP_FAMILIES = ("dense",)
+
+
+def check_model_axis(cfg, ext: dict, hvp: bool = False) -> None:
+    """Raise ``NotImplementedError`` for what a "model" axis wider than
+    one rank cannot lay out, before any work: a family other than the
+    dense GQA one (MoE, MLA, hybrid, ssm, encdec, vlm), Hutchinson
+    curvature (its double backward through the collectives), or a width
+    the axis does not divide (the rules would replicate it, and no layer
+    computes a replicated weight's product over the ranks)."""
+    m = int(ext.get("model", 1))
+    if m == 1:
+        return
+    kind = "mla" if cfg.attn_type == "mla" else cfg.family
+    if cfg.family not in TP_FAMILIES or cfg.attn_type != "gqa":
+        raise NotImplementedError(
+            f"{kind} ({cfg.name}) on a 'model' axis of {m} ranks: only the "
+            f"dense GQA family is laid out over 'model'")
+    if hvp:
+        raise NotImplementedError(
+            f"Hutchinson curvature (hvp) on a 'model' axis of {m} ranks: "
+            f"the double backward through the collectives is not laid out")
+    for what, width in (("heads x head_dim", cfg.n_heads * cfg.hd),
+                        ("kv_heads x head_dim", cfg.kv_heads * cfg.hd),
+                        ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)):
+        if width % m:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} = {width} does not split over a "
+                f"'model' axis of {m} ranks")
+
+
+def _split_dims(spec: Spec) -> dict:
+    """{axis name: the tensor dim ``spec`` splits over it}."""
+    out = {}
+    for dim, entry in enumerate(spec):
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            if axis is not None:
+                out[axis] = dim
+    return out
+
+
+def local_keep(mesh, ext: dict, axes=("data", "model")):
+    """``keep(path, whole_shape, x)`` for ``Model.init_params``: the drawn
+    leaf ``x`` (one layer of a stacked leaf, whose whole shape has the
+    layer axis first) narrowed to this rank's shard on each of ``axes``
+    that the leaf's rule splits, so a rank never holds more than one
+    layer of the whole tree. The values are the whole draw's, sliced."""
+    ranks = {a: (int(mesh.size(mesh.mesh_dim_names.index(a))),
+                 int(mesh.get_local_rank(a)))
+             for a in axes if a in mesh.mesh_dim_names}
+
+    def keep(path: str, whole_shape, x: torch.Tensor) -> torch.Tensor:
+        spec = param_spec(path, tuple(whole_shape), ext)
+        lead = x.dim() - len(whole_shape)          # -1 for a layer's slice
+        for axis, dim in _split_dims(spec).items():
+            if axis not in ranks or ranks[axis][0] == 1:
+                continue
+            world, rank = ranks[axis]
+            d = dim + lead
+            size = x.shape[d] // world
+            x = x.narrow(d, rank * size, size)
+        return x.contiguous()
+
+    return keep
+
+
+def from_local_tree(local, mesh, specs, whole):
+    """``local``'s tensors (each rank's shards) as DTensors on ``mesh``
+    with the placements of ``specs`` and the shapes of ``whole`` (a tree
+    like it of tensors or meta tensors), laid out without the whole tree
+    on any rank."""
+    from torch.distributed.tensor import DTensor
+
+    def leaf(x, spec, w):
+        if not isinstance(x, torch.Tensor):
+            return x
+        w = torch.empty(tuple(w.shape), device="meta")
+        return DTensor.from_local(x, mesh, placements(mesh, spec),
+                                  run_check=False, shape=w.shape,
+                                  stride=w.stride())
+
+    return _over(leaf, local, specs, whole)
+
+
+def model_parts(tree, specs, model: ModelAxis):
+    """Each leaf of ``tree`` (whole) narrowed to this rank's shard on the
+    dim its spec splits over "model" (views); the others as they are.
+    For a cache laid out by ``cache_specs``."""
+    def leaf(x, spec):
+        dim = _split_dims(spec).get("model")
+        if dim is None or model.world == 1:
+            return x
+        return model.part(x, dim)
+
+    return _over(leaf, tree, specs)

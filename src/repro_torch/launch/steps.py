@@ -17,9 +17,12 @@ import numpy as np
 import torch
 
 from ..models import Model
+from ..models.common import model_axis
 from ..second_order import adamw, apply_updates, fednl_precond, sgd
 from ..tree import tree_leaves, tree_map, tree_unflatten
-from .sharding import DataAxis, LocalShard, like_tree, local_tree
+from .mesh import extents
+from .sharding import (DataAxis, LocalShard, check_model_axis, like_tree,
+                       local_tree)
 
 
 def make_optimizer(name: str, lr: float, moment_dtype=None, **kw):
@@ -91,7 +94,7 @@ def grad_and_hvp(model: Model, params, batch, z):
 def make_train_step(model: Model, optimizer, microbatches: int = 1,
                     refresh_every: int = 1, n_silos: int = 1,
                     hvp: bool = False, probe_seed: int = 0, probes=None,
-                    mesh=None):
+                    mesh=None, donate: bool = False):
     """``microbatches > 1`` splits the batch and accumulates the
     gradients in f32 over the pieces, one piece's activations alive at a
     time; the sum is divided and cast to each parameter's dtype. A batch
@@ -109,29 +112,49 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
     and K4 on a card), and every step's update is
     ``optimizer.precondition`` from the stored curvature. First-order
     optimizers take ``optimizer.update``. ``probes`` is the probes'
-    draw source (``RademacherProbes(probe_seed)`` by default).
+    draw source (``RademacherProbes(probe_seed)`` by default). The
+    refresh runs before the step's own gradient (they share nothing).
 
-    ``mesh`` (a ``("data", "model")`` mesh, model axis one rank): every
-    rank runs the step on its own rows of the global batch, with
-    ``params`` and ``opt_state`` laid out by ``sharding.shard_tree`` and
-    ``make_layer_param_constrainer(mesh)`` installed. The forward gathers
-    each split weight a layer at a time; the gradient is the mean over
-    the ranks, each split leaf's reduced onto its shards in the backward
-    and the replicated leaves' in one all-reduce; the update runs on the
-    shards. Each rank plays ``n_silos / W`` silos (one in the driver):
-    their observations are taken on its rows with the weights gathered
-    whole, before any reduction across ranks, and the refresh gathers
-    each H whole for K1 and the ranks' payloads in silo order for K4, each
-    rank keeping its shard of H. On one rank this is the step without a
-    mesh, bit for bit."""
+    ``mesh`` (a ``("data", "model")`` mesh): every data rank runs the
+    step on its own rows of the global batch, with ``params`` and
+    ``opt_state`` laid out by the rules (``sharding.from_local_tree``)
+    and the hooks installed
+    (``models.common.set_activation_sharder`` with
+    ``make_activation_constraint``, ``make_layer_param_constrainer`` and
+    ``make_model_axis`` of the mesh). The forward gathers each
+    "data"-split weight a layer at a time; the gradient is the mean over
+    the data ranks, each such leaf's reduced onto its shards in the
+    backward and the others' in one all-reduce. The M ranks of one data
+    index compute through the tensor-parallel layers together: a leaf
+    split over "model" has this rank's shard of the gradient, and every
+    other leaf the same whole gradient on each of them, so nothing is
+    summed over "model". Each data index plays ``n_silos / W`` silos
+    (one in the driver): their observations are taken on its rows with
+    the weights gathered whole over "data", before any reduction across
+    ranks, and the refresh gathers each H whole over "data" for K1 (on
+    the rank's model shard where it lies on tile bounds) and the silos'
+    payloads in silo order for K4, each rank keeping its shard of H. On
+    one rank this is the step without a mesh, bit for bit, and on a
+    model axis of one rank the data-axis step. A family or ``hvp``
+    the model axis does not lay out raises ``NotImplementedError`` here,
+    before any work (``sharding.check_model_axis``).
+
+    ``donate``: the step may overwrite the tensors of ``params`` and
+    ``opt_state`` (the caller drops them, as JAX's ``donate_argnums``):
+    fednl's H and momentum and the params are updated in place, with the
+    same arithmetic, so one copy of the state is alive, not two."""
     second_order = (getattr(optimizer, "refresh", None) is not None
                     and refresh_every >= 1)
     probes = RademacherProbes(probe_seed) if probes is None else probes
+    if mesh is not None:
+        check_model_axis(model.cfg, extents(mesh), hvp=hvp)
     axis = None if mesh is None else DataAxis(mesh)
     world, rank = (1, 0) if axis is None else (axis.world, axis.rank)
+    tp = None if axis is None or axis.model.world == 1 else axis.model
     if n_silos % world:
         raise ValueError(f"n_silos={n_silos} must divide over {world} ranks")
     local_silos = n_silos // world
+    fednl_kw = {"donate": True} if donate else {}
 
     def split(batch, parts: int, i: int):
         size = tree_leaves(batch)[0].shape[0] // parts
@@ -139,11 +162,11 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
 
     def observe_and_refresh(state, params, batch, lays):
         """One refresh: an observation per silo of this rank's rows, on
-        the whole weights, stacked on a leading silo axis, then
-        ``optimizer.refresh`` (over the ranks with ``lays``)."""
+        the weights whole over "data", stacked on a leading silo axis,
+        then ``optimizer.refresh`` (over the ranks with ``lays``)."""
         whole = (params if lays is None else
                  tree_map(lambda p, lay: lay.whole(p), params, lays))
-        stack = None
+        per_silo = []
         for i in range(local_silos):
             silo = rank * local_silos + i
             b_i = split(batch, local_silos, i)
@@ -155,21 +178,22 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
             else:
                 _, _, g = value_and_grad(model, whole, b_i)
                 g_i = tree_unflatten(params, list(g))
+                del g
                 obs = optimizer.observe(g_i)
             del g_i
-            leaves = tree_leaves(obs)
-            if stack is None:
-                stack = [torch.empty((local_silos,) + tuple(o.shape),
-                                     dtype=o.dtype, device=o.device)
-                         for o in leaves]
-            for s, o in zip(stack, leaves):
-                s[i].copy_(o)
-            del obs, leaves
+            per_silo.append(tree_leaves(obs))
+            del obs
         del whole
+        if local_silos == 1:          # K1 reads contiguous observations
+            stack = [o.unsqueeze(0).contiguous() for o in per_silo[0]]
+        else:
+            stack = [torch.stack(col) for col in zip(*per_silo)]
+        del per_silo
         obs = tree_unflatten(params, stack)
+        del stack
         if lays is None:
-            return optimizer.refresh(state, obs)
-        return optimizer.refresh(state, obs, layout=lays)
+            return optimizer.refresh(state, obs, **fednl_kw)
+        return optimizer.refresh(state, obs, layout=lays, **fednl_kw)
 
     def train_step(params, opt_state, batch):
         b0 = tree_leaves(batch)[0].shape[0]
@@ -179,12 +203,24 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
         if second_order and b0 % local_silos:
             raise ValueError(f"global batch {b0 * world} must divide into "
                              f"n_silos={n_silos}")
+        if tp is not None and model_axis() is None:
+            raise RuntimeError("a mesh with a 'model' axis needs the hooks "
+                               "installed: set_activation_sharder(..., "
+                               "make_model_axis(mesh))")
         lays = None if axis is None else tree_map(axis.layout, params)
-        dims = None if lays is None else [lay.dim for lay in tree_leaves(lays)]
+        lay_leaves = None if lays is None else tree_leaves(lays)
+        dims = None if lays is None else [lay.dim for lay in lay_leaves]
         p_loc, state = local_tree(params), local_tree(opt_state)
         p_leaves = tree_leaves(p_loc)
+
+        refreshed = 0.0
+        if second_order and state.step % refresh_every == 0:
+            state = observe_and_refresh(state, p_loc, batch, lays)
+            refreshed = 1.0
+
         if microbatches == 1 and world == 1:
-            loss, _, g = value_and_grad(model, p_loc, batch)
+            loss, _, g = value_and_grad(model, p_loc, batch, split_dims=(
+                None if tp is None else dims))
             loss = loss.detach()
             grads = list(g)
         else:
@@ -209,19 +245,22 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
             del acc
         grads = tree_unflatten(p_loc, grads)
 
-        refreshed = 0.0
         if second_order:
-            if state.step % refresh_every == 0:
-                state = observe_and_refresh(state, p_loc, batch, lays)
-                refreshed = 1.0
-            updates, state = optimizer.precondition(grads, state, p_loc)
+            updates, state = optimizer.precondition(grads, state, p_loc,
+                                                    **fednl_kw)
         else:
             updates, state = optimizer.update(grads, state, p_loc)
-        p_loc = apply_updates(p_loc, updates)
+        if donate:
+            p_loc = tree_map(lambda p, u: p.add_(u), p_loc, updates)
+        else:
+            p_loc = apply_updates(p_loc, updates)
+        del updates
         sums = [torch.sum(torch.square(g.to(torch.float32)))
                 for g in tree_leaves(grads)]
         if world > 1:
             sums = axis.sum(sums, [d is not None for d in dims])
+        if tp is not None:
+            sums = tp.sum(sums, [lay.mdim is not None for lay in lay_leaves])
         gnorm = torch.sqrt(sum(sums))
         return (like_tree(p_loc, params), like_tree(state, opt_state),
                 {"loss": loss, "grad_norm": gnorm,

@@ -15,11 +15,15 @@ started alone; ``torchrun`` starts several, e.g.
         --device cpu --optimizer fednl
 
 on the CPU). The params and the optimizer state are laid out on it by
-the sharding rules (``shard_tree``), the hooks gather each split weight
-a layer at a time inside the model's loop, each rank takes its own rows
-of every global batch, and each rank plays one FedNL silo for the
-curvature observations (``n_silos`` is the number of ranks). Rank 0
-prints.
+the sharding rules: each rank draws the weights layer by layer and keeps
+its shards (``local_keep``), so no rank holds the whole tree. The hooks
+gather each "data"-split weight a layer at a time inside the model's
+loop, each data rank takes its own rows of every global batch, and each
+index of the data axis plays one FedNL silo for the curvature
+observations (``n_silos`` is the data extent). ``train(mesh=...)``
+takes another mesh, such as ``make_host_mesh(data, model)`` with a
+"model" axis over which the dense family computes tensor-parallel. The
+first rank prints.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import save as save_ckpt
-from ..configs import ARCHS, get_config
+from ..configs import ARCHS, get_config, model_param_shapes
 from ..data.tokens import TokenPipeline
 from ..device import resolve_device
 from ..models import build_model
@@ -40,10 +44,13 @@ from ..tree import tree_map
 from .mesh import extents, make_host_mesh, scoped_group
 from .sharding import (
     DataAxis,
+    check_model_axis,
+    from_local_tree,
+    local_keep,
     make_activation_constraint,
     make_layer_param_constrainer,
+    make_model_axis,
     opt_state_shardings,
-    shard_tree,
     tree_param_specs,
     whole_tree,
 )
@@ -75,13 +82,15 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
           seq: int = 128, lr: float = 3e-4, optimizer: str = "adamw",
           microbatches: int = 1, log_every: int = 10, ckpt: str | None = None,
           seed: int = 0, refresh_every: int = 4, curvature_k: int = 2048,
-          hvp: bool = False, device=None):
+          hvp: bool = False, device=None, mesh=None):
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
-    mesh = make_host_mesh(device=dev)
+    mesh = make_host_mesh(device=dev) if mesh is None else mesh
     ext = extents(mesh)
+    check_model_axis(cfg, ext, hvp=hvp)
     axis = DataAxis(mesh)
     world, rank = axis.world, axis.rank
+    first = rank == 0 and axis.model.rank == 0
     if batch % world:
         raise ValueError(f"global batch {batch} must divide into {world} "
                          f"ranks")
@@ -90,7 +99,9 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
 
         build_all()
     model = build_model(cfg, use_remat=True)
-    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    # this rank's shards of the whole draw, layer by layer
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               keep=local_keep(mesh, ext))
 
     opt_kw = {}
     if optimizer == "fednl":
@@ -100,20 +111,27 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
     opt_state = opt.init(params)
     # the params, and the optimizer state with the params' own layout
     # (H and the momentum as the params; the step and the ridge l
-    # replicated), laid out by the rules: each rank keeps its shards
-    state_specs = opt_state_shardings(opt_state, params, ext)
-    opt_state = shard_tree(opt_state, mesh, state_specs)
-    params = shard_tree(params, mesh, tree_param_specs(params, ext))
+    # replicated), as DTensors over the whole tree's shapes
+    shapes = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                            device="meta"),
+                      model_param_shapes(cfg))
+    state_shapes = opt.init(shapes)
+    opt_state = from_local_tree(opt_state, mesh, opt_state_shardings(
+        state_shapes, shapes, ext), state_shapes)
+    params = from_local_tree(params, mesh, tree_param_specs(shapes, ext),
+                             shapes)
 
-    # every rank on the mesh's data axis plays one FedNL silo for the
-    # curvature observations
+    # every index of the mesh's data axis plays one FedNL silo for the
+    # curvature observations; the loop rebinds params and state each
+    # step, so the step updates them in place (one copy alive)
     n_silos = world
     step_fn = make_train_step(model, opt, microbatches=microbatches,
                               refresh_every=refresh_every, n_silos=n_silos,
-                              hvp=hvp, probe_seed=seed, mesh=mesh)
+                              hvp=hvp, probe_seed=seed, mesh=mesh,
+                              donate=True)
 
     def say(msg: str) -> None:
-        if rank == 0:
+        if first:
             print(msg, flush=True)
 
     # host-side wire accounting: what one curvature refresh ships
@@ -130,7 +148,8 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
     history = []
     refreshes = 0
     set_activation_sharder(make_activation_constraint(mesh),
-                           make_layer_param_constrainer(mesh))
+                           make_layer_param_constrainer(mesh),
+                           make_model_axis(mesh))
     try:
         t0 = time.time()
         for i in range(steps):
@@ -149,7 +168,7 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
         set_activation_sharder(None, None)
     if ckpt:
         whole = whole_tree(params)
-        if rank == 0:
+        if first:
             save_ckpt(ckpt, {"params": whole}, step=steps)
             print(f"checkpoint -> {ckpt}")
     return history

@@ -12,6 +12,18 @@ Cache layouts:
 Decode writes the new token's entries into the cache in place (the
 reference returns an updated copy): a step then moves one token's keys,
 not the cache.
+
+Over a "model" axis (``common.model_axis()`` installed), GQA computes
+this rank's heads: q/k/v column-parallel after ``copy_in``, ``wo``
+row-parallel before ``reduce_out``. Where the heads do not split over
+the ranks (the reference's ``bthd`` rule then replicates them), the layer
+gathers the q/k/v columns whole (``gather_weight``) and computes every
+head, and ``wo`` still takes this rank's rows of the whole output; where
+only the KV heads do not split, it keeps its q heads and takes k/v
+whole. The decode cache follows ``launch.sharding.cache_specs``: this
+rank's KV heads, its slice of the sequence (each rank attends over its
+slice and the ranks' (max, sum, out) are combined as a split softmax),
+or the whole cache.
 """
 
 from __future__ import annotations
@@ -23,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from .common import (apply_rope, causal_mask, decode_mask, dense_init,
-                     shard_act)
+                     model_axis, shard_act)
 from .config import ModelConfig, require_ported
 
 # ---------------------------------------------------------------------------
@@ -105,32 +117,121 @@ def _sdpa_chunked(q, k, v, n_rep: int, window=None, chunk: int = SDPA_CHUNK):
     return torch.cat(out, dim=1)[:, :t]
 
 
+def _attend(q, k, v, n_rep: int, window):
+    """Causal (windowed) attention of the prefill: ``_sdpa`` up to
+    2 * SDPA_CHUNK tokens; above, ``_sdpa_chunked`` while autograd
+    records (K9 has no backward) and the flash-attention kernel (K9)
+    otherwise."""
+    t = q.shape[1]
+    if t <= 2 * SDPA_CHUNK:
+        return _sdpa(q, k, v, causal_mask(t, window, device=q.device), n_rep)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _sdpa_chunked(q, k, v, n_rep, window)
+    if window is None:
+        return flash_attention(q, k, v)
+    return flash_attention(q, k, v, window=window)
+
+
 def gqa_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions=None):
     """Above 2 * SDPA_CHUNK tokens the reference runs ``_sdpa_chunked``;
     so does the port while autograd records (K9 has no backward), and
     every other call runs the flash-attention kernel (K9). Each branch
-    takes the config's sliding window."""
+    takes the config's sliding window. Over a "model" axis, on this
+    rank's heads (module docstring)."""
     require_ported(cfg)
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)[None, :]
-    q, k, v = _qkv(p, x, cfg)
+    tp = model_axis()
+    plan = None if tp is None else _TPHeads(cfg, tp)
+    q, k, v = _qkv(p, x, cfg) if plan is None else plan.qkv(p, x)
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     q, k, v = (shard_act(a, "bthd") for a in (q, k, v))
-    n_rep, window = cfg.n_heads // cfg.kv_heads, cfg.sliding_window
-    if t <= 2 * SDPA_CHUNK:
-        out = _sdpa(q, k, v, causal_mask(t, window, device=x.device), n_rep)
-    elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                      or v.requires_grad):
-        out = _sdpa_chunked(q, k, v, n_rep, window)
-    elif window is None:
-        out = flash_attention(q, k, v)
+    if plan is None:
+        out = _attend(q, k, v, cfg.n_heads // cfg.kv_heads,
+                      cfg.sliding_window)
+        y = out.reshape(b, t, cfg.n_heads * cfg.hd) @ p["wo"]
     else:
-        out = flash_attention(q, k, v, window=window)
-    y = out.reshape(b, t, cfg.n_heads * cfg.hd) @ p["wo"]
+        ks, vs, n_rep = plan.kv_for_heads(k, v)
+        out = _attend(q, ks, vs, n_rep, cfg.sliding_window)
+        y = plan.out(out, p["wo"])
     return shard_act(y, "btd"), {"k": k, "v": v}
+
+
+class _TPHeads:
+    """The heads one rank computes over a "model" axis of M ranks.
+
+    * ``q_whole``: H does not divide by M (or ``every_head``: a decode
+      over a sequence-split cache), so q/k/v are gathered whole and every
+      head computed; ``out`` takes this rank's H * hd / M
+      columns of the whole output for its rows of ``wo``.
+    * ``kv_whole``: KV does not divide by M (or q is whole), so k/v are
+      whole and ``kv_for_heads`` picks the KV heads of this rank's q
+      heads.
+    Otherwise q and k/v are this rank's H / M and KV / M heads, and the
+    GQA grouping is the whole layer's."""
+
+    def __init__(self, cfg: ModelConfig, tp, every_head: bool = False):
+        self.cfg, self.tp = cfg, tp
+        m = tp.world
+        self.q_whole = every_head or cfg.n_heads % m != 0
+        self.kv_whole = self.q_whole or cfg.kv_heads % m != 0
+
+    def qkv(self, p: dict, x: torch.Tensor):
+        """q, k, v (B, T, heads, hd) of the heads this rank computes."""
+        cfg, tp = self.cfg, self.tp
+        b, t, _ = x.shape
+        x = tp.copy_in(x)
+
+        def w(name, whole, dim):
+            return tp.gather_weight(p[name], dim) if whole else p[name]
+
+        q = x @ w("wq", self.q_whole, 1)
+        k = x @ w("wk", self.kv_whole, 1)
+        v = x @ w("wv", self.kv_whole, 1)
+        if cfg.qkv_bias:
+            q = q + w("bq", self.q_whole, 0)
+            k = k + w("bk", self.kv_whole, 0)
+            v = v + w("bv", self.kv_whole, 0)
+        return (q.reshape(b, t, -1, cfg.hd), k.reshape(b, t, -1, cfg.hd),
+                v.reshape(b, t, -1, cfg.hd))
+
+    def kv_for_heads(self, k, v):
+        """(k, v, n_rep) for this rank's q heads: as they are where q and
+        k/v are both split or both whole; where only k/v are whole, the
+        KV heads of the rank's q heads (a contiguous range when the q
+        heads cover whole groups or sit in one, else one KV head per q
+        head, n_rep 1)."""
+        cfg = self.cfg
+        n_rep = cfg.n_heads // cfg.kv_heads
+        if self.q_whole or not self.kv_whole:
+            return k, v, n_rep
+        count = cfg.n_heads // self.tp.world
+        first = self.tp.rank * count
+        lo, hi = first // n_rep, (first + count - 1) // n_rep + 1
+        if first % n_rep == 0 and count % n_rep == 0:
+            rep = n_rep
+        elif hi - lo == 1:
+            rep = count
+        else:
+            idx = torch.arange(first, first + count, device=k.device) // n_rep
+            return (k.index_select(2, idx).contiguous(),
+                    v.index_select(2, idx).contiguous(), 1)
+        return (k[:, :, lo:hi].contiguous(), v[:, :, lo:hi].contiguous(),
+                rep)
+
+    def out(self, out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+        """The row-parallel output projection of the attention output
+        (B, T, heads, hd), summed over the ranks."""
+        b, t = out.shape[:2]
+        flat = out.reshape(b, t, -1)
+        if self.q_whole:
+            cols = flat.shape[-1] // self.tp.world
+            flat = flat.narrow(-1, self.tp.rank * cols, cols)
+        return self.tp.reduce_out(flat @ wo)
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
@@ -142,9 +243,13 @@ def gqa_init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
 def gqa_decode(p: dict, x: torch.Tensor, cache: dict, pos: int,
                cfg: ModelConfig):
     """x: (B, 1, d); pos: absolute position of the new token. Writes the
-    token's k and v into ``cache`` in place and returns it."""
+    token's k and v into ``cache`` in place and returns it. Over a
+    "model" axis, on this rank's part of the cache (module docstring)."""
     require_ported(cfg)
     b = x.shape[0]
+    tp = model_axis()
+    if tp is not None:
+        return _decode_tp(p, x, cache, pos, cfg, tp)
     q, k, v = _qkv(p, x, cfg)
     if cfg.rope:
         posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
@@ -157,6 +262,65 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, pos: int,
     out = _sdpa(q, cache["k"], cache["v"], mask, cfg.n_heads // cfg.kv_heads)
     y = out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"]
     return y, cache
+
+
+def _decode_tp(p: dict, x: torch.Tensor, cache: dict, pos: int,
+               cfg: ModelConfig, tp):
+    """``gqa_decode`` over a "model" axis. The cache holds this rank's KV
+    heads where KV divides by M; else, where it is marked ``kv_seq``
+    (``Model.decode_step``), its slice of the sequence, and every rank
+    computes every head over its slice (``_split_softmax``); else the
+    whole cache."""
+    b = x.shape[0]
+    seq = cfg.kv_heads % tp.world != 0 and cache.get("kv_seq", False)
+    plan = _TPHeads(cfg, tp, every_head=seq)
+    q, k, v = plan.qkv(p, x)
+    if cfg.rope:
+        posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k = apply_rope(k, posv, cfg.rope_theta)
+    n_rep = cfg.n_heads // cfg.kv_heads
+    if seq:
+        s_loc = cache["k"].shape[1]
+        lo = tp.rank * s_loc
+        if lo <= pos < lo + s_loc:
+            cache["k"][:, pos - lo:pos - lo + 1] = k
+            cache["v"][:, pos - lo:pos - lo + 1] = v
+        mask = decode_mask(s_loc * tp.world, pos, cfg.sliding_window,
+                           device=x.device)[lo:lo + s_loc][None, :]
+        out = _split_softmax(q, cache["k"], cache["v"], mask, n_rep, tp)
+    else:
+        cache["k"][:, pos:pos + 1] = k
+        cache["v"][:, pos:pos + 1] = v
+        mask = decode_mask(cache["k"].shape[1], pos, cfg.sliding_window,
+                           device=x.device)[None, :]
+        ks, vs, n_rep = plan.kv_for_heads(cache["k"], cache["v"])
+        out = _sdpa(q, ks, vs, mask, n_rep)
+    return plan.out(out, p["wo"]), cache
+
+
+def _split_softmax(q, k, v, mask, n_rep: int, tp):
+    """``_sdpa`` of every head over the whole cache when each rank holds
+    a slice of its sequence (k/v (B, S / M, KV, hd), ``mask`` this slice's
+    (1, S / M)): each rank's running max, sum of exp and unnormalized
+    output, gathered and combined in rank order, the same on every rank.
+    A rank whose slice is all masked gives a sum and output of 0."""
+    b, t, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, t, kv, n_rep, hd)
+    scores = torch.einsum("btkrh,bskh->bkrts", qg, k).float() / math.sqrt(hd)
+    keep = mask[:, None, None, None, :] if mask.dim() == 2 else mask
+    scores = torch.where(keep, scores, -1e30)
+    mx = torch.amax(scores, dim=-1, keepdim=True)
+    e = torch.exp(scores - mx) * keep
+    part = torch.einsum("bkrts,bskh->bkrth", e, v.float())
+    mxs, sums, outs = tp.gather(mx[None], e.sum(-1, keepdim=True)[None],
+                                part[None])
+    top = torch.amax(mxs, dim=0)
+    scale = torch.exp(mxs - top)
+    total = torch.sum(scale * sums, dim=0)
+    out = torch.sum(scale * outs, dim=0) / total
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(v.dtype)
 
 
 # ---------------------------------------------------------------------------

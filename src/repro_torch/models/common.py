@@ -4,9 +4,11 @@ RoPE, masks and the loss, the counterparts of
 
 The hooks are the identity until a launcher installs them
 (``set_activation_sharder``): the train driver on a mesh installs
-``launch.sharding.make_activation_constraint`` and
-``make_layer_param_constrainer``, and the model's loop then gathers each
-layer's split weights whole as it reaches the layer. Initializers draw
+``launch.sharding.make_activation_constraint``,
+``make_layer_param_constrainer`` and ``make_model_axis``, and the
+model's loop then gathers each layer's "data"-split weights as it
+reaches the layer, while the layers compute on their own "model" shards
+through the installed ``model_axis()``'s operators. Initializers draw
 from an explicit ``torch.Generator`` and put the weights on its device.
 """
 
@@ -25,12 +27,37 @@ import torch
 
 _ACT_CONSTRAINT = None          # (tensor, kind) -> tensor, or None
 _LAYER_PARAM_CONSTRAINT = None  # (tree) -> tree, or None
+_MODEL_AXIS = None              # launch.sharding.ModelAxis, or None
 
 
-def set_activation_sharder(fn, layer_param_fn=None) -> None:
-    global _ACT_CONSTRAINT, _LAYER_PARAM_CONSTRAINT
+def set_activation_sharder(fn, layer_param_fn=None, model_axis=None) -> None:
+    """Install the hooks (None clears each): the activation hint, the
+    per-layer weight gather and the "model" axis the layers split their
+    heads, ffn columns and vocab over (None: every layer whole)."""
+    global _ACT_CONSTRAINT, _LAYER_PARAM_CONSTRAINT, _MODEL_AXIS
     _ACT_CONSTRAINT = fn
     _LAYER_PARAM_CONSTRAINT = layer_param_fn
+    _MODEL_AXIS = model_axis
+
+
+def installed_hooks() -> tuple:
+    """The three installed hooks, for a caller that installs its own and
+    puts these back after."""
+    return _ACT_CONSTRAINT, _LAYER_PARAM_CONSTRAINT, _MODEL_AXIS
+
+
+def model_axis():
+    """The installed ``ModelAxis`` (tensor parallelism over "model"), or
+    None."""
+    return _MODEL_AXIS
+
+
+def gather_carry(x: torch.Tensor, t: int) -> torch.Tensor:
+    """A layer's input whole over T (``t`` rows) where the ``carry`` hint
+    left this rank its T / M rows; x itself where it is whole."""
+    if _MODEL_AXIS is None or x.shape[1] == t:
+        return x
+    return _MODEL_AXIS.gather_seq(x)
 
 
 def shard_act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -157,3 +184,25 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return torch.mean(logz - gold)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                                 axis) -> torch.Tensor:
+    """``cross_entropy`` of logits split over ``axis``'s ranks on the vocab
+    (this rank's (..., V / M) block, rows rank * V / M onward): the max
+    over the ranks, then the sum of exp and the gold logit (from the rank
+    that owns the target; 0 elsewhere), each summed over the ranks. Every
+    rank returns the same loss; its gradient reaches this rank's block
+    only."""
+    logits = logits.float()
+    v = logits.shape[-1]
+    lo = axis.rank * v
+    with torch.no_grad():
+        m = axis.all_reduce(torch.amax(logits, dim=-1), "max")
+    total = axis.reduce_out(torch.sum(torch.exp(logits - m[..., None]),
+                                      dim=-1))
+    t = targets.long() - lo
+    mine = (t >= 0) & (t < v)
+    gold = torch.gather(logits, -1, t.clamp(0, v - 1)[..., None])[..., 0]
+    gold = axis.reduce_out(torch.where(mine, gold, torch.zeros_like(gold)))
+    return torch.mean(m + torch.log(total) - gold)

@@ -19,7 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, shard_act
+from .common import dense_init, model_axis, shard_act
 from .config import ModelConfig
 
 # ---------------------------------------------------------------------------
@@ -47,9 +47,19 @@ def _act(h: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
 
 
 def mlp_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Over a "model" axis, ``wi`` and ``wg`` are column-parallel (this
+    rank's d_ff / M of "btf") and ``wo`` row-parallel, its partial
+    products summed over the ranks."""
+    tp = model_axis()
+    dtype = x.dtype
+    if tp is not None:
+        x = tp.copy_in(x)
     gate = x @ p["wg"] if cfg.mlp_type == "swiglu" else None
     h = shard_act(_act(x @ p["wi"], gate), "btf")
-    return (h @ p["wo"]).to(x.dtype)
+    y = h @ p["wo"]
+    if tp is not None:
+        y = tp.reduce_out(y)
+    return y.to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,12 @@ one (B, T, d) input per layer and recomputes the rest; a call without a
 gradient runs the layers directly. Each layer's slice passes through
 ``shard_layer_params`` inside the checkpointed function, and the weights
 outside the stacks through it once a forward: on a mesh, the train
-driver's hook gathers the split weights there, a layer at a time.
+driver's hook gathers the split weights there, a layer at a time. Over
+a "model" axis (``common.model_axis()``), the embedding lookup and the
+logits are vocab-parallel (each rank its V / M rows; the loss is
+``vocab_parallel_cross_entropy``), the layers split heads and d_ff, and
+the residual between segments keeps this rank's T / M rows (the
+``carry`` hint), gathered again inside the next layer.
 """
 
 from __future__ import annotations
@@ -42,8 +47,9 @@ from . import attention as attn
 from . import mamba as mam
 from . import mlp as ff
 from . import xlstm as xl
-from .common import (apply_norm, cross_entropy, embed_init, norm_params,
-                     shard_act, shard_layer_params)
+from .common import (apply_norm, cross_entropy, embed_init, gather_carry,
+                     model_axis, norm_params, shard_act, shard_layer_params,
+                     vocab_parallel_cross_entropy)
 from .config import ModelConfig, require_ported
 
 Params = Dict[str, Any]
@@ -184,25 +190,52 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
-def _slice_forward(p: Params, *args):
+def _slice_forward(p: Params, x: torch.Tensor, t: int, *args):
     """``_layer_forward`` of a layer's slice as ``shard_layer_params``
-    gives it: inside a checkpoint, the backward gathers it again."""
-    return _layer_forward(shard_layer_params(p), *args)
+    gives it, on x whole over its ``t`` rows (``gather_carry``): inside a
+    checkpoint, the backward gathers both again."""
+    return _layer_forward(shard_layer_params(p), gather_carry(x, t), *args)
+
+
+def _embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; over a "model" axis ``table`` is this rank's
+    block of V / M rows: the rows it owns, zeros for the others, summed
+    over the ranks (one nonzero term a row, so exact)."""
+    tp = model_axis()
+    if tp is None:
+        return table[tokens]
+    v = table.shape[0]
+    t = tokens - tp.rank * v
+    mine = ((t >= 0) & (t < v))[..., None].to(table.dtype)
+    return tp.reduce_out(table[t.clamp(0, v - 1)] * mine)
 
 
 _STACKS = ("layers", "enc_layers")
 
 
-def _stacked(makes: list, n: int) -> list:
+def _kept(tree, path: str, keep, lead: tuple = ()):
+    """``tree``'s leaves through ``keep(path, whole_shape, x)`` (the
+    whole leaf's shape is ``lead`` + x's: a layer of a stack of ``lead``
+    layers); ``tree`` itself without ``keep``."""
+    if keep is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _kept(v, f"{path}/{k}", keep, lead)
+                for k, v in tree.items()}
+    return keep(path, lead + tuple(tree.shape), tree)
+
+
+def _stacked(makes: list, n: int, keep=None, paths=None) -> list:
     """``n`` segments of the layers that ``makes`` draw (one maker per
     position in the period), drawn segment by segment and each layer
     written into preallocated leaves stacked on a leading axis: the peak
     is the stacks and one layer, not two stacks. Returns one stack per
-    position."""
+    position. ``keep`` (``Model.init_params``) narrows each drawn layer
+    before it is written (position j's leaves under ``paths[j]``)."""
     out = [None] * len(makes)
     for i in range(n):
         for j, make in enumerate(makes):
-            layer = make()
+            layer = _kept(make(), paths[j] if keep else "", keep, (n,))
             if out[j] is None:
                 out[j] = tree_map(
                     lambda a: a.new_empty((n,) + tuple(a.shape)), layer)
@@ -257,28 +290,35 @@ class Model:
 
     # -- init ------------------------------------------------------------------
 
-    def init_params(self, generator: torch.Generator) -> Params:
+    def init_params(self, generator: torch.Generator, keep=None) -> Params:
         """The reference's tree, drawn from ``generator`` with the
         reference's init laws, on the generator's device: the embeddings,
         then the decoder's layers one by one (segment by segment, each
-        position of the period in turn), then the encoder's."""
+        position of the period in turn), then the encoder's. ``keep(path,
+        whole_shape, x)`` (``launch.sharding.local_keep``) takes each
+        drawn leaf, a layer of a stacked one at a time, and returns what
+        is kept of it (a rank's shard): the draws are the whole tree's,
+        but no more than one layer of it is held whole."""
         cfg, gen = self.cfg, generator
-        params: Params = {
+        params: Params = _kept({
             "embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.tdtype),
             "norm_f": norm_params(cfg.d_model, cfg.norm, cfg.tdtype, gen.device),
-        }
+        }, "params", keep)
         if not cfg.tie_embeddings:
-            params["lm_head"] = embed_init(gen, cfg.vocab, cfg.d_model,
-                                           cfg.tdtype)
+            params["lm_head"] = _kept(embed_init(gen, cfg.vocab, cfg.d_model,
+                                                 cfg.tdtype),
+                                      "params/lm_head", keep)
         params["layers"] = _stacked(
             [lambda kind=kind: _layer_init(gen, cfg, *kind, self.cross)
-             for kind in self.kinds], self.n_segments)
+             for kind in self.kinds], self.n_segments, keep,
+            [f"params/layers/{j}" for j in range(self.period)])
         if self.cross:
             params["enc_layers"], = _stacked(
                 [lambda: _layer_init(gen, cfg, "attn", "mlp", False)],
-                cfg.enc_layers)
-            params["enc_norm_f"] = norm_params(cfg.d_model, cfg.norm,
-                                               cfg.tdtype, gen.device)
+                cfg.enc_layers, keep, ["params/enc_layers"])
+            params["enc_norm_f"] = _kept(
+                norm_params(cfg.d_model, cfg.norm, cfg.tdtype, gen.device),
+                "params/enc_norm_f", keep)
         return params
 
     # -- forward -----------------------------------------------------------------
@@ -290,9 +330,11 @@ class Model:
         remat = (self.use_remat and torch.is_grad_enabled()
                  and any(t.requires_grad for t in tree_leaves(params)))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        t = x.shape[1]
         for i in range(n):
             for stack, kind in zip(stacks, kinds):
-                args = (_layer(stack, i), x, self.cfg, *kind, memory, causal)
+                args = (_layer(stack, i), x, t, self.cfg, *kind, memory,
+                        causal)
                 if remat:
                     x, a = checkpoint(_slice_forward, *args,
                                       use_reentrant=False)
@@ -300,11 +342,11 @@ class Model:
                     x, a = _slice_forward(*args)
                 aux = aux + a
             x = shard_act(x, "carry")
-        return x, aux
+        return gather_carry(x, t), aux
 
     def _embed_inputs(self, params: Params, batch: dict) -> torch.Tensor:
         cfg = self.cfg
-        x = params["embed"][batch["tokens"]]
+        x = _embed_lookup(params["embed"], batch["tokens"])
         if cfg.family == "vlm":
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         if self.cross:
@@ -325,6 +367,9 @@ class Model:
         cfg = self.cfg
         x = apply_norm(x, params["norm_f"], cfg.norm)
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        tp = model_axis()
+        if tp is not None:
+            x = tp.copy_in(x)
         return shard_act(torch.einsum("btd,vd->btv", x, head), "logits")
 
     def forward(self, params: Params, batch: dict):
@@ -349,7 +394,11 @@ class Model:
         logits, aux = self.forward(params, batch)
         if cfg.family == "vlm":
             logits = logits[:, cfg.vision_tokens:]
-        loss = cross_entropy(logits, batch["targets"])
+        tp = model_axis()
+        if tp is None:
+            loss = cross_entropy(logits, batch["targets"])
+        else:
+            loss = vocab_parallel_cross_entropy(logits, batch["targets"], tp)
         if cfg.moe is not None:
             loss = loss + cfg.moe.router_aux_weight * aux
         return loss
@@ -361,7 +410,9 @@ class Model:
         as the reference's: KV caches (latent caches for MLA), a Mamba
         layer's conv window and SSM state, an mLSTM's (C, n, m), an
         sLSTM's (c, n, h, m); for encdec the encoder's memory ``enc``
-        (B, enc_seq, d), zeros until the caller fills it."""
+        (B, enc_seq, d), zeros until the caller fills it. Whoever lays
+        the KV caches out over a "model" axis with their sequence split
+        (``cache_specs``) sets ``kv_seq`` True beside ``blocks``."""
         cfg = self.cfg
         dev = resolve_device(device)
         blocks = []
@@ -382,16 +433,20 @@ class Model:
         tokens of the step as one group; the aux loss is dropped, as in
         the reference. The layers run segment by segment, each position
         of the period in turn; a recurrent mixer writes its new state
-        into its slot of the stacked cache."""
+        into its slot of the stacked cache. ``kv_seq`` reaches each
+        layer's cache."""
         cfg = self.cfg
-        x = params["embed"][token]
+        x = _embed_lookup(params["embed"], token)
         memory = cache["enc"] if self.cross else None
+        mark = {"kv_seq": True} if cache.get("kv_seq", False) else {}
         if self.cross:
             x = x + sinusoid_at(pos, cfg.d_model, x.dtype, x.device)
         for i in range(self.n_segments):
             for stack, blocks, kind in zip(params["layers"], cache["blocks"],
                                            self.kinds):
-                x, _ = _layer_decode(_layer(stack, i), x, _layer(blocks, i),
+                blk = _layer(blocks, i)
+                x, _ = _layer_decode(_layer(stack, i), x,
+                                     {**blk, **mark} if mark else blk,
                                      int(pos), cfg, *kind, memory)
         return self._logits(params, x), cache
 

@@ -30,9 +30,16 @@ the CPU their plain versions. Each ``a + c * b`` of the reference is
 analytic count, from shapes alone), bound in the ``Optimizer`` adapter
 as the reference binds it. On a mesh (``launch.steps.make_train_step``
 with ``mesh``), H and the momentum are laid out over the ranks, each
-rank plays one silo, and ``refresh`` takes the layout: per tensor, H is
-gathered whole for K1, the ranks' payloads cross as the uplink before
-K4, and each rank keeps its own shard of the increment.
+index of the "data" axis plays one silo, and ``refresh`` takes the
+layout: per tensor, H is gathered whole over "data" for K1, the silos'
+payloads cross the data ranks as the uplink before K4, and each rank
+keeps its own shard of the increment. A tensor split over "model" runs
+K1 and K4 on this rank's model shard where the split falls on tile
+bounds (``_tile_grid``), its per-tile ridge terms gathered into the
+whole tensor's tile order; elsewhere the tensor is gathered whole over
+"model" first. ``donate`` lets ``refresh`` and ``precondition`` write H
+and the momentum in place (the caller drops the old state), with the
+same arithmetic.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ import torch
 
 from ..core.compressors import BlockSparsePayload, BlockTopKThreshold
 from ..kernels.block_topk import diff_topk_payload
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_leaves, tree_map, tree_unflatten
 from .optim import Optimizer
 
 
@@ -71,6 +78,33 @@ def _shape2d(shape) -> tuple:
 
 def _pick(out, i: int):
     return tree_map(lambda t: t[i], out)
+
+
+def _tile_grid(shape, dim: int, block: int):
+    """(grid, axis): the (block x block) tiles of a rank's shard of a
+    tensor split on ``dim`` as a grid whose ``axis`` is the split's, such
+    that the ranks' grids concatenated on ``axis`` are the whole tensor's
+    tiles in their row-major order; None where a tile would straddle two
+    ranks' shards (the split is not on tile bounds)."""
+    shape = tuple(int(x) for x in shape)
+    if not shape:
+        return None
+    rows = 1
+    for x in shape[:-1]:
+        rows *= x
+    cols_t = -(-shape[-1] // block)
+    if dim == len(shape) - 1:
+        if shape[-1] % block:
+            return None
+        return (-(-rows // block), shape[-1] // block), 1
+    pre = mid = 1
+    for x in shape[:dim]:
+        pre *= x
+    for x in shape[dim:-1]:
+        mid *= x
+    if mid % block:
+        return None
+    return (pre, mid // block, cols_t), 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +158,7 @@ class FedNLPrecondOptimizer:
                                       universe=self.block * self.block)
         return self.compressor.aggregate(payloads, shape2)
 
-    def learn(self, h, d_obs, gather=None):
+    def learn(self, h, d_obs, gather=None, tiles=None, numel=None):
         """One tensor's compressed learning: the increment s = C(D - H)
         (the server mean of per-silo payloads when ``d_obs`` carries a
         leading silo axis) and the ridge l. Returns (s, l).
@@ -134,7 +168,10 @@ class FedNLPrecondOptimizer:
         every silo's, stacked in silo order: on a mesh, each rank's
         silos cross the ranks there as a payload before the server
         mean. The ridge sums each silo's terms in one reduction over the
-        stack, so a silo's l does not depend on which call made it."""
+        stack, so a silo's l does not depend on which call made it.
+        ``tiles`` maps the (silos, tiles) terms of a shard ``h`` of a
+        larger tensor (``numel`` elements) to the whole tensor's, in its
+        tile order, so that l is the whole tensor's bit for bit."""
         shape2 = _shape2d(h.shape)
         h2 = h.reshape(shape2)
         stacked = d_obs.dim() == h.dim() + 1
@@ -144,61 +181,103 @@ class FedNLPrecondOptimizer:
                                                tile_sums=True)
         if gather is not None:
             vals, idx, tile_sq = gather(vals, idx, tile_sq)
+        if tiles is not None:
+            tile_sq = tiles(tile_sq)
         sq = torch.sum(tile_sq, dim=1)
+        numel = h.numel() if numel is None else numel
         if stacked:
-            l = torch.mean(torch.sqrt(sq / h.numel() + 1e-30))
+            l = torch.mean(torch.sqrt(sq / numel + 1e-30))
         else:
-            l = torch.sqrt(sq[0] / h.numel() + 1e-30)
+            l = torch.sqrt(sq[0] / numel + 1e-30)
         s = self._payload_mean(vals, idx, shape2).reshape(h.shape)
         return s, l
 
     def _learn_laid_out(self, h, d_obs, lay=None):
         """``learn`` of a rank's shard ``h`` of a tensor laid out by
-        ``lay`` (``launch.sharding.LeafLayout``): H gathered whole for
-        K1, the ranks' payloads gathered for K4, and this rank's shard
-        of s kept. ``lay`` None: ``h`` is the whole tensor."""
+        ``lay`` (``launch.sharding.LeafLayout``): H gathered whole over
+        "data" for K1, the silos' payloads gathered for K4, and this
+        rank's shard of s kept. Over "model": K1 and K4 on this rank's
+        model shard where the split is on tile bounds, else on the tensor
+        gathered whole over "model" too. ``lay`` None: ``h`` is the whole
+        tensor. ``d_obs`` is this rank's silos' observations, whole over
+        "data" and this rank's over "model"."""
         if lay is None:
             return self.learn(h, d_obs)
-        s, l = self.learn(lay.whole(h), d_obs, gather=lay.axis.gather)
-        return lay.part(s), l
+        h = lay.whole(h)
+        model, mdim = lay.model, lay.mdim
+        if mdim is None or model.world == 1:
+            s, l = self.learn(h, d_obs, gather=lay.axis.gather)
+            return lay.part(s), l
+        tiled = _tile_grid(h.shape, mdim, self.block)
+        if tiled is not None:
+            grid, axis = tiled
 
-    def _precond_tensor(self, g, h, m, p, l):
-        """The per-step preconditioned update from stored (h, l)."""
-        g32 = g.to(torch.float32)
-        denom = torch.sqrt(torch.clamp(h, min=0.0)) + torch.sqrt(l) + self.eps
-        step = g32 / denom
+            def tiles(sq):
+                n = sq.shape[0]
+                return model.whole(sq.reshape((n,) + grid),
+                                   axis + 1).reshape(n, -1)
+
+            s, l = self.learn(h, d_obs, gather=lay.axis.gather, tiles=tiles,
+                              numel=h.numel() * model.world)
+            return lay.part(s), l
+        lead = d_obs.dim() - h.dim()
+        s, l = self.learn(model.whole(h, mdim),
+                          model.whole(d_obs, mdim + lead),
+                          gather=lay.axis.gather)
+        return lay.part(model.part(s, mdim)), l
+
+    def _precond_tensor(self, g, h, m, p, l, donate: bool = False):
+        """The per-step preconditioned update from stored (h, l); with
+        ``donate`` the new momentum is written over ``m``."""
+        # g / (sqrt(max(h, 0)) + sqrt(l) + eps), its operations in that
+        # order, in one temporary the size of the tensor
+        step = torch.clamp(h, min=0.0).sqrt_().add_(torch.sqrt(l))
+        step = torch.div(g.to(torch.float32), step.add_(self.eps), out=step)
         if self.weight_decay:
             step = torch.add(step, p.to(torch.float32),
                              alpha=self.weight_decay)
-        m_new = torch.add(step, m, alpha=self.momentum)
+        if donate:
+            m_new = torch.add(step, m, alpha=self.momentum, out=m)
+        else:
+            m_new = torch.add(step, m, alpha=self.momentum)
+        del step
         u = (-self.lr * m_new).to(p.dtype)
         return u, m_new
 
     def refresh(self, state: FedNLPrecondState, observations,
-                layout=None) -> FedNLPrecondState:
+                layout=None, donate: bool = False) -> FedNLPrecondState:
         """Learn curvature from (possibly silo-stacked) observations:
         new h and stored ridge l; step and mu untouched. ``layout`` (a
         tree like ``state.h`` of ``LeafLayout``s) says how each H is laid
         out over the ranks of a mesh when ``state.h`` holds this rank's
         shards and ``observations`` this rank's silos; None: one process
-        holds every tensor and every silo."""
-        if layout is None:
-            layout = tree_map(lambda _: None, state.h)
-        out = tree_map(self._learn_laid_out, state.h, observations, layout)
-        s, l = _pick(out, 0), _pick(out, 1)
-        h_new = tree_map(lambda h, si: torch.add(h, si, alpha=self.alpha),
-                         state.h, s)
-        return state._replace(h=h_new, l=l)
+        holds every tensor and every silo. Tensor by tensor, so one
+        increment is alive at a time; ``donate`` adds it into H in
+        place."""
+        hs = tree_leaves(state.h)
+        obs = tree_leaves(observations)
+        lays = [None] * len(hs) if layout is None else tree_leaves(layout)
+        h_new, ls = [], []
+        for h, o, lay in zip(hs, obs, lays):
+            s, l = self._learn_laid_out(h, o, lay)
+            h_new.append(h.add_(s, alpha=self.alpha) if donate
+                         else torch.add(h, s, alpha=self.alpha))
+            ls.append(l)
+            del s
+        return state._replace(h=tree_unflatten(state.h, h_new),
+                              l=tree_unflatten(state.h, ls))
 
-    def precondition(self, grads, state: FedNLPrecondState, params):
+    def precondition(self, grads, state: FedNLPrecondState, params,
+                     donate: bool = False):
         """The step from the curvature stored by the last ``refresh``
-        (zero ridge before the first one)."""
+        (zero ridge before the first one); ``donate`` writes the momentum
+        in place."""
         l = state.l
         if l is None:
             l = tree_map(lambda h: torch.zeros((), dtype=torch.float32,
                                                device=h.device), state.h)
-        out = tree_map(self._precond_tensor, grads, state.h, state.mu,
-                       params, l)
+        out = tree_map(lambda g, h, m, p, li: self._precond_tensor(
+            g, h, m, p, li, donate), grads, state.h, state.mu, params, l)
         return _pick(out, 0), state._replace(step=state.step + 1,
                                              mu=_pick(out, 1))
 

@@ -36,15 +36,20 @@ def _entry(rank: int, world: int, store_path: str, out_path: str, task,
         dist.destroy_process_group()
 
 
-def run_group(task, world: int, tmp_path, *args):
-    """``task(mesh, *args)`` on every rank of a ``world``-rank gloo group
-    (``mesh`` the ranks' ``make_host_mesh()``); rank 0's result."""
+def start_group(task, world: int, tmp_path, *args):
+    """``run_group``'s processes started, not waited for: a handle for
+    ``finish_group``, so several groups can run at once."""
     store_path = str(tmp_path / "store")
     out_path = str(tmp_path / "out.pt")
     ctx = mp.start_processes(_entry, args=(world, store_path, out_path, task,
                                            args),
                              nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + JOIN_SECONDS
+    return ctx, out_path, world, time.monotonic() + JOIN_SECONDS
+
+
+def finish_group(handle):
+    """Rank 0's result of a ``start_group`` group, once every rank ended."""
+    ctx, out_path, world, deadline = handle
     try:
         while not ctx.join(timeout=1):
             if time.monotonic() > deadline:
@@ -56,6 +61,12 @@ def run_group(task, world: int, tmp_path, *args):
                 proc.kill()
             proc.join()
     return torch.load(out_path, weights_only=False)
+
+
+def run_group(task, world: int, tmp_path, *args):
+    """``task(mesh, *args)`` on every rank of a ``world``-rank gloo group
+    (``mesh`` the ranks' ``make_host_mesh()``); rank 0's result."""
+    return finish_group(start_group(task, world, tmp_path, *args))
 
 
 @contextlib.contextmanager
@@ -147,7 +158,7 @@ def driver_runs(mesh, arch, overrides, argvs):
     return [driver_run(mesh, arch, overrides, argv) for argv in argvs]
 
 
-def driver_run(mesh, arch, overrides, argv):
+def driver_run(mesh, arch, overrides, argv, config=None):
     """``launch.train.main(argv)`` on this rank with ``arch``'s config
     ``.reduced(**overrides)``: every step's loss and grad_norm, the
     placements of the params' and the optimizer state's leaves, this
@@ -155,7 +166,7 @@ def driver_run(mesh, arch, overrides, argv):
     the shapes the installed ``shard_layer_params`` gathered in the first
     step, the first step's H and l gathered whole (fednl), and the final
     params gathered whole. A ``ValueError`` of the run comes back as its
-    message."""
+    message. ``config`` replaces the reduced config."""
     import repro_torch.launch.train as train_mod
     from repro_torch.configs import get_config
     from repro_torch.launch.sharding import whole_tree
@@ -212,17 +223,19 @@ def driver_run(mesh, arch, overrides, argv):
             rec["loss"].append(float(m["loss"]))
             rec["gnorm"].append(float(m["grad_norm"]))
             if len(rec["loss"]) == 1 and hasattr(opt_state, "h"):
-                rec["h1"] = whole_tree(opt_state.h)
-                rec["l1"] = whole_tree(opt_state.l)
+                # copies: the driver's step writes H in place later
+                rec["h1"] = tree_map(torch.clone, whole_tree(opt_state.h))
+                rec["l1"] = tree_map(torch.clone, whole_tree(opt_state.l))
             rec["params"] = params
+            rec.setdefault("first_params", params)
             return params, opt_state, m
 
         return run
 
     train_mod.make_train_step = recording_make
     train_mod.make_layer_param_constrainer = recording_constrainer
-    train_mod.get_config = lambda a, smoke=True: get_config(arch).reduced(
-        **overrides)
+    train_mod.get_config = lambda a, smoke=True: (
+        config or get_config(arch).reduced(**overrides))
     try:
         train_mod.main(list(argv))
     except ValueError as exc:
@@ -232,7 +245,11 @@ def driver_run(mesh, arch, overrides, argv):
         train_mod.make_layer_param_constrainer = constrainer
         train_mod.get_config = get
     if "params" in rec:
+        rec["final_local"] = [x.to_local() for x in tree_leaves(rec["params"])]
         rec["params"] = whole_tree(rec["params"])
+    if config is None:
+        rec.pop("first_params", None)
+        rec.pop("final_local", None)
     return rec
 
 
@@ -244,3 +261,273 @@ def generate_run(mesh, arch, batch, prompt_len, gen, greedy, seed):
     return generate(arch, smoke=True, batch=batch, prompt_len=prompt_len,
                     gen=gen, seed=seed, greedy=greedy, device="cpu",
                     mesh=mesh)
+
+
+# -- the "model" axis -----------------------------------------------------------------
+
+
+def _config(arch, overrides, replace=None):
+    """``arch``'s config ``.reduced(**overrides)``, then
+    ``dataclasses.replace(**replace)`` (head counts the reduced config
+    does not reach)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced(**overrides)
+    return dataclasses.replace(cfg, **(replace or {}))
+
+
+def _mesh2(data, model):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(data, model, device="cpu")
+
+
+def _model_rank_equal(x, model_axis) -> bool:
+    """Whether ``x`` is bit for bit the same tensor on every rank of the
+    model axis."""
+    parts, = model_axis.gather(x.detach().contiguous()[None])
+    return all(torch.equal(parts[0], p) for p in parts[1:])
+
+
+def model_axis_train(mesh, shape, runs):
+    """On a ``shape`` = (data, model) mesh of this group's ranks, for each
+    (arch, overrides, replace, argv) in ``runs``: ``driver_run``'s
+    records of ``launch.train.main(argv)`` on that mesh, and whether
+    every leaf held whole over "model" (norms, replicated biases) has
+    the same first-step gradient and the same final value on each model
+    rank."""
+    import repro_torch.launch.train as train_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.sharding import DataAxis
+    from repro_torch.tree import tree_leaves
+
+    mesh = _mesh2(*shape)
+    make_mesh, vg = train_mod.make_host_mesh, steps_mod.value_and_grad
+    out = []
+    for arch, overrides, replace, argv in runs:
+        seen = {}
+
+        def recording_vg(model, params, batch, create_graph=False,
+                         split_dims=None):
+            loss, leaves, grads = vg(model, params, batch, create_graph,
+                                     split_dims)
+            if "grads" not in seen:
+                seen["grads"] = [g.detach() for g in grads]
+            return loss, leaves, grads
+
+        train_mod.make_host_mesh = lambda device=None: mesh
+        steps_mod.value_and_grad = recording_vg
+        try:
+            rec = driver_run(mesh, arch, overrides, argv,
+                             config=_config(arch, overrides, replace))
+        finally:
+            train_mod.make_host_mesh = make_mesh
+            steps_mod.value_and_grad = vg
+        axis = DataAxis(mesh)
+        first = rec.pop("first_params")
+        lays = [axis.layout(x) for x in tree_leaves(first)]
+        whole = [i for i, lay in enumerate(lays) if lay.mdim is None]
+        rec["replicated_grads_equal"] = all(
+            _model_rank_equal(seen["grads"][i], axis.model) for i in whole)
+        rec["replicated_params_equal"] = all(
+            _model_rank_equal(tree_leaves(rec["final_local"])[i], axis.model)
+            for i in whole)
+        rec["n_replicated"] = len(whole)
+        rec.pop("final_local")
+        out.append(rec)
+    return out
+
+
+def model_axis_generate(mesh, shape, cases):
+    """``launch.serve.generate`` on a ``shape`` mesh for each (arch,
+    overrides, replace, batch, prompt_len, gen, greedy, seed) in
+    ``cases``, with the reduced config (and its ``replace``): the tokens,
+    and the local shape of the first KV cache leaf this rank held."""
+    import repro_torch.launch.serve as serve_mod
+
+    mesh = _mesh2(*shape)
+    get = serve_mod.get_config
+    out = []
+    try:
+        for arch, overrides, replace, batch, prompt_len, gen, greedy, seed \
+                in cases:
+            serve_mod.get_config = lambda a, smoke=True: _config(
+                arch, overrides, replace)
+            out.append(serve_mod.generate(
+                arch, smoke=True, batch=batch, prompt_len=prompt_len,
+                gen=gen, seed=seed, greedy=greedy, device="cpu", mesh=mesh))
+    finally:
+        serve_mod.get_config = get
+    return out
+
+
+def model_axis_refresh(mesh, shape, arch, overrides, replace, h, obs, k):
+    """One fednl refresh on a ``shape`` mesh from the whole numpy trees
+    ``h`` (H) and ``obs`` (every silo's observation stacked on a leading
+    axis, one silo a data index): each rank lays H out by the rules and
+    takes its silo's observation, whole over "data" and its shard over
+    "model". Returns H and l after the refresh gathered whole, and each
+    leaf's route over "model" ("tiles": K1 on the rank's model shard;
+    "gathered": the leaf gathered whole over "model" first; "whole": not
+    split over it)."""
+    from repro_torch.configs import model_param_shapes
+    from repro_torch.launch.mesh import extents
+    from repro_torch.launch.sharding import (DataAxis, from_local_tree,
+                                             local_keep, local_tree,
+                                             tree_param_specs, whole_tree)
+    from repro_torch.second_order.fednl_precond import (FedNLPrecondOptimizer,
+                                                        FedNLPrecondState,
+                                                        _tile_grid)
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    mesh = _mesh2(*shape)
+    ext = extents(mesh)
+    cfg = _config(arch, overrides, replace)
+    shapes = tree_map(lambda s: torch.empty(s.shape, dtype=torch.float32,
+                                            device="meta"),
+                      model_param_shapes(cfg))
+    specs = tree_param_specs(shapes, ext)
+    axis = DataAxis(mesh)
+    paths = []
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            for key, val in tree.items():
+                walk(val, f"{prefix}/{key}")
+        elif isinstance(tree, list):
+            for i, val in enumerate(tree):
+                walk(val, f"{prefix}/{i}")
+        else:
+            paths.append(prefix)
+
+    walk(shapes, "params")
+    keep = local_keep(mesh, ext)
+    keep_model = local_keep(mesh, ext, axes=("model",))
+    h_t = [torch.from_numpy(x) for x in tree_leaves(h)]
+    o_t = [torch.from_numpy(x) for x in tree_leaves(obs)]
+    whole_shapes = [tuple(x.shape) for x in tree_leaves(shapes)]
+    h_loc = [keep(p, s, x) for p, s, x in zip(paths, whole_shapes, h_t)]
+    silo = axis.rank
+    o_loc = [keep_model(p, s, x[silo])[None]
+             for p, s, x in zip(paths, whole_shapes, o_t)]
+    h_dt = from_local_tree(tree_unflatten(shapes, h_loc), mesh, specs, shapes)
+    lays = tree_map(axis.layout, h_dt)
+    opt = FedNLPrecondOptimizer(k_per_block=k)
+    state = FedNLPrecondState(0, local_tree(h_dt), None, None)
+    new = opt.refresh(state, tree_unflatten(shapes, o_loc), layout=lays)
+    from repro_torch.launch.sharding import like_tree
+
+    routes = []
+    for lay, x in zip(tree_leaves(lays), h_loc):
+        if lay.mdim is None or axis.model.world == 1:
+            routes.append("whole")
+        else:
+            local = list(x.shape)
+            if lay.dim is not None:
+                local[lay.dim] *= axis.world
+            routes.append("tiles" if _tile_grid(local, lay.mdim, opt.block)
+                          is not None else "gathered")
+    return {"h": whole_tree(like_tree(new.h, h_dt)),
+            "l": tree_leaves(new.l), "routes": dict(zip(paths, routes))}
+
+
+def model_axis_ops(mesh, shape, logits, targets, ties):
+    """On a ``shape`` mesh, each model rank's vocab block of the numpy
+    ``logits`` (..., V): ``vocab_parallel_cross_entropy`` and its
+    gradient gathered whole, and ``argmax_over`` of each row of ``ties``
+    (B, V)."""
+    from repro_torch.launch.serve import argmax_over
+    from repro_torch.launch.sharding import DataAxis
+    from repro_torch.models.common import vocab_parallel_cross_entropy
+
+    tp = DataAxis(_mesh2(*shape)).model
+    x = tp.part(torch.from_numpy(logits), -1).clone().requires_grad_(True)
+    loss = vocab_parallel_cross_entropy(x, torch.from_numpy(targets), tp)
+    grad, = torch.autograd.grad(loss, x)
+    return {"loss": loss.detach(), "grad": tp.whole(grad, grad.dim() - 1),
+            "argmax": argmax_over(tp.part(torch.from_numpy(ties), -1), tp)}
+
+
+def model_axis_cache_layout(mesh, shape, arch, overrides, replace, batch,
+                            max_len):
+    """The placements ``cache_specs`` gives the reduced model's cache on
+    a ``shape`` mesh, as ``_describe`` strings per leaf, and this rank's
+    local shape of each (``model_parts``, as ``generate`` lays it out)."""
+    from repro_torch.launch.mesh import extents
+    from repro_torch.launch.sharding import (DataAxis, cache_specs,
+                                             model_parts, placements)
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    mesh = _mesh2(*shape)
+    cache = build_model(_config(arch, overrides, replace)).init_cache(
+        batch, max_len, "cpu")
+    specs = cache_specs(cache, extents(mesh))
+    local = model_parts(cache, specs, DataAxis(mesh).model)
+    return {"placements": [
+        [type(p).__name__ + str(getattr(p, "dim", ""))
+         for p in placements(mesh, s)] for s in _spec_leaves(specs)],
+        "local": [tuple(x.shape) for x in tree_leaves(local)]}
+
+
+def _spec_leaves(specs) -> list:
+    """The spec tuples of a spec tree, in ``tree_leaves`` order."""
+    if isinstance(specs, dict):
+        return [s for v in specs.values() for s in _spec_leaves(v)]
+    if isinstance(specs, list):
+        return [s for v in specs for s in _spec_leaves(v)]
+    return [specs]
+
+
+def model_axis_tool(argv, workdir):
+    """``tools/mesh_train_check.py``'s ``main(argv + ["--out", workdir])``
+    on this group's ranks: its exit code and the JSON it wrote."""
+    import importlib.util
+    import json
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "..", "tools",
+                        "mesh_train_check.py")
+    spec = importlib.util.spec_from_file_location("mesh_train_check", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    code = tool.main(list(argv) + ["--out", workdir])
+    out = None
+    for name in os.listdir(workdir):
+        with open(os.path.join(workdir, name)) as f:
+            out = json.load(f)["mesh_train_check"]
+    return {"code": code, "json": out}
+
+
+def model_axis_all(mesh, shape, train_runs=(), refresh_cases=(),
+                   gen_cases=(), ops=None, cache_cases=(), tool=None):
+    """Every model-axis task this group runs on its ``shape`` mesh, one
+    group a shape: ``model_axis_train`` of ``train_runs``,
+    ``model_axis_refresh`` of each case, ``model_axis_generate``,
+    ``model_axis_ops`` and ``model_axis_cache_layout``; on the same
+    ranks as a (W, 1) mesh, what the hooks install there; last,
+    ``model_axis_tool`` of ``tool`` (argv, workdir)."""
+    from repro_torch.launch.sharding import (make_activation_constraint,
+                                             make_model_axis)
+
+    out = {"train": model_axis_train(mesh, shape, train_runs) if train_runs
+           else [],
+           "refresh": [model_axis_refresh(mesh, shape, *c)
+                       for c in refresh_cases],
+           "generate": model_axis_generate(mesh, shape, gen_cases)
+           if gen_cases else [],
+           "cache": [model_axis_cache_layout(mesh, shape, *c)
+                     for c in cache_cases]}
+    if ops is not None:
+        out["ops"] = model_axis_ops(mesh, shape, *ops)
+    flat = _mesh2(shape[0] * shape[1], 1)
+    x = torch.zeros(2, 8, 4)
+    out["flat_model_axis"] = make_model_axis(flat)
+    out["flat_carry_is_identity"] = all(
+        make_activation_constraint(flat)(x, kind) is x
+        for kind in ("btd", "btf", "bthd", "logits", "carry"))
+    if tool is not None:
+        out["tool"] = model_axis_tool(*tool)
+    return out

@@ -1,27 +1,54 @@
-"""The train driver over the ranks of ``torchrun``, held to one process.
+"""The train driver and ``generate`` over the ranks of ``torchrun``, on a
+("data", "model") mesh, held to one process or to another run.
 
-    PYTHONPATH=src torchrun --nproc-per-node 4 tools/mesh_train_check.py
+    PYTHONPATH=src torchrun --nproc-per-node 4 tools/mesh_train_check.py \\
+        --arch qwen2-0.5b --data 2 --model 2
 
-Every rank trains qwen2-0.5B at its published width through
-``launch.train.train`` (fednl, 8 x 128 tokens, a refresh every 2
-steps) on its own card, with the params and the fednl state laid out
-over the ranks; then rank 0 runs the same steps without a mesh, one
-process with ``n_silos`` = W on its card, and compares. The first
-refresh's H and l must be equal bit for bit (each rank's observation
-and K1 call on its own silo; the payloads stacked in silo order before
-K4); each step's loss must be within ``LOSS_REL`` of one process's (the
-gradient is the mean of W per-rank means in f32, cast to bf16, where one
-process takes one mean: a bf16 step is 2^-8 relative). Rank 0 prints
-one JSON line: the gaps, ms a step on both sides (host clock to a
-synchronize), each side's peak memory, this rank's bytes of params and
-state against the whole, and the card. ``--device cpu --smoke`` runs
-the reduced config on gloo ranks.
+Every rank trains the arch at its published width (``--smoke``: the
+reduced one) through ``launch.train.train(mesh=make_host_mesh(data,
+model))`` (fednl, 8 x 128 tokens, a refresh every 2 steps) on its own
+card, the params and the fednl state laid out by the rules: split over
+"model" the dense family computes tensor-parallel, and each index of
+"data" is one FedNL silo. ``train``'s step donates its inputs (H, the
+momentum and the params are updated in place), so one copy of the state
+is alive. ``--layers N`` cuts the depth (the width stays published) and
+``--lr`` sets the step size. Then, where one card holds the arch's
+fednl state (the weights, H and momentum are under half its memory),
+rank 0 runs the same steps without a mesh, one process with
+``n_silos`` = the data extent, and compares: each step's loss within
+``LOSS_REL``, and on a
+model axis of one rank the first refresh's H and l bit for bit (each
+rank's K1 on its silo, the payloads stacked in silo order before K4).
+Over a wider model axis the silo's observation comes through the
+tensor-parallel layers, whose row-parallel sums round apart from one
+product's, so H's gap is reported (the refresh itself, handed the same
+observations, is held bit for bit by ``tests/test_torch_model_axis.py``
+and ``chip_smoke.py`` phase 16). Where no card
+holds it (starcoder2-15b: 31.9 GB of weights and 127.6 GB of f32 H and
+momentum), there is no twin: every loss must be finite, and
+``--against FILE`` holds each step's loss within ``LOSS_REL`` of the
+run whose JSON is in FILE (another mesh's run of the same arch).
+
+``--serve``: ``make_prefill`` over the mesh at T = ``--prompt`` (K9 on
+each rank's heads), the logits gathered over the vocab's shards, then
+``generate(mesh=)`` of ``--gen`` greedy tokens after a 32-token prompt;
+rank 0 then does both on its card alone, with the same draws, and
+compares: the tokens equal and the prefill's logits within 1e-4 of the
+largest (f32: ``--serve`` runs the config in f32).
+
+Rank 0 prints one JSON line, and with ``--out DIR`` writes it to
+``DIR/<arch>[_L<layers>][_lr<lr>]_<data>x<model>[_serve].json``: the gaps, ms a step or a
+token on both sides (host clock to a synchronize), peak memory, this
+rank's bytes of params and state against the whole, and the card.
+``--device cpu --smoke`` runs on gloo ranks.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -32,18 +59,26 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
+import repro_torch.launch.serve as serve_mod  # noqa: E402
 import repro_torch.launch.train as train_mod  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, model_param_shapes  # noqa: E402
 from repro_torch.data.tokens import TokenPipeline  # noqa: E402
-from repro_torch.launch.mesh import scoped_group  # noqa: E402
-from repro_torch.launch.sharding import whole_tree  # noqa: E402
-from repro_torch.launch.steps import make_optimizer, make_train_step  # noqa: E402
+from repro_torch.kernels import LAUNCHES, ROUTES, build_all  # noqa: E402
+from repro_torch.launch.mesh import (extents, make_host_mesh,  # noqa: E402
+                                     scoped_group)
+from repro_torch.launch.sharding import (DataAxis, local_keep,  # noqa: E402
+                                         make_model_axis, whole_tree)
+from repro_torch.launch.steps import (make_optimizer,  # noqa: E402
+                                      make_prefill, make_train_step)
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.models.common import set_activation_sharder  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 ARGS = dict(batch=8, seq=128, lr=1e-3, optimizer="fednl", refresh_every=2,
             curvature_k=2048)
 LOSS_REL = 1e-2
+LOGIT_REL = 1e-4
+SERVE_PROMPT = 32
 
 
 def _sync(dev: torch.device) -> None:
@@ -56,9 +91,38 @@ def _peak_gb(dev: torch.device) -> float | None:
         if dev.type == "cuda" else None
 
 
-def timed(step, dev: torch.device, rec: dict):
+def _card(dev: torch.device):
+    if dev.type != "cuda":
+        return None
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+
+
+def _config(args, **fields):
+    """The arch's config (``--smoke``: reduced), its depth cut to
+    ``--layers`` where given, with ``fields`` replaced."""
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers:
+        fields["n_layers"] = args.layers
+    return dataclasses.replace(cfg, **fields)
+
+
+def _train_args(args) -> dict:
+    return dict(ARGS, lr=args.lr)
+
+
+def _state_bytes(args) -> int:
+    """Bytes of the arch's weights, f32 H and f32 momentum, whole."""
+    cfg = _config(args)
+    return sum(math.prod(s.shape) * (s.dtype.itemsize + 8)
+               for s in tree_leaves(model_param_shapes(cfg)))
+
+
+def timed(step, dev: torch.device, rec: dict, keep_first: bool):
     """``step`` that records each call's host ms, loss and grad_norm, and
-    the first call's params and optimizer state."""
+    (``keep_first``) the first call's H and l gathered whole."""
 
     def run(params, opt_state, batch):
         _sync(dev)
@@ -68,102 +132,271 @@ def timed(step, dev: torch.device, rec: dict):
         rec["ms"].append((time.perf_counter() - t0) * 1e3)
         rec["loss"].append(float(m["loss"]))
         rec["gnorm"].append(float(m["grad_norm"]))
-        rec.setdefault("first", (params, opt_state))
+        rec["refreshed"].append(bool(m["curv_refreshed"]))
+        leaves = (tree_leaves(params) + tree_leaves(opt_state.h)
+                  + tree_leaves(opt_state.mu))
+        if "bytes" not in rec and hasattr(leaves[0], "to_local"):
+            rec["bytes"] = (
+                sum(x.to_local().numel() * x.element_size() for x in leaves),
+                sum(x.numel() * x.element_size() for x in leaves))
+            if keep_first:       # copies: the next steps write H in place
+                rec["h"], rec["l"] = (
+                    tree_map(torch.clone, whole_tree(opt_state.h)),
+                    tree_map(torch.clone, whole_tree(opt_state.l)))
         return params, opt_state, m
 
     return run
 
 
-def mesh_run(arch: str, smoke: bool, steps: int, dev: torch.device) -> dict:
-    """``train`` on every rank: the first refresh's H and l gathered whole
-    (a collective), and this rank's bytes of params, H and momentum."""
-    rec = {"ms": [], "loss": [], "gnorm": []}
-    make = train_mod.make_train_step
-    train_mod.make_train_step = lambda *a, **kw: timed(make(*a, **kw), dev,
-                                                       rec)
+def mesh_run(args, mesh, dev: torch.device, keep_first: bool) -> dict:
+    """``train`` on every rank of ``mesh`` (its step donates its
+    inputs)."""
+    rec = {"ms": [], "loss": [], "gnorm": [], "refreshed": []}
+    make, get = train_mod.make_train_step, train_mod.get_config
+    train_mod.make_train_step = lambda *a, **kw: timed(
+        make(*a, **kw), dev, rec, keep_first)
+    train_mod.get_config = lambda a, smoke=True: _config(args)
     try:
-        train_mod.train(arch, smoke=smoke, steps=steps, device=dev, **ARGS)
+        train_mod.train(args.arch, smoke=args.smoke, steps=args.steps,
+                        device=dev, mesh=mesh, **_train_args(args))
     finally:
-        train_mod.make_train_step = make
-    params, state = rec.pop("first")
-    leaves = tree_leaves(params) + tree_leaves(state.h) + tree_leaves(state.mu)
-    rec["local_bytes"] = sum(x.to_local().numel() * x.element_size()
-                             for x in leaves)
-    rec["whole_bytes"] = sum(x.numel() * x.element_size() for x in leaves)
-    rec["h"], rec["l"] = whole_tree(state.h), whole_tree(state.l)
+        train_mod.make_train_step, train_mod.get_config = make, get
     return rec
 
 
-def one_process(arch: str, smoke: bool, steps: int, n_silos: int,
-                dev: torch.device) -> dict:
+def one_process(args, n_silos: int, dev: torch.device) -> dict:
     """The same steps without a mesh, ``n_silos`` silos in one process."""
-    cfg = get_config(arch, smoke=smoke)
+    cfg = _config(args)
     model = build_model(cfg, use_remat=True)
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
-    opt = make_optimizer("fednl", ARGS["lr"], k_per_block=ARGS["curvature_k"],
+    opt = make_optimizer("fednl", args.lr, k_per_block=ARGS["curvature_k"],
                          curvature="fisher")
     state = opt.init(params)
-    rec = {"ms": [], "loss": [], "gnorm": []}
-    step = timed(make_train_step(model, opt,
-                                 refresh_every=ARGS["refresh_every"],
-                                 n_silos=n_silos), dev, rec)
+    rec = {"ms": [], "loss": [], "gnorm": [], "refreshed": []}
+    first = {}
+
+    def keep(step):
+        def run(p, s, b):
+            p, s, m = step(p, s, b)
+            first.setdefault("h", (s.h, s.l))
+            return p, s, m
+        return run
+
+    step = keep(timed(make_train_step(model, opt,
+                                      refresh_every=ARGS["refresh_every"],
+                                      n_silos=n_silos), dev, rec, False))
     pipe = TokenPipeline(vocab_size=cfg.vocab, seq_len=ARGS["seq"],
                          global_batch=ARGS["batch"], seed=0)
-    for i in range(steps):
+    for i in range(args.steps):
         params, state, _ = step(params, state, pipe.batch(i, device=dev))
-    _, first = rec.pop("first")
-    rec["h"], rec["l"] = first.h, first.l
+    rec["h"], rec["l"] = first["h"]
     return rec
+
+
+def _rel(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def train_check(args, dev: torch.device) -> dict:
+    twin = (dev.type != "cuda" or 2 * _state_bytes(args)
+            < torch.cuda.get_device_properties(dev).total_memory)
+    with scoped_group():
+        mesh = make_host_mesh(args.data, args.model, device=dev)
+        data = DataAxis(mesh).world
+        rec = mesh_run(args, mesh, dev, twin)
+        rank = dist.get_rank()
+        rec["peak_gb"] = _peak_gb(dev)
+    if rank:
+        return {}
+    out = {"arch": args.arch, "smoke": args.smoke, "layers": args.layers,
+           "mesh": extents(mesh), "steps": args.steps, **_train_args(args),
+           "mesh_loss": rec["loss"],
+           "mesh_gnorm": rec["gnorm"], "mesh_step_ms": rec["ms"],
+           "refreshed": rec["refreshed"], "mesh_peak_gb": rec["peak_gb"],
+           "local_bytes": rec["bytes"][0], "whole_bytes": rec["bytes"][1],
+           "losses_finite": all(math.isfinite(x) for x in rec["loss"])}
+    ok = out["losses_finite"]
+    if twin:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        one = one_process(args, data, dev)
+        out["h_bitwise"] = all(
+            torch.equal(a.cpu(), b.cpu()) for a, b in
+            zip(tree_leaves(rec["h"]), tree_leaves(one["h"])))
+        out["l_bitwise"] = all(
+            torch.equal(a.cpu(), b.cpu()) for a, b in
+            zip(tree_leaves(rec["l"]), tree_leaves(one["l"])))
+        out["h_rel_max"] = max(
+            float((a.cpu() - b.cpu()).abs().max())
+            / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(tree_leaves(rec["h"]), tree_leaves(one["h"])))
+        out.update(one_loss=one["loss"], one_step_ms=one["ms"],
+                   one_peak_gb=_peak_gb(dev),
+                   loss_rel_max=_rel(rec["loss"], one["loss"]),
+                   gnorm_rel_max=_rel(rec["gnorm"], one["gnorm"]))
+        ok = ok and out["loss_rel_max"] <= LOSS_REL
+        if args.model == 1:
+            ok = ok and out["h_bitwise"] and out["l_bitwise"]
+    if args.against:
+        with open(args.against) as f:
+            other = json.load(f)["mesh_train_check"]
+        out["against"] = {"mesh": other["mesh"],
+                          "loss_rel_max": _rel(rec["loss"],
+                                               other["mesh_loss"])}
+        ok = ok and out["against"]["loss_rel_max"] <= LOSS_REL
+    out["ok"] = ok
+    return out
+
+
+def _f32(arch: str, smoke: bool):
+    return dataclasses.replace(get_config(arch, smoke=smoke),
+                               dtype="float32")
+
+
+def _prefill(arch: str, smoke: bool, t: int, dev: torch.device, mesh):
+    """``make_prefill`` of one (1, t) prompt drawn as ``generate`` draws
+    it (the weights, then the prompt, from one seeded generator), on
+    this rank's shards over ``mesh``'s model axis (None: on the card
+    alone): the logits gathered whole, host ms, K9's launches."""
+    cfg = _f32(arch, smoke)
+    model = build_model(cfg)
+    g = torch.Generator(device=dev).manual_seed(0)
+    tp = None if mesh is None else make_model_axis(mesh)
+    keep = None if tp is None else local_keep(mesh, extents(mesh),
+                                              axes=("model",))
+    params = model.init_params(g, keep=keep)
+    tokens = torch.randint(0, cfg.vocab, (1, t), generator=g, device=dev)
+    set_activation_sharder(None, None, tp)
+    try:
+        prefill = make_prefill(model)
+        prefill(params, {"tokens": tokens[:, :16]})          # warm-up
+        _sync(dev)
+        before = LAUNCHES["flash_attention"]
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        set_activation_sharder(None, None, None)
+    launches = LAUNCHES["flash_attention"] - before
+    last = logits[:, -1]
+    if tp is not None:
+        last = tp.whole(last.contiguous(), last.dim() - 1)
+    return last.float().cpu(), ms, launches
+
+
+def _generate(arch: str, smoke: bool, gen: int, dev: torch.device, mesh):
+    """``generate`` of ``gen`` greedy tokens after a ``SERVE_PROMPT``
+    prompt in f32, with each serve step timed: (tokens, ms a decode
+    step)."""
+    cfg = _f32(arch, smoke)
+    times = []
+    make, get = serve_mod.make_serve_step, serve_mod.get_config
+
+    def timed_serve(model):
+        step = make(model)
+
+        def run(*a):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = step(*a)
+            _sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return run
+
+    serve_mod.make_serve_step = timed_serve
+    serve_mod.get_config = lambda a, smoke=True: cfg
+    try:
+        seqs = serve_mod.generate(arch, smoke=smoke, batch=1,
+                                  prompt_len=SERVE_PROMPT, gen=gen, seed=0,
+                                  greedy=True, device=dev, mesh=mesh)
+    finally:
+        serve_mod.make_serve_step, serve_mod.get_config = make, get
+    return seqs.cpu(), times[SERVE_PROMPT:]
+
+
+def serve_check(args, dev: torch.device) -> dict:
+    with scoped_group():
+        mesh = make_host_mesh(args.data, args.model, device=dev)
+        logits, ms, k9 = _prefill(args.arch, args.smoke, args.prompt, dev,
+                                  mesh)
+        seqs, tok_ms = _generate(args.arch, args.smoke, args.gen, dev, mesh)
+        rank = dist.get_rank()
+        peak = _peak_gb(dev)
+        ext = extents(mesh)
+    if rank:
+        return {}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    one_logits, one_ms, one_k9 = _prefill(args.arch, args.smoke, args.prompt,
+                                          dev, None)
+    one_seqs, one_tok_ms = _generate(args.arch, args.smoke, args.gen, dev,
+                                     None)
+    gap = float((logits - one_logits).abs().max())
+    top = float(one_logits.abs().max())
+    out = {"arch": args.arch, "smoke": args.smoke, "mesh": ext,
+           "dtype": "float32", "prefill_t": args.prompt, "gen": args.gen,
+           "prompt": SERVE_PROMPT, "mesh_prefill_ms": ms,
+           "one_prefill_ms": one_ms, "k9_launches_rank0": k9,
+           "k9_launches_one": one_k9,
+           "k9_routes": dict(ROUTES.get("flash_attention", {})),
+           "mesh_ms_per_token": tok_ms, "one_ms_per_token": one_tok_ms,
+           "logit_gap": gap, "logit_max": top,
+           "tokens_equal": bool(torch.equal(seqs, one_seqs)),
+           "mesh_peak_gb": peak, "one_peak_gb": _peak_gb(dev)}
+    out["ok"] = out["tokens_equal"] and gap <= LOGIT_REL * top
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2-0.5b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--data", type=int, default=None,
+                    help="the data extent (default: ranks / model)")
+    ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (training)")
+    ap.add_argument("--lr", type=float, default=ARGS["lr"])
+    ap.add_argument("--against", default=None,
+                    help="JSON of another run of the arch, whose losses "
+                         "this run's must follow")
+    ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--prompt", type=int, default=4096,
+                    help="the prefill's length (--serve)")
+    ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", default=None,
+                    help="a directory for the JSON line (default: print only)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda":
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
-    with scoped_group():
-        mesh = mesh_run(args.arch, args.smoke, args.steps, dev)
-        rank, world = dist.get_rank(), dist.get_world_size()
-        mesh["peak_gb"] = _peak_gb(dev)
-    if rank:
+        build_all()
+    out = serve_check(args, dev) if args.serve else train_check(args, dev)
+    if not out:
         return 0
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-    one = one_process(args.arch, args.smoke, args.steps, world, dev)
-    h_equal = all(torch.equal(a.cpu(), b.cpu()) for a, b in
-                  zip(tree_leaves(mesh["h"]), tree_leaves(one["h"])))
-    l_equal = all(torch.equal(a.cpu(), b.cpu()) for a, b in
-                  zip(tree_leaves(mesh["l"]), tree_leaves(one["l"])))
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(mesh["loss"],
-                                                       one["loss"]))
-    gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(mesh["gnorm"],
-                                                        one["gnorm"]))
-    card = None
-    if dev.type == "cuda":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()
-    ok = h_equal and l_equal and loss_rel <= LOSS_REL
-    print(json.dumps({"mesh_train_check": {
-        "arch": args.arch, "smoke": args.smoke, "ranks": world,
-        "steps": args.steps, **ARGS, "h_bitwise": h_equal,
-        "l_bitwise": l_equal, "loss_rel_max": loss_rel,
-        "gnorm_rel_max": gnorm_rel, "mesh_loss": mesh["loss"],
-        "one_loss": one["loss"], "mesh_step_ms": mesh["ms"],
-        "one_step_ms": one["ms"], "mesh_peak_gb": mesh["peak_gb"],
-        "one_peak_gb": _peak_gb(dev), "local_bytes": mesh["local_bytes"],
-        "whole_bytes": mesh["whole_bytes"], "cards": card, "ok": ok}}),
-        flush=True)
-    return 0 if ok else 1
+    out["cards"] = _card(dev)
+    line = json.dumps({"mesh_train_check": out})
+    print(line, flush=True)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        mesh = out["mesh"]
+        name = (f"{args.arch}{f'_L{args.layers}' if args.layers else ''}"
+                f"{f'_lr{args.lr:g}' if args.lr != ARGS['lr'] else ''}"
+                f"_{mesh['data']}x{mesh['model']}"
+                f"{'_serve' if args.serve else ''}.json")
+        with open(os.path.join(args.out, name), "w") as f:
+            f.write(line + "\n")
+    return 0 if out["ok"] else 1
 
 
 if __name__ == "__main__":
