@@ -289,6 +289,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -5791,9 +5792,11 @@ def play_ranks(axis, fn) -> list:
     return out
 
 
-def model_axis_k9(dev, seed: int) -> dict:
-    """K9 on one played rank's heads of starcoder2-15b at T = 4,096: 12 q
-    heads over 1 KV head (n_rep 12), hd 128, window 4,096. Every head
+def model_axis_k9(dev, seed: int, h: int = 12, kvh: int = 1, hd: int = 128,
+                  w=4096) -> dict:
+    """K9 on one played rank's heads at T = 4,096: ``h`` q heads over
+    ``kvh`` KV heads of ``hd``, window ``w`` (None: causal); by default
+    starcoder2-15b's (12 over 1, hd 128, window 4,096). Every head
     against its plain version in bf16 and f32 (``check_flash``), then
     the bf16 call's ms, device ms, bound, plain and SDPA ms."""
     import torch
@@ -5802,15 +5805,16 @@ def model_axis_k9(dev, seed: int) -> dict:
         flash_attention_ref,
     )
 
-    h, kvh, hd, t, w = 12, 1, 128, MODEL_AXIS_T, 4096
+    t = MODEL_AXIS_T
     g = torch.Generator(device=dev).manual_seed(seed)
     err = {"flash_attention": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (torch.randn((1, t, n, hd), generator=g, device=dev)
                    .to(dtype) for n in (h, kvh, kvh))
-        check_flash(q, k, v, range(h), err, f"n_rep 12 {dtype}", window=w)
+        check_flash(q, k, v, range(h), err, f"n_rep {h // kvh} {dtype}",
+                    window=w)
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
-    pairs = window_pairs(t, w)
+    pairs = window_pairs(t, w or t)
     flops = 4 * h * hd * pairs
     b_ms, b_by = bound((2 * q.numel() + 2 * k.numel()) * q.element_size(),
                        {"bf16": flops})
@@ -5819,11 +5823,13 @@ def model_axis_k9(dev, seed: int) -> dict:
 
     def plain_all_heads():
         for head in range(h):
-            flash_attention_ref(q[0, :, head][None], k[0, :, 0][None],
-                                v[0, :, 0][None], w)
+            kv = head // (h // kvh)
+            flash_attention_ref(q[0, :, head][None], k[0, :, kv][None],
+                                v[0, :, kv][None], w)
 
     qt = q.transpose(1, 2)
-    kt, vt = (x.repeat_interleave(h, dim=2).transpose(1, 2) for x in (k, v))
+    kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
+              for x in (k, v))
     out = dict(shape=f"q (1, {t}, {h}, {hd}), k and v (1, {t}, {kvh}, {hd}) "
                      f"bf16, n_rep {h // kvh}, window {w}",
                ms=time_cuda(lambda: flash_attention(q, k, v, window=w),
@@ -5833,8 +5839,10 @@ def model_axis_k9(dev, seed: int) -> dict:
                plain_ms=time_cuda(plain_all_heads, reps=1, warmup=1),
                library_ms=time_cuda(lambda: sdpa(qt, kt, vt, w), reps=5,
                                     warmup=1),
-               library_call="scaled_dot_product_attention with a boolean "
-                            "window mask, KV heads expanded beforehand",
+               library_call=("scaled_dot_product_attention(is_causal)"
+                             if w is None else
+                             "scaled_dot_product_attention with a boolean "
+                             "window mask") + ", KV heads expanded beforehand",
                max_abs_err=err["flash_attention_bf16"]["max_abs_err"],
                bf16_check={key: val for key, val in
                            err["flash_attention_bf16"].items()
@@ -5844,16 +5852,22 @@ def model_axis_k9(dev, seed: int) -> dict:
     return out
 
 
-def model_axis_refresh(cfg, dev, seed: int, K) -> dict:
-    """A refresh of the 2-layer model's H from one silo's observation
-    (random, f32), per tensor split over "model": in one call
-    (``learn``: K1, K4 on the whole tensor), then through the port's own
-    route on the played ranks (``_learn_laid_out`` with each rank's
-    ``LeafLayout``: K1 and K4 on its model shard where the split is on
+def model_axis_refresh(cfg, dev, seed: int, K, ranks: int = None,
+                       only=None) -> dict:
+    """A refresh of the model's H from one silo's gradient (random, f32),
+    per tensor split over "model" (``only``: those whose path ends with
+    one of its strings): in one call (``learn`` of the gradient's observation g^2: K1, K4
+    on the whole tensor), then through the port's own route on ``ranks``
+    played ranks (``FedNLPrecondOptimizer._learn_grads``, the route of
+    ``refresh_grads`` that the train step's observation takes: a stacked
+    tensor a layer slice at a time where its layers lie on 128-row tile
+    bounds; K1 and K4 on the rank's model shard where the split is on
     tile bounds, else on the tensor gathered over "model"; the ridge's
     per-tile terms gathered in the whole tensor's tile order), with the
-    counts set to 0 just before and read just after. Each rank's s and
-    l bit for bit against the one call's; the played launches."""
+    counts set to 0 just before and read just after. Each rank's H and l
+    bit for bit against the one call's; the played launches, one K1 and
+    one K4 a rank and tensor (a rank and layer slice where the layer
+    route applies: not here, where no leaf is split over "data")."""
     import torch
     from repro_torch.configs import model_param_shapes
     from repro_torch.launch.sharding import (DataAxis, LeafLayout,
@@ -5864,56 +5878,82 @@ def model_axis_refresh(cfg, dev, seed: int, K) -> dict:
     )
     from repro_torch.tree import tree_leaves, tree_map
 
-    ext = {"data": 1, "model": MODEL_AXIS_RANKS}
-    m = MODEL_AXIS_RANKS
+    m = ranks or MODEL_AXIS_RANKS
+    ext = {"data": 1, "model": m}
     opt = FedNLPrecondOptimizer(k_per_block=MODEL_AXIS_K)
     axis = played_model_axis(m)
     data = DataAxis(None, model=axis)
     g = torch.Generator(device=dev).manual_seed(seed)
     tree = tree_map(lambda s: torch.empty(s.shape, device="meta"),
                     model_param_shapes(cfg))
+    names = []
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            for key, val in t.items():
+                walk(val, f"{prefix}/{key}")
+        elif isinstance(t, list):
+            for i, val in enumerate(t):
+                walk(val, f"{prefix}/{i}")
+        else:
+            names.append(prefix)
+
+    walk(tree, "params")
     specs = tree_leaves(tree_param_specs(tree, ext))
     played = {"diff_topk_payload": 0, "block_scatter_accumulate": 0}
-    aligned = routes = 0
-    for shape, spec in zip((s.shape for s in tree_leaves(tree)), specs):
+    want = dict(played)
+    aligned = routes = layered = 0
+    for name, shape, spec in zip(names, (x.shape for x in tree_leaves(tree)),
+                                 specs):
         split = [d for d, e in enumerate(spec)
                  if "model" in (e if isinstance(e, tuple) else (e,))]
-        if not split:
+        if not split or (only and not name.endswith(only)):
             continue
         dim = split[0]
         routes += 1
-        local = list(shape)
-        local[dim] //= m
-        aligned += _tile_grid(local, dim, opt.block) is not None
         h = torch.rand(shape, generator=g, device=dev)
-        obs = torch.rand((1,) + tuple(shape), generator=g, device=dev)
+        grad = torch.randn(shape, generator=g, device=dev)
+        obs = opt.observe(grad)[None]
         s1, l1 = opt.learn(h, obs)
-        # each rank's shards of H and of the observation, as a rank holds
+        del obs
+        h1 = torch.add(h, s1, alpha=opt.alpha)
+        del s1
+        # each rank's shards of H and of the gradient, as a rank holds
         # them (contiguous), and its layout: split on "model" only
         mine = play_ranks(axis, lambda r: tuple(
-            x.contiguous() for x in model_parts(
-                [h, obs], [spec, (None,) + tuple(spec)], axis)))
+            x.contiguous() for x in model_parts([h, grad], [spec, spec],
+                                                axis)))
+        del h, grad
         lay = LeafLayout(None, data, dim)
+        aligned += _tile_grid(mine[0][0].shape, dim, opt.block) is not None
+        route = opt._by_layer(mine[0][0], lay)
+        layered += route is not None
+        n = shape[0] if route is not None else 1
+        for key in want:
+            want[key] += m * n
         torch.cuda.synchronize()
         K.reset_launches()
-        out = play_ranks(axis, lambda r: opt._learn_laid_out(*mine[r], lay))
+        out = play_ranks(axis, lambda r: opt._learn_grads(
+            mine[r][0], [mine[r][1]], lay))
         torch.cuda.synchronize()
         got = counts(K)
-        for name in played:
-            played[name] += got[name]
-        size = local[dim]
+        for key in played:
+            played[key] += got[key]
+        size = shape[dim] // m
         require(all(torch.equal(l1, l) and torch.equal(
-            s1.narrow(dim, r * size, size), s) for r, (s, l) in enumerate(out)),
-            f"the played model shards' refresh of a {tuple(shape)} tensor "
+            h1.narrow(dim, r * size, size), hr)
+            for r, (hr, l) in enumerate(out)),
+            f"the played model shards' refresh of {name} {tuple(shape)} "
             f"split on dim {dim} differs from the one-call refresh (l "
             f"{float(l1)} vs {[float(l) for _, l in out]})")
-        del h, obs, s1, mine, out
-    require(aligned > 0 and played == {"diff_topk_payload": m * routes,
-                                       "block_scatter_accumulate": m * routes},
+        del h1, mine, out
+        torch.cuda.empty_cache()
+    require(routes > 0 and aligned > 0 and played == want,
             f"the played model-shard refresh launched {played} for "
-            f"{routes} tensors")
-    return {"tensors_split": routes, "tensors_on_tile_bounds": aligned,
-            "route": "FedNLPrecondOptimizer._learn_laid_out", **played}
+            f"{routes} tensors, not {want}")
+    return {"ranks": m, "tensors_split": routes,
+            "tensors_on_tile_bounds": aligned, "tensors_by_layer": layered,
+            "route": "FedNLPrecondOptimizer._learn_grads", **played}
 
 
 def model_axis_starcoder2_15b(K, card: str, dev, seed: int) -> tuple:
@@ -6025,6 +6065,382 @@ def model_axis_starcoder2_15b(K, card: str, dev, seed: int) -> tuple:
     rep["s"] = time.perf_counter() - t0
     print(json.dumps({"model_axis_starcoder2_15b": rep}), flush=True)
     torch.cuda.empty_cache()
+    return launches, k9
+
+
+# phase 16b: the MoE family's "model" axis, ranks played on the card:
+# (arch, layers (None: all), played ranks); the refresh's leaves (None:
+# every split one) and depth
+MOE_AXIS_CASES = (("granite-moe-1b-a400m", None, 4), ("grok-1-314b", 2, 4),
+                  ("grok-1-314b", 2, 16))
+MOE_AXIS_REFRESH = {"granite-moe-1b-a400m": (None, 2),
+                    "grok-1-314b": (("ffn/wi", "ffn/wo"), 1)}
+
+
+def rank_shards(params, specs, world: int) -> list:
+    """Each of ``world`` ranks' shards of the whole ``params`` by its
+    ``specs`` over "model" (contiguous, as a rank holds them), made leaf
+    by leaf with each whole leaf dropped once its shards are made, so
+    the peak is the tree and one leaf, not two trees. ``params`` is
+    emptied."""
+    from repro_torch.launch.sharding import _split_dims
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    leaves, spec_leaves = tree_leaves(params), tree_leaves(specs)
+    skeleton = tree_unflatten(params, [None] * len(leaves))
+    params.clear()
+    parts = [[] for _ in range(world)]
+    for i, spec in enumerate(spec_leaves):
+        x, leaves[i] = leaves[i], None
+        dim = _split_dims(spec).get("model")
+        for r in range(world):
+            if dim is None:
+                parts[r].append(x)
+            else:
+                size = x.shape[dim] // world
+                parts[r].append(x.narrow(dim, r * size, size).contiguous())
+        del x
+    return [tree_unflatten(skeleton, p) for p in parts]
+
+
+def top_k_margin(x, k: int):
+    """The smallest gap between neighbours among the k + 1 largest of
+    the last axis: the top-k pick changes at a gap at the k-th place, and
+    the order of a token's picks (its slot priority for the experts'
+    capacity) at a gap above it."""
+    import torch
+
+    s = torch.sort(x, dim=-1, descending=True).values[..., :k + 1]
+    return torch.amin(s[..., :-1] - s[..., 1:], dim=-1)
+
+
+@contextlib.contextmanager
+def routes_by_rank(axis):
+    """While the block runs, every MoE routing's gate ids (groups, G, k)
+    and top-k margins (``top_k_margin`` of the router probabilities) by
+    played rank of ``axis`` (None: a call outside the played threads),
+    one forward's routings in layer order."""
+    import threading
+
+    import torch
+
+    import repro_torch.models.mlp as mlp
+
+    out, top = {}, mlp.top_k_lower_index
+
+    def recording(x, k):
+        vals, ids = top(x, k)
+        rank = (None if threading.current_thread() is threading.main_thread()
+                else axis.rank)
+        out.setdefault(rank, []).append((ids, top_k_margin(x, k)))
+        return vals, ids
+
+    mlp.top_k_lower_index = recording
+    try:
+        yield out
+    finally:
+        mlp.top_k_lower_index = top
+
+
+def route_flips(whole: list, played: list) -> dict:
+    """Tokens whose top-k experts, or their order, differ between the
+    unsplit model's routings and a played rank's (the same layers in
+    order): how many,
+    the first layer where any does, and the largest of the unsplit
+    model's top-k margins at that layer's rerouted tokens (a flip starts
+    at a near tie when that margin is small; later layers' inputs differ
+    by the flips before them)."""
+    flips, first, margin, by_layer = 0, None, 0.0, []
+    for layer, ((w_ids, w_margin), (p_ids, _)) in enumerate(zip(whole,
+                                                                played)):
+        differ = (w_ids != p_ids).any(-1)
+        flips += int(differ.sum())
+        by_layer.append(int(differ.sum()))
+        if first is None and bool(differ.any()):
+            first, margin = layer, float(w_margin[differ].max())
+    return {"tokens_rerouted": flips, "first_layer": first,
+            "max_margin_first_layer": margin, "routings": len(whole),
+            "by_layer": by_layer}
+
+
+# in f32 a rerouted token must sit at a near tie of the unsplit model's
+# router (two of its k + 1 largest probabilities this close,
+# ``top_k_margin``): the ranks' row-parallel and partial-combine sums
+# round apart by about 1e-7 of a layer's output. A flip changes the
+# token's slots, so through the experts' capacity other tokens' too, and
+# attention carries it on. In bf16 the router's input rounds apart by a
+# bf16 step, and ties up to a few 1e-2 apart flip (reported, not held)
+MOE_NEAR_TIE = 1e-5
+
+
+@contextlib.contextmanager
+def layers_recorded():
+    """While the block runs on this (the main) thread, each decoder
+    layer's input and output (``transformer._layer_forward``), in order."""
+    import threading
+
+    import repro_torch.models.transformer as tf
+
+    out, fwd = [], tf._layer_forward
+
+    def recording(p, x, *args, **kw):
+        y = fwd(p, x, *args, **kw)
+        if threading.current_thread() is threading.main_thread():
+            out.append((x, y[0]))
+        return y
+
+    tf._layer_forward = recording
+    try:
+        yield out
+    finally:
+        tf._layer_forward = fwd
+
+
+def teacher_forced_layers(model, shards, axis, recorded, routes, dtype):
+    """Each decoder layer run on the played ranks' shards from the input
+    the unsplit model gave it (``recorded``: (input, output) by layer),
+    so a difference does not carry from layer to layer: every rank's
+    output equal, and against the unsplit layer's at the positions no
+    rank rerouted: f32 within ``MODEL_AXIS_F32_REL`` of the largest, the
+    rerouted tokens at near ties (``MOE_NEAR_TIE``); bf16 on average
+    within one bf16 step of the largest (a token whose gate weights round
+    apart moves by more; the largest gap is reported). ``routes``: the
+    unsplit model's routings by layer."""
+    import torch
+
+    import repro_torch.models.transformer as tf
+
+    cfg, worst, worst_mean, rerouted, margin = model.cfg, 0.0, 0.0, 0, 0.0
+    rel = MODEL_AXIS_F32_REL if dtype == "float32" else DECODE_TOL
+    for i, (x, want) in enumerate(recorded):
+        with routes_by_rank(axis) as played:
+            outs = play_ranks(axis, lambda r: tf._layer_forward(
+                tf._layer(shards[r]["layers"][0], i), x, cfg,
+                *model.kinds[0])[0])
+        require(all(torch.equal(outs[0], o) for o in outs[1:]),
+                f"{cfg.name} layer {i}: the played ranks' outputs differ")
+        (w_ids, w_margin), = [routes[i]]
+        (p_ids, _), = played[0]
+        # one prompt: the groups' tokens in order, the last group's pads
+        # after them
+        differ = (w_ids != p_ids).any(-1).reshape(-1)
+        w_margin = w_margin.reshape(-1)[:x.shape[1]]
+        differ = differ[:x.shape[1]]
+        keep = ~differ
+        top = float(want.float().abs().max())
+        err = (outs[0].float() - want.float())[0, keep].abs()
+        gap, mean = float(err.max()), float(err.mean())
+        worst = max(worst, gap / top)
+        worst_mean = max(worst_mean, mean / top)
+        rerouted += int(differ.sum())
+        if bool(differ.any()):
+            margin = max(margin, float(w_margin[differ].max()))
+        if dtype == "float32":
+            require(gap <= rel * top,
+                    f"{cfg.name} layer {i}, f32, teacher-forced: the played "
+                    f"ranks' output is {gap} from the unsplit layer's at the "
+                    f"tokens routed alike (bound {rel * top})")
+        else:
+            require(mean <= 2.0 ** -8 * top,
+                    f"{cfg.name} layer {i}, bf16, teacher-forced: the played "
+                    f"ranks' output is {mean} from the unsplit layer's on "
+                    f"average at the tokens routed alike (bound one bf16 "
+                    f"step of the largest, {2.0 ** -8 * top})")
+    require(dtype != "float32" or margin <= MOE_NEAR_TIE,
+            f"{cfg.name}, f32, teacher-forced: a token rerouted at a margin "
+            f"of {margin} (near-tie bound {MOE_NEAR_TIE})")
+    return {"layers": len(recorded), "max_gap_over_max": worst,
+            "mean_gap_over_max": worst_mean, "tokens_rerouted": rerouted,
+            "max_margin_there": margin}
+
+
+# phase 16b: the MoE family's "model" axis, ranks played on the card:
+# (arch, layers (None: all), played ranks); the refresh's leaves (None:
+# every split one) and depth
+MOE_AXIS_CASES = (("granite-moe-1b-a400m", None, 4), ("grok-1-314b", 2, 4),
+                  ("grok-1-314b", 2, 16))
+MOE_AXIS_REFRESH = {"granite-moe-1b-a400m": (None, 2),
+                    "grok-1-314b": (("ffn/wi", "ffn/wo"), 1)}
+
+
+def rank_shards(params, specs, world: int) -> list:
+    """Each of ``world`` ranks' shards of the whole ``params`` by its
+    ``specs`` over "model" (contiguous, as a rank holds them), made leaf
+    by leaf with each whole leaf dropped once its shards are made, so
+    the peak is the tree and one leaf, not two trees. ``params`` is
+    emptied."""
+    from repro_torch.launch.sharding import _split_dims
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    leaves, spec_leaves = tree_leaves(params), tree_leaves(specs)
+    skeleton = tree_unflatten(params, [None] * len(leaves))
+    params.clear()
+    parts = [[] for _ in range(world)]
+    for i, spec in enumerate(spec_leaves):
+        x, leaves[i] = leaves[i], None
+        dim = _split_dims(spec).get("model")
+        for r in range(world):
+            if dim is None:
+                parts[r].append(x)
+            else:
+                size = x.shape[dim] // world
+                parts[r].append(x.narrow(dim, r * size, size).contiguous())
+        del x
+    return [tree_unflatten(skeleton, p) for p in parts]
+
+
+def model_axis_moe(K, card: str, dev, seed: int) -> tuple:
+    """Phase 16b: the MoE family at its published width over a "model"
+    axis of ranks played by threads on the card (``played_model_axis``):
+    granite-moe-1b-a400m at full depth over 4 ranks (expert parallel, 8 of
+    32 experts a rank; 4 q heads over 2 KV heads; its 49,155-row vocab
+    replicated, so every rank computes the whole logits), grok-1-314b cut
+    to 2 of 64 layers over 4 ranks (expert parallel, 2 of 8 experts; 12 q
+    heads over 2 KV heads) and over 16, the reference's extent (tensor
+    parallel inside each expert, 2,048 of 32,768 d_ff columns; 3 q heads
+    over 1 KV head). For each, in bf16 and in f32: the unsplit model's
+    prefill of one 4,096-token prompt (each layer's input and output
+    recorded), then each played rank's prefill on its shards
+    (``rank_shards``) with the counts set to 0 just before and read just
+    after (path ``model_axis_moe``: K9 on every rank's heads, a launch a
+    rank and layer), and every token's routing against the unsplit
+    model's (``route_flips``). In bf16, and in f32 where no token is
+    rerouted, the last position's logits against the unsplit model's
+    (f32 within ``MODEL_AXIS_F32_REL`` of the largest, bf16 within
+    ``DECODE_TOL``; where the vocab is replicated, every rank's logits
+    equal) and the greedy token over the ranks (``argmax_over`` where the
+    vocab splits) equal. A flip at a router near tie changes that token's
+    layer output, and attention carries it on, so where f32 tokens are
+    rerouted the first layer's flips must be near ties (``MOE_NEAR_TIE``)
+    and the gap and the token are reported; and every layer is held on
+    the unsplit model's own input (``teacher_forced_layers``), so no flip
+    carries.
+    Then K9 at each rank's head count alone (``model_axis_k9``, causal)
+    and the refresh played on the model shards (``model_axis_refresh``:
+    granite every split tensor at 2 layers, grok-1 its experts' ``wi``
+    and ``wo`` at one layer, at each extent). Returns (the path's
+    launches, K9's fields by shape)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import argmax_over
+    from repro_torch.launch.sharding import tree_param_specs
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    launches = {"flash_attention": 0, "flash_attention:wgmma": 0,
+                "flash_attention:ffma": 0, "diff_topk_payload": 0,
+                "block_scatter_accumulate": 0}
+    rep = {"t": MODEL_AXIS_T, "card": card, "cases": []}
+    k9 = {}
+    for arch, layers, world in MOE_AXIS_CASES:
+        entry = {"arch": arch, "ranks_played": world}
+        ext = {"data": 1, "model": world}
+        cfg = get_config(arch)
+        heads = (cfg.n_heads // world, max(1, cfg.kv_heads // world), cfg.hd)
+        key = f"{arch} over {world}: {heads[0]} q over {heads[1]} kv"
+        if key not in k9:
+            k9[key] = model_axis_k9(dev, seed, *heads, w=None)
+            torch.cuda.empty_cache()
+        for dtype in ("bfloat16", "float32"):
+            cfg = get_config(arch)
+            cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                                      dtype=dtype)
+            entry["layers"] = cfg.n_layers
+            model = build_model(cfg)
+            g = torch.Generator(device=dev).manual_seed(seed)
+            params = model.init_params(g)
+            tokens = torch.randint(0, cfg.vocab, (1, MODEL_AXIS_T),
+                                   generator=g, device=dev)
+            prefill = make_prefill(model)
+            axis = played_model_axis(world)
+            with routes_by_rank(axis) as routes, layers_recorded() as rec:
+                whole_ms, whole = host_ms(
+                    lambda: prefill(params, {"tokens": tokens}))
+            whole = whole[0, -1:].float()     # the last position's logits
+            shards = rank_shards(params, tree_param_specs(params, ext), world)
+            del params
+            torch.cuda.empty_cache()
+
+            def rank_prefill(r):
+                return prefill(shards[r], {"tokens": tokens})[0, -1:].float()
+
+            play_ranks(axis, rank_prefill)                  # warm-up
+            torch.cuda.synchronize()
+            K.reset_launches()
+            with routes_by_rank(axis) as played_routes:
+                played_ms, logits = host_ms(lambda: play_ranks(
+                    axis, rank_prefill))
+            got = counts(K)
+            flips = route_flips(routes[None], played_routes[0])
+            n = world * cfg.n_layers
+            route = "wgmma" if dtype == "bfloat16" else "ffma"
+            require(got["flash_attention"] == n
+                    and got[f"flash_attention:{route}"] == n,
+                    f"{arch} over {world} played ranks, {dtype}: K9 launched "
+                    f"{got['flash_attention']} times ({route} "
+                    f"{got[f'flash_attention:{route}']}), not {n}")
+            for key in ("flash_attention", f"flash_attention:{route}"):
+                launches[key] += got[key]
+            split_vocab = cfg.vocab % world == 0
+            if split_vocab:
+                joined = torch.cat(logits, dim=-1)
+            else:
+                require(all(torch.equal(logits[0], x) for x in logits[1:]),
+                        f"{arch}, {dtype}: the ranks' whole logits differ "
+                        f"(the vocab is replicated over 'model')")
+                joined = logits[0]
+            top = float(whole.abs().max())
+            gap = float((joined - whole).abs().max())
+            tol = (MODEL_AXIS_F32_REL if dtype == "float32"
+                   else DECODE_TOL) * top
+            want = int(torch.argmax(whole[0]))
+            toks = play_ranks(axis, lambda r: int(argmax_over(
+                logits[r], axis if split_vocab else None)[0]))
+            require(bool(torch.isfinite(joined).all())
+                    and all(t == toks[0] for t in toks),
+                    f"{arch}, {dtype}: non-finite logits or ranks that "
+                    f"disagree on the greedy token {toks}")
+            forced = teacher_forced_layers(model, shards, axis, rec,
+                                           routes[None], dtype)
+            if dtype == "bfloat16" or flips["tokens_rerouted"] == 0:
+                require(gap <= tol and toks[0] == want,
+                        f"{arch} over {world} played ranks, {dtype}: the "
+                        f"last position's logits are {gap} from the "
+                        f"unsplit model's (bound {tol}), greedy {toks[0]} "
+                        f"vs {want}; routing {flips}; teacher-forced "
+                        f"{forced}")
+            else:
+                require(flips["max_margin_first_layer"] <= MOE_NEAR_TIE,
+                        f"{arch} over {world} played ranks, f32: tokens "
+                        f"rerouted away from a near tie: {flips}; "
+                        f"teacher-forced {forced}")
+            entry[dtype] = {"whole_prefill_ms": whole_ms,
+                            "played_prefill_ms": played_ms,
+                            "k9_launches": got["flash_attention"],
+                            "route": route, "logit_gap": gap,
+                            "logit_max": top, "bound": tol,
+                            "within_bound": gap <= tol,
+                            "vocab_split": split_vocab,
+                            "greedy_token": toks[0],
+                            "greedy_equal": toks[0] == want,
+                            "routing": flips, "teacher_forced": forced}
+            del shards, whole, logits, joined, model, routes, played_routes
+            del rec
+            torch.cuda.empty_cache()
+        only, depth = MOE_AXIS_REFRESH[arch]
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth,
+                                  dtype="float32")
+        K.reset_launches()
+        refresh = model_axis_refresh(cfg, dev, seed, K, ranks=world,
+                                     only=only)
+        for key in ("diff_topk_payload", "block_scatter_accumulate"):
+            launches[key] += refresh[key]
+        entry["played_refresh"] = refresh
+        rep["cases"].append(entry)
+        torch.cuda.empty_cache()
+    rep["s"] = time.perf_counter() - t0
+    print(json.dumps({"model_axis_moe": rep}), flush=True)
     return launches, k9
 
 
@@ -6238,6 +6654,21 @@ def main() -> int:
                         f"flash_attention:{r}"]
                 entry["n_rep12_window"] = k9_rep12
         print(f"# model axis phase in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        # -- 16b. the MoE family's "model" axis: granite and grok-1 over 4
+        # played ranks (expert parallel), grok-1 over 16 (tensor parallel
+        # inside the experts)
+        t0 = time.perf_counter()
+        launches, k9_moe = model_axis_moe(K, card, dev, args.seed)
+        add_path_launches(kernels, "model_axis_moe", launches)
+        for entry in kernels:
+            if entry["name"] == "flash_attention":
+                for r in entry["launches_by_route"]:
+                    entry["launches_by_route"][r] += launches[
+                        f"flash_attention:{r}"]
+                entry["moe_axis_shapes"] = k9_moe
+        print(f"# MoE model axis phase in {time.perf_counter() - t0:.1f} s",
               flush=True)
     except SmokeFailure as exc:
         return fail(str(exc))

@@ -73,13 +73,15 @@ def generate(arch: str, smoke: bool = True, batch: int = 4,
     every sampling draw are made for the whole batch on every rank, each
     rank keeping its rows, and the tokens are gathered at the end, so
     every rank returns what one process would (an MoE routes each rank's
-    rows as its decode group). Over a "model" axis (dense GQA only; the
-    others raise ``NotImplementedError`` first) each rank draws the
-    weights layer by layer and keeps its shards (or takes them of the
-    handed ``params``), lays its cache out by ``cache_specs`` (its KV
-    heads, else its slice of the sequence, else whole), decodes through
-    the tensor-parallel layers, and picks tokens over the vocab's shards
-    (``argmax_over``; the Gumbel draws are the whole vocab's)."""
+    rows as its decode group). Over a "model" axis (the dense and MoE
+    GQA families; the others raise ``NotImplementedError`` first) each
+    rank draws the weights layer by layer and keeps its shards (or takes
+    them of the handed ``params``), lays its cache out by
+    ``cache_specs`` (its KV heads, else its slice of the sequence, else
+    whole), decodes through the tensor-parallel layers (an MoE's experts,
+    or each expert's d_ff), and picks tokens over the vocab's shards
+    (``argmax_over``; the Gumbel draws are the whole vocab's), or over
+    the whole vocab where the axis does not divide it."""
     cfg = get_config(arch, smoke=smoke)
     if params is not None:
         dtype = str(params["embed"].dtype).removeprefix("torch.")
@@ -111,9 +113,12 @@ def generate(arch: str, smoke: bool = True, batch: int = 4,
         cache = tree_map(torch.clone, model_parts(cache, specs, tp))
         cache["kv_seq"] = bool(cfg.kv_heads % tp.world
                                and (prompt_len + gen) % tp.world == 0)
-    vocab = slice(None) if tp is None else slice(
-        tp.rank * (cfg.vocab // tp.world),
-        (tp.rank + 1) * (cfg.vocab // tp.world))
+    # the vocab's shards: whole on every rank where the axis does not
+    # divide it (the rules replicate the table)
+    vtp = None if tp is None or cfg.vocab % tp.world else tp
+    vocab = slice(None) if vtp is None else slice(
+        vtp.rank * (cfg.vocab // vtp.world),
+        (vtp.rank + 1) * (cfg.vocab // vtp.world))
     if cfg.family == "encdec":
         enc = (torch.randn((batch,) + tuple(cache["enc"].shape[1:]),
                            generator=g, device=dev).to(cfg.tdtype) * 0.02
@@ -136,14 +141,14 @@ def generate(arch: str, smoke: bool = True, batch: int = 4,
         out = [prompt]
         for i in range(gen):
             if greedy:
-                nxt = argmax_over(logits[:, -1], tp)[:, None]
+                nxt = argmax_over(logits[:, -1], vtp)[:, None]
             else:
                 u = torch.rand((batch, cfg.vocab), generator=g,
                                device=dev)[mine, vocab]
                 gumbel = -torch.log(-torch.log(
                     u.clamp_min(torch.finfo(torch.float32).tiny)))
                 nxt = argmax_over(logits[:, -1].float() / temperature
-                                  + gumbel, tp)[:, None]
+                                  + gumbel, vtp)[:, None]
             out.append(nxt)
             logits, cache = serve(params, cache, nxt, prompt_len + i)
         _sync(dev)

@@ -429,12 +429,17 @@ class ModelAxis(_Axis):
       rank's shard of the summed gradient backward (a layer that needs the
       whole of a split weight: the reference's reshard where a head count
       does not divide);
-    * ``split_seq`` / ``gather_seq``, the ``carry`` hint's sequence
-      parallel pair on dim 1 (T): keep this rank's T / M rows forward and
-      all-gather the gradient backward; all-gather T forward and keep the
-      rank's rows of the gradient backward. The gradient that reaches a
+    * ``split_on`` / ``gather_on``: keep this rank's block of a dim
+      forward and all-gather the gradient backward; all-gather the dim
+      forward and keep the rank's block of the gradient backward.
+      ``split_seq`` / ``gather_seq`` are the pair on dim 1 (T), the
+      ``carry`` hint's sequence parallelism. The gradient that reaches a
       gathered carry is whole on every rank (the residual stream's is,
-      by the pairs above), so its rows need no sum.
+      by the pairs above), so its rows need no sum. The MoE's combine
+      weights take ``split_on`` their expert dim under expert
+      parallelism: each rank weighs its own experts' outputs, and the
+      backward gathers the other ranks' columns, so the router's
+      gradient is whole on every rank.
     """
 
     def __init__(self, mesh=None):
@@ -449,11 +454,17 @@ class ModelAxis(_Axis):
     def gather_weight(self, x, dim: int):
         return _GatherWeight.apply(x, self, dim)
 
+    def split_on(self, x, dim: int):
+        return _SplitOn.apply(x, self, dim)
+
+    def gather_on(self, x, dim: int):
+        return _GatherOn.apply(x, self, dim)
+
     def split_seq(self, x):
-        return _SplitSeq.apply(x, self)
+        return self.split_on(x, 1)
 
     def gather_seq(self, x):
-        return _GatherSeq.apply(x, self)
+        return self.gather_on(x, 1)
 
 
 class _CopyIn(torch.autograd.Function):
@@ -488,26 +499,26 @@ class _GatherWeight(torch.autograd.Function):
         return ctx.axis.sum_part(grad, ctx.dim), None, None
 
 
-class _SplitSeq(torch.autograd.Function):
+class _SplitOn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis = axis
-        return axis.part(x, 1).contiguous()
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.part(x, dim).contiguous()
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.axis.whole(grad, 1), None
+        return ctx.axis.whole(grad, ctx.dim), None, None
 
 
-class _GatherSeq(torch.autograd.Function):
+class _GatherOn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis = axis
-        return axis.whole(x, 1)
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.whole(x, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.axis.part(grad, 1).contiguous(), None
+        return ctx.axis.part(grad, ctx.dim).contiguous(), None, None
 
 
 class DataAxis(_Axis):
@@ -600,20 +611,40 @@ class _Gathered(torch.autograd.Function):
         return ctx.lay.sum_part(grad), None
 
 
+class _Observed(torch.autograd.Function):
+    """A shard gathered whole over "data" for the forward, as
+    ``_Gathered``; the backward stores this rank's own gradient of the
+    whole slice (one silo's, not summed over the data ranks) in
+    ``sink[key]`` and gives the shard none."""
+
+    @staticmethod
+    def forward(ctx, local, lay, sink, key):
+        ctx.sink, ctx.key = sink, key
+        return lay.whole(local)
+
+    @staticmethod
+    def backward(ctx, grad):
+        prev = ctx.sink.get(ctx.key)
+        ctx.sink[ctx.key] = grad if prev is None else prev + grad
+        return None, None, None, None
+
+
 class LocalShard:
     """A rank's "data" shard of a split weight as the model receives it on
     a mesh: indexing takes one layer of a stacked leaf (the layer axis is
-    never split), and the installed ``shard_layer_params`` gathers it."""
+    never split), and the installed ``shard_layer_params`` gathers it.
+    ``key`` names the slice for ``make_observation_gather``: the leaf's
+    index, then the layer's."""
 
-    __slots__ = ("local", "dim")
+    __slots__ = ("local", "dim", "key")
 
-    def __init__(self, local: torch.Tensor, dim: int):
-        self.local, self.dim = local, dim
+    def __init__(self, local: torch.Tensor, dim: int, key: tuple = ()):
+        self.local, self.dim, self.key = local, dim, key
 
     def __getitem__(self, i):
         if self.dim == 0:
             raise IndexError("a split weight's split dim cannot be indexed")
-        return LocalShard(self.local[i], self.dim - 1)
+        return LocalShard(self.local[i], self.dim - 1, self.key + (int(i),))
 
     @property
     def requires_grad(self) -> bool:
@@ -635,6 +666,22 @@ def make_layer_param_constrainer(mesh):
     def constrain(tree):
         return tree_map(
             lambda x: (_Gathered.apply(x.local, LeafLayout(x.dim, axis))
+                       if isinstance(x, LocalShard) else x), tree)
+
+    return constrain
+
+
+def make_observation_gather(axis: DataAxis, sink: dict):
+    """A ``shard_layer_params`` for one silo's curvature observation on a
+    mesh: every ``LocalShard`` gathered whole over "data" a layer at a
+    time, as ``make_layer_param_constrainer``'s, but its backward keeps
+    this silo's gradient of each gathered slice, whole over "data", in
+    ``sink`` under the shard's ``key`` (the refresh reads them leaf by
+    leaf), where the step's own reduces it over the data ranks."""
+    def constrain(tree):
+        return tree_map(
+            lambda x: (_Observed.apply(x.local, LeafLayout(x.dim, axis), sink,
+                                       x.key)
                        if isinstance(x, LocalShard) else x), tree)
 
     return constrain
@@ -669,16 +716,21 @@ def make_model_axis(mesh) -> Optional[ModelAxis]:
 
 
 # the families and the mixer the model axis lays out; each other raises
-TP_FAMILIES = ("dense",)
+TP_FAMILIES = ("dense", "moe")
 
 
 def check_model_axis(cfg, ext: dict, hvp: bool = False) -> None:
     """Raise ``NotImplementedError`` for what a "model" axis wider than
     one rank cannot lay out, before any work: a family other than the
-    dense GQA one (MoE, MLA, hybrid, ssm, encdec, vlm), Hutchinson
+    dense and MoE GQA ones (MLA, hybrid, ssm, encdec, vlm), Hutchinson
     curvature (its double backward through the collectives), or a width
-    the axis does not divide (the rules would replicate it, and no layer
-    computes a replicated weight's product over the ranks)."""
+    the axis does not divide where the rules would replicate a weight no
+    layer computes whole (the attention's q and kv columns; the dense
+    d_ff; an MoE's d_ff where its experts do not split, the reference's
+    tensor parallelism inside each expert). A vocab the axis does not
+    divide is the rules' own case: the embedding (and the lm head) are
+    replicated over "model", and every rank computes the whole lookup,
+    logits, loss and argmax, whose gradient is then the same on each."""
     m = int(ext.get("model", 1))
     if m == 1:
         return
@@ -686,14 +738,17 @@ def check_model_axis(cfg, ext: dict, hvp: bool = False) -> None:
     if cfg.family not in TP_FAMILIES or cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"{kind} ({cfg.name}) on a 'model' axis of {m} ranks: only the "
-            f"dense GQA family is laid out over 'model'")
+            f"dense and MoE GQA families are laid out over 'model'")
     if hvp:
         raise NotImplementedError(
-            f"Hutchinson curvature (hvp) on a 'model' axis of {m} ranks: "
-            f"the double backward through the collectives is not laid out")
-    for what, width in (("heads x head_dim", cfg.n_heads * cfg.hd),
-                        ("kv_heads x head_dim", cfg.kv_heads * cfg.hd),
-                        ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)):
+            f"Hutchinson curvature (hvp) of {kind} ({cfg.name}) on a 'model' "
+            f"axis of {m} ranks: the double backward through the "
+            f"collectives is not laid out")
+    widths = [("heads x head_dim", cfg.n_heads * cfg.hd),
+              ("kv_heads x head_dim", cfg.kv_heads * cfg.hd)]
+    if cfg.moe is None or cfg.moe.num_experts % m:
+        widths.append(("d_ff", cfg.d_ff))
+    for what, width in widths:
         if width % m:
             raise NotImplementedError(
                 f"{cfg.name}: {what} = {width} does not split over a "

@@ -17,12 +17,12 @@ import numpy as np
 import torch
 
 from ..models import Model
-from ..models.common import model_axis
+from ..models.common import installed_hooks, model_axis, set_activation_sharder
 from ..second_order import adamw, apply_updates, fednl_precond, sgd
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from .mesh import extents
 from .sharding import (DataAxis, LocalShard, check_model_axis, like_tree,
-                       local_tree)
+                       local_tree, make_observation_gather)
 
 
 def make_optimizer(name: str, lr: float, moment_dtype=None, **kw):
@@ -77,6 +77,45 @@ def value_and_grad(model: Model, params, batch, create_graph: bool = False,
     return loss, leaves, grads
 
 
+def silo_gradients(model: Model, params, batch, lays) -> list:
+    """One silo's gradient on a mesh, taken through the per-layer gather
+    as the step's own gradient is (a "data"-split leaf reaches the model
+    as a ``LocalShard``, gathered a layer at a time inside the remat),
+    but with ``sharding.make_observation_gather`` installed in place of
+    the step's hook: its backward keeps this silo's gradient of each
+    gathered slice whole over "data" instead of reducing it over the data
+    ranks. ``lays``: each leaf's ``LeafLayout``. Returns one entry a leaf
+    in ``tree_leaves`` order: the gradient, whole over "data" and this
+    rank's over "model", or for a stacked leaf split over "data" its
+    layers' gradients in a list (no stack is made)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    sink = {}
+    inputs = [x if lay.dim is None else LocalShard(x, lay.dim, (j,))
+              for j, (x, lay) in enumerate(zip(leaves, lays))]
+    hooks = installed_hooks()
+    set_activation_sharder(hooks[0], make_observation_gather(lays[0].axis,
+                                                             sink), hooks[2])
+    try:
+        loss = model.loss_fn(tree_unflatten(params, inputs), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        set_activation_sharder(*hooks)
+    del loss
+    out = []
+    for j, (x, lay, g) in enumerate(zip(leaves, lays, grads)):
+        if lay.dim is None:
+            out.append(torch.zeros_like(x) if g is None else g)
+        elif (j,) in sink:
+            out.append(sink.pop((j,)))
+        else:
+            shape = list(x.shape[1:])
+            shape[lay.dim - 1] *= lay.axis.world
+            layers = [sink.pop((j, i), None) for i in range(x.shape[0])]
+            out.append([x.new_zeros(shape) if gi is None else gi
+                        for gi in layers])
+    return out
+
+
 def grad_and_hvp(model: Model, params, batch, z):
     """The gradient and the Hessian-vector product Hz at ``params``, as
     trees like ``params``: Hz by double backward (``autograd.grad`` of the
@@ -129,15 +168,23 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
     split over "model" has this rank's shard of the gradient, and every
     other leaf the same whole gradient on each of them, so nothing is
     summed over "model". Each data index plays ``n_silos / W`` silos
-    (one in the driver): their observations are taken on its rows with
-    the weights gathered whole over "data", before any reduction across
-    ranks, and the refresh gathers each H whole over "data" for K1 (on
-    the rank's model shard where it lies on tile bounds) and the silos'
-    payloads in silo order for K4, each rank keeping its shard of H. On
-    one rank this is the step without a mesh, bit for bit, and on a
-    model axis of one rank the data-axis step. A family or ``hvp``
-    the model axis does not lay out raises ``NotImplementedError`` here,
-    before any work (``sharding.check_model_axis``).
+    (one in the driver): each silo's gradient is taken on its rows
+    through the same per-layer gather, whose backward keeps it whole
+    over "data" (``silo_gradients``), before any reduction across ranks,
+    and the refresh takes it leaf by leaf (``refresh_grads``): g^2 in
+    f32, and for a stacked leaf whose layers lie on 128-row tile bounds
+    a layer slice at a time, H's slice gathered whole over "data" for K1
+    (on the rank's model shard where it lies on tile bounds) and the
+    silos' payloads gathered in silo order for K4, each rank keeping its
+    shard of H. Neither the weights nor the observations are held whole
+    over "data" as a tree; H and l equal the whole-tree route's bit for
+    bit. Hutchinson curvature (``hvp``) keeps that route: its probes and
+    double backward run on the weights gathered whole over "data", the
+    observations stacked, then ``optimizer.refresh``. On one rank this
+    is the step without a mesh, bit for bit, and on a model axis of one
+    rank the data-axis step. A family or ``hvp`` the model axis does not
+    lay out raises ``NotImplementedError`` here, before any work
+    (``sharding.check_model_axis``).
 
     ``donate``: the step may overwrite the tensors of ``params`` and
     ``opt_state`` (the caller drops them, as JAX's ``donate_argnums``):
@@ -155,15 +202,25 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
         raise ValueError(f"n_silos={n_silos} must divide over {world} ranks")
     local_silos = n_silos // world
     fednl_kw = {"donate": True} if donate else {}
+    by_grads = getattr(optimizer, "refresh_grads", None) is not None
 
     def split(batch, parts: int, i: int):
         size = tree_leaves(batch)[0].shape[0] // parts
         return tree_map(lambda x: x[i * size:(i + 1) * size], batch)
 
     def observe_and_refresh(state, params, batch, lays):
-        """One refresh: an observation per silo of this rank's rows, on
-        the weights whole over "data", stacked on a leading silo axis,
-        then ``optimizer.refresh`` (over the ranks with ``lays``)."""
+        """One refresh: on a mesh with Fisher curvature, each silo's
+        gradient through the per-layer gather (``silo_gradients``), then
+        ``optimizer.refresh_grads`` leaf by leaf. Else an observation per
+        silo of this rank's rows, on the weights whole over "data",
+        stacked on a leading silo axis, then ``optimizer.refresh`` (over
+        the ranks with ``lays``)."""
+        if lays is not None and not hvp and by_grads:
+            lay_leaves = tree_leaves(lays)
+            grads = [silo_gradients(model, params,
+                                    split(batch, local_silos, i), lay_leaves)
+                     for i in range(local_silos)]
+            return optimizer.refresh_grads(state, grads, lays, **fednl_kw)
         whole = (params if lays is None else
                  tree_map(lambda p, lay: lay.whole(p), params, lays))
         per_silo = []

@@ -52,6 +52,17 @@ def model_axis():
     return _MODEL_AXIS
 
 
+def vocab_axis(vocab: int):
+    """The installed ``ModelAxis`` where a vocab of ``vocab`` rows splits
+    over it (the embedding lookup, logits, loss and argmax are then
+    vocab-parallel); None without one, or where the rules replicate the
+    table because the axis does not divide it (granite's 49,155): every
+    rank then computes the whole product."""
+    if _MODEL_AXIS is None or vocab % _MODEL_AXIS.world:
+        return None
+    return _MODEL_AXIS
+
+
 def gather_carry(x: torch.Tensor, t: int) -> torch.Tensor:
     """A layer's input whole over T (``t`` rows) where the ``carry`` hint
     left this rank its T / M rows; x itself where it is whole."""

@@ -9,7 +9,9 @@ as sums of (k * G, E, C) one-hot products; the port writes them by
 index, one cell per kept (token, slot), which is the same tensor bit for
 bit (a token's top-k experts are distinct, so a (g, e) cell takes at
 most one slot). The dispatch and combine products stay einsums, as the
-reference computes them. A Switch load-balance loss rides along.
+reference computes them. A Switch load-balance loss rides along. Over a
+"model" axis the MoE is expert parallel where the experts divide it,
+else tensor parallel inside each expert (``moe_forward``).
 """
 
 from __future__ import annotations
@@ -187,16 +189,49 @@ def combine_tokens(combine: torch.Tensor, xout: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ngec,necd->ngd", combine.to(xout.dtype), xout)
 
 
+def expert_parallel(cfg: ModelConfig, tp) -> bool:
+    """Whether the experts split over the "model" axis ``tp`` (E divides
+    its extent: each rank holds E / M whole experts), as the reference's
+    rule; else each expert's d_ff splits (tensor parallel inside it)."""
+    return cfg.moe.num_experts % tp.world == 0
+
+
 def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, T, d) -> (y, aux loss). Tokens route in groups of
     ``group_size`` (the last one zero-padded; pads take part in the
     routing and the loss, as in the reference); the router's logits are
-    f32, dispatch and combine are cast to the activations' type."""
+    f32, dispatch and combine are cast to the activations' type.
+
+    Over a "model" axis every rank holds all of the layer's tokens and
+    routes them with the replicated router, so the routing is the same
+    on each. Expert parallel (``expert_parallel``): a rank dispatches
+    into its own E / M experts' slots (``copy_in`` on the groups, whose
+    gradient through the experts is each rank's part), runs them, and
+    weighs their outputs with its columns of ``combine`` (``split_on``
+    the expert dim, which gathers the other ranks' columns of the
+    gradient, so the router's is whole); the ranks' partial combines meet
+    in one ``reduce_out``. Else tensor parallel inside each expert: the
+    dispatch and combine are whole, ``wi``/``wg`` column- and ``wo``
+    row-parallel between ``copy_in`` and ``reduce_out``, as the dense
+    MLP. No token crosses the ranks (an all-to-all pays only where the
+    tokens are split over "model")."""
+    tp = model_axis()
     groups, n_tok = group_tokens(x, cfg)
     dispatch, combine, aux = route_groups(p, groups, cfg)
+    if tp is not None and expert_parallel(cfg, tp):
+        dispatch = tp.part(dispatch, 2)
+        combine = tp.split_on(combine, 2)
+        groups = tp.copy_in(groups)
     xin = dispatch_tokens(dispatch, groups)
     del dispatch, groups
-    xout = run_experts(p, xin, cfg)
+    if tp is not None and not expert_parallel(cfg, tp):
+        xin = tp.copy_in(xin)
+        xout = tp.reduce_out(run_experts(p, xin, cfg))
+    else:
+        xout = run_experts(p, xin, cfg)
     del xin
-    y = combine_tokens(combine, xout).reshape(-1, x.shape[-1])[:n_tok]
+    y = combine_tokens(combine, xout)
+    if tp is not None and expert_parallel(cfg, tp):
+        y = tp.reduce_out(y)
+    y = y.reshape(-1, x.shape[-1])[:n_tok]
     return y.reshape(x.shape), torch.mean(aux)

@@ -29,9 +29,12 @@ outside the stacks through it once a forward: on a mesh, the train
 driver's hook gathers the split weights there, a layer at a time. Over
 a "model" axis (``common.model_axis()``), the embedding lookup and the
 logits are vocab-parallel (each rank its V / M rows; the loss is
-``vocab_parallel_cross_entropy``), the layers split heads and d_ff, and
-the residual between segments keeps this rank's T / M rows (the
-``carry`` hint), gathered again inside the next layer.
+``vocab_parallel_cross_entropy``) where the axis divides the vocab, and
+whole on every rank where the rules replicate the table
+(``common.vocab_axis``); the layers split heads and d_ff (an MoE its
+experts, or each expert's d_ff), and the residual between segments
+keeps this rank's T / M rows (the ``carry`` hint), gathered again
+inside the next layer.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from . import mamba as mam
 from . import mlp as ff
 from . import xlstm as xl
 from .common import (apply_norm, cross_entropy, embed_init, gather_carry,
-                     model_axis, norm_params, shard_act, shard_layer_params,
+                     norm_params, shard_act, shard_layer_params, vocab_axis,
                      vocab_parallel_cross_entropy)
 from .config import ModelConfig, require_ported
 
@@ -197,11 +200,13 @@ def _slice_forward(p: Params, x: torch.Tensor, t: int, *args):
     return _layer_forward(shard_layer_params(p), gather_carry(x, t), *args)
 
 
-def _embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``; over a "model" axis ``table`` is this rank's
-    block of V / M rows: the rows it owns, zeros for the others, summed
-    over the ranks (one nonzero term a row, so exact)."""
-    tp = model_axis()
+def _embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """``table[tokens]``; over a "model" axis that splits the vocab
+    (``vocab_axis``) ``table`` is this rank's block of V / M rows: the
+    rows it owns, zeros for the others, summed over the ranks (one
+    nonzero term a row, so exact)."""
+    tp = vocab_axis(vocab)
     if tp is None:
         return table[tokens]
     v = table.shape[0]
@@ -346,7 +351,7 @@ class Model:
 
     def _embed_inputs(self, params: Params, batch: dict) -> torch.Tensor:
         cfg = self.cfg
-        x = _embed_lookup(params["embed"], batch["tokens"])
+        x = _embed_lookup(params["embed"], batch["tokens"], cfg.vocab)
         if cfg.family == "vlm":
             x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         if self.cross:
@@ -367,7 +372,7 @@ class Model:
         cfg = self.cfg
         x = apply_norm(x, params["norm_f"], cfg.norm)
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-        tp = model_axis()
+        tp = vocab_axis(cfg.vocab)
         if tp is not None:
             x = tp.copy_in(x)
         return shard_act(torch.einsum("btd,vd->btv", x, head), "logits")
@@ -394,7 +399,7 @@ class Model:
         logits, aux = self.forward(params, batch)
         if cfg.family == "vlm":
             logits = logits[:, cfg.vision_tokens:]
-        tp = model_axis()
+        tp = vocab_axis(cfg.vocab)
         if tp is None:
             loss = cross_entropy(logits, batch["targets"])
         else:
@@ -436,7 +441,7 @@ class Model:
         into its slot of the stacked cache. ``kv_seq`` reaches each
         layer's cache."""
         cfg = self.cfg
-        x = _embed_lookup(params["embed"], token)
+        x = _embed_lookup(params["embed"], token, cfg.vocab)
         memory = cache["enc"] if self.cross else None
         mark = {"kv_seq": True} if cache.get("kv_seq", False) else {}
         if self.cross:

@@ -37,9 +37,15 @@ keeps its own shard of the increment. A tensor split over "model" runs
 K1 and K4 on this rank's model shard where the split falls on tile
 bounds (``_tile_grid``), its per-tile ridge terms gathered into the
 whole tensor's tile order; elsewhere the tensor is gathered whole over
-"model" first. ``donate`` lets ``refresh`` and ``precondition`` write H
-and the momentum in place (the caller drops the old state), with the
-same arithmetic.
+"model" first. The train step on a mesh hands ``refresh_grads`` its
+silos' gradients instead of their observations: leaf by leaf, each is
+squared in f32, learned and dropped, and a stacked leaf split over
+"data" whose layers lie on tile bounds goes a layer slice at a time (H's
+slice gathered over "data" for K1, the slice's payloads over the ranks
+for K4), so neither a tree of observations nor a leaf's whole H is held.
+``donate`` lets ``refresh`` and ``precondition`` write H and the
+momentum in place (the caller drops the old state), with the same
+arithmetic.
 """
 
 from __future__ import annotations
@@ -105,6 +111,33 @@ def _tile_grid(shape, dim: int, block: int):
     if mid % block:
         return None
     return (pre, mid // block, cols_t), 1
+
+
+def _model_tiles(model, grid: tuple, axis: int):
+    """The ``tiles`` hook of ``learn`` for a shard on ``_tile_grid``'s
+    ``(grid, axis)``: the (silos, tiles) terms of every model rank's
+    shard gathered into the whole tensor's tile order."""
+    def tiles(sq):
+        n = sq.shape[0]
+        return model.whole(sq.reshape((n,) + grid), axis + 1).reshape(n, -1)
+
+    return tiles
+
+
+def _ridge(tile_sq: torch.Tensor, numel: int, stacked: bool = True):
+    """The Option-2 ridge from the (silos, tiles) terms of ||D_i - H||^2:
+    each silo's sum in one reduction over the stack, then the mean over
+    the silos of sqrt(sum / numel) (one silo's own without a stack)."""
+    sq = torch.sum(tile_sq, dim=1)
+    if stacked:
+        return torch.mean(torch.sqrt(sq / numel + 1e-30))
+    return torch.sqrt(sq[0] / numel + 1e-30)
+
+
+def _whole_grad(g) -> torch.Tensor:
+    """A silo's gradient of one leaf as ``launch.steps.silo_gradients``
+    gives it (a tensor, or its layers' list), whole."""
+    return torch.stack(g) if isinstance(g, list) else g
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,12 +216,7 @@ class FedNLPrecondOptimizer:
             vals, idx, tile_sq = gather(vals, idx, tile_sq)
         if tiles is not None:
             tile_sq = tiles(tile_sq)
-        sq = torch.sum(tile_sq, dim=1)
-        numel = h.numel() if numel is None else numel
-        if stacked:
-            l = torch.mean(torch.sqrt(sq / numel + 1e-30))
-        else:
-            l = torch.sqrt(sq[0] / numel + 1e-30)
+        l = _ridge(tile_sq, h.numel() if numel is None else numel, stacked)
         s = self._payload_mean(vals, idx, shape2).reshape(h.shape)
         return s, l
 
@@ -210,14 +238,8 @@ class FedNLPrecondOptimizer:
             return lay.part(s), l
         tiled = _tile_grid(h.shape, mdim, self.block)
         if tiled is not None:
-            grid, axis = tiled
-
-            def tiles(sq):
-                n = sq.shape[0]
-                return model.whole(sq.reshape((n,) + grid),
-                                   axis + 1).reshape(n, -1)
-
-            s, l = self.learn(h, d_obs, gather=lay.axis.gather, tiles=tiles,
+            s, l = self.learn(h, d_obs, gather=lay.axis.gather,
+                              tiles=_model_tiles(model, *tiled),
                               numel=h.numel() * model.world)
             return lay.part(s), l
         lead = d_obs.dim() - h.dim()
@@ -225,6 +247,99 @@ class FedNLPrecondOptimizer:
                           model.whole(d_obs, mdim + lead),
                           gather=lay.axis.gather)
         return lay.part(model.part(s, mdim)), l
+
+    def _by_layer(self, h, lay):
+        """The layer-by-layer route's whole-over-"data" shape of a rank's
+        shard ``h`` and its model-tile hook (None where not split over
+        "model"), or None where the route does not apply: a leaf not
+        split over "data" (its H is not gathered, and K1 takes the rank's
+        tensor in one launch), fewer than 3 dims, a leading dim that is
+        split, a layer's rows off the 128-row tile bounds (its tiles
+        would not be the whole tensor's in order), or a "model" split off
+        them (the tensor is gathered over "model")."""
+        if (lay is None or lay.dim is None or lay.axis.world == 1
+                or h.dim() < 3 or 0 in (lay.dim, lay.mdim)):
+            return None
+        shape = list(h.shape)
+        shape[lay.dim] *= lay.axis.world
+        rows = 1
+        for x in shape[1:-1]:
+            rows *= x
+        if rows % self.block:
+            return None
+        if lay.mdim is None or lay.model.world == 1:
+            return shape, None
+        tiled = _tile_grid(shape, lay.mdim, self.block)
+        return None if tiled is None else (shape, _model_tiles(lay.model,
+                                                               *tiled))
+
+    def _learn_grads(self, h, grads: list, lay, donate: bool = False):
+        """H after the refresh and l of one leaf from this rank's silos'
+        gradients of it (``refresh_grads``). Where ``_by_layer`` holds, a
+        layer slice at a time: H's slice gathered over "data", the silos'
+        g^2 of it, K1, the payloads gathered over the data ranks, K4, and
+        this rank's shard of the slice's increment added, the per-tile
+        terms kept in the tensor's tile order for the ridge. Elsewhere
+        the leaf's observations whole, through ``_learn_laid_out``."""
+        route = self._by_layer(h, lay)
+        if route is None:
+            obs = torch.stack([self.observe(_whole_grad(g)) for g in grads])
+            s, l = self._learn_laid_out(h, obs, lay)
+            del obs
+            return (h.add_(s, alpha=self.alpha) if donate
+                    else torch.add(h, s, alpha=self.alpha)), l
+        shape, tiles = route
+        sub = type(lay)(lay.dim - 1, lay.axis,
+                        None if lay.mdim is None else lay.mdim - 1)
+        out = h if donate else torch.empty_like(h)
+        sqs = []
+        for i in range(h.shape[0]):
+            hi = sub.whole(h[i])
+            shape2 = _shape2d(hi.shape)
+            obs = torch.stack([self.observe(g[i]) for g in grads])
+            vals, idx, sq = diff_topk_payload(
+                obs.reshape((obs.shape[0],) + shape2), hi.reshape(shape2),
+                self._k(), self.block, tile_sums=True)
+            del obs, hi
+            vals, idx, sq = lay.axis.gather(vals, idx, sq)
+            s = sub.part(self._payload_mean(vals, idx, shape2).reshape(
+                shape[1:]))
+            del vals, idx
+            torch.add(h[i], s, alpha=self.alpha, out=out[i])
+            sqs.append(sq)
+            del s
+        tile_sq = torch.cat(sqs, dim=1)
+        numel = 1
+        for x in shape:
+            numel *= x
+        if tiles is not None:
+            tile_sq, numel = tiles(tile_sq), numel * lay.model.world
+        return out, _ridge(tile_sq, numel)
+
+    def refresh_grads(self, state: FedNLPrecondState, grads: list, layout,
+                      donate: bool = False) -> FedNLPrecondState:
+        """``refresh`` on a mesh from this rank's silos' gradients, not
+        their observations (Fisher curvature): ``grads`` holds a list a
+        local silo, one entry a leaf in ``tree_leaves`` order as
+        ``launch.steps.silo_gradients`` gives it (whole over "data", this
+        rank's over "model"; a stacked leaf split over "data" as its
+        layers' list). Leaf by leaf, each silo's gradient is squared in
+        f32, learned and dropped (``_learn_grads``), so no tree of
+        observations is held. H and l equal ``refresh``'s of the same
+        gradients' observations bit for bit."""
+        hs = tree_leaves(state.h)
+        lays = tree_leaves(layout)
+        h_new, ls = [], []
+        for j, (h, lay) in enumerate(zip(hs, lays)):
+            mine = [silo[j] for silo in grads]
+            for silo in grads:
+                silo[j] = None
+            hj, l = self._learn_grads(h, mine, lay, donate)
+            del mine
+            h_new.append(hj)
+            ls.append(l)
+        return state._replace(h=tree_unflatten(state.h, h_new),
+                              l=tree_unflatten(state.h, ls))
 
     def _precond_tensor(self, g, h, m, p, l, donate: bool = False):
         """The per-step preconditioned update from stored (h, l); with
@@ -320,4 +435,5 @@ def fednl_precond(lr: float = 1e-3, **kw) -> Optimizer:
     opt = FedNLPrecondOptimizer(lr=lr, **kw)
     return Optimizer(opt.init, opt.update, observe=opt.observe,
                      refresh=opt.refresh, precondition=opt.precondition,
-                     uplink_bits=opt.uplink_bits)
+                     uplink_bits=opt.uplink_bits,
+                     refresh_grads=opt.refresh_grads)

@@ -38,8 +38,10 @@ class Optimizer:
     -> state`` (learn curvature, the expensive phase; ``layout`` when the
     state is laid out over the ranks of a mesh) and
     ``precondition(grads, state, params) -> (updates, state)`` (the cheap
-    step from stored curvature), and ``uplink_bits(params, n_silos=1)
-    -> int``, the host-side wire cost of one curvature refresh."""
+    step from stored curvature), ``uplink_bits(params, n_silos=1)
+    -> int``, the host-side wire cost of one curvature refresh, and
+    ``refresh_grads(state, grads, layout)``, the refresh on a mesh from
+    the silos' gradients leaf by leaf (fednl's Fisher curvature)."""
 
     init: Callable
     update: Callable
@@ -47,6 +49,7 @@ class Optimizer:
     refresh: Optional[Callable] = None
     precondition: Optional[Callable] = None
     uplink_bits: Optional[Callable] = None
+    refresh_grads: Optional[Callable] = None
 
 
 def apply_updates(params, updates):

@@ -291,6 +291,35 @@ def _model_rank_equal(x, model_axis) -> bool:
     return all(torch.equal(parts[0], p) for p in parts[1:])
 
 
+@contextlib.contextmanager
+def routes_recorded(n_layers: int):
+    """A list that collects, while the block runs, the gate ids
+    (groups, G, top_k) and the top-k margins (the smallest gap between
+    neighbours among the k + 1 largest router probabilities, in f32: the
+    pick changes at the k-th place, the order of a token's picks, its
+    slot priority for the experts' capacity, above it) of the first
+    ``n_layers`` MoE routings: one forward's, before remat recomputes
+    them."""
+    import repro_torch.models.mlp as mlp
+
+    out, top = [], mlp.top_k_lower_index
+
+    def recording(x, k):
+        vals, ids = top(x, k)
+        if len(out) < n_layers and x.shape[-1] > k:
+            s = torch.sort(x.detach(), dim=-1, descending=True).values
+            s = s[..., :k + 1]
+            out.append({"ids": ids.detach().clone(),
+                        "margin": torch.amin(s[..., :-1] - s[..., 1:], -1)})
+        return vals, ids
+
+    mlp.top_k_lower_index = recording
+    try:
+        yield out
+    finally:
+        mlp.top_k_lower_index = top
+
+
 def model_axis_train(mesh, shape, runs):
     """On a ``shape`` = (data, model) mesh of this group's ranks, for each
     (arch, overrides, replace, argv) in ``runs``: ``driver_run``'s
@@ -307,12 +336,14 @@ def model_axis_train(mesh, shape, runs):
     make_mesh, vg = train_mod.make_host_mesh, steps_mod.value_and_grad
     out = []
     for arch, overrides, replace, argv in runs:
-        seen = {}
+        seen = {"routes": []}
 
         def recording_vg(model, params, batch, create_graph=False,
                          split_dims=None):
-            loss, leaves, grads = vg(model, params, batch, create_graph,
-                                     split_dims)
+            with routes_recorded(model.cfg.n_layers) as routes:
+                loss, leaves, grads = vg(model, params, batch, create_graph,
+                                         split_dims)
+            seen["routes"].append(routes)
             if "grads" not in seen:
                 seen["grads"] = [g.detach() for g in grads]
             return loss, leaves, grads
@@ -325,6 +356,12 @@ def model_axis_train(mesh, shape, runs):
         finally:
             train_mod.make_host_mesh = make_mesh
             steps_mod.value_and_grad = vg
+        # every data rank's groups, in one process's order (each data rank
+        # routes its own rows; the model ranks route alike)
+        data = DataAxis(mesh)
+        rec["routes"] = [[dict(zip(("ids", "margin"), data.gather(
+            r["ids"].contiguous(), r["margin"].contiguous()))) for r in call]
+            for call in seen["routes"]]
         axis = DataAxis(mesh)
         first = rec.pop("first_params")
         lays = [axis.layout(x) for x in tree_leaves(first)]
@@ -530,4 +567,129 @@ def model_axis_all(mesh, shape, train_runs=(), refresh_cases=(),
         for kind in ("btd", "btf", "bthd", "logits", "carry"))
     if tool is not None:
         out["tool"] = model_axis_tool(*tool)
+    return out
+
+
+# -- the MoE family on the "model" axis, and the refresh's observation route ---------
+
+
+def model_axis_logits(mesh, shape, cases, batch, t):
+    """On a ``shape`` mesh, each (arch, overrides, replace)'s reduced
+    model drawn with ``local_keep`` over "model" (its shards of the whole
+    draw from seed 0) and run forward on a (batch, t) prompt from seed 1
+    with the model axis installed: the logits whole (gathered over the
+    vocab's shards where the axis splits it) and the loss."""
+    from repro_torch.launch.mesh import extents
+    from repro_torch.launch.sharding import local_keep, make_model_axis
+    from repro_torch.models import build_model
+    from repro_torch.models.common import set_activation_sharder
+
+    mesh = _mesh2(*shape)
+    tp = make_model_axis(mesh)
+    out = []
+    for arch, overrides, replace in cases:
+        cfg = _config(arch, overrides, replace)
+        model = build_model(cfg)
+        params = model.init_params(torch.Generator().manual_seed(0),
+                                   keep=local_keep(mesh, extents(mesh),
+                                                   axes=("model",)))
+        tokens = torch.randint(0, cfg.vocab, (batch, t),
+                               generator=torch.Generator().manual_seed(1))
+        set_activation_sharder(None, None, tp)
+        try:
+            with torch.no_grad():
+                logits, _ = model.forward(params, {"tokens": tokens})
+                loss = model.loss_fn(params, {"tokens": tokens, "targets":
+                                              torch.roll(tokens, -1, 1)})
+        finally:
+            set_activation_sharder(None, None, None)
+        if cfg.vocab % tp.world == 0:
+            logits = tp.whole(logits.contiguous(), logits.dim() - 1)
+        out.append({"logits": logits, "loss": float(loss)})
+    return out
+
+
+def observation_routes(mesh, shapes, cases, k):
+    """For each mesh ``shapes`` entry (made on this group's ranks) and each
+    (arch, overrides, replace) in ``cases``: one fednl step with a
+    refresh through ``make_train_step(mesh=)`` from the same params and
+    batch, once through the silos' gradients taken by the per-layer
+    gather (``refresh_grads``) and once through the whole-tree route
+    (the optimizer without ``refresh_grads``): H and l of each, gathered
+    whole, and the number of leaves that take the layer-by-layer
+    route."""
+    import dataclasses
+
+    from repro_torch.configs import model_param_shapes
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import extents
+    from repro_torch.launch.sharding import (DataAxis, from_local_tree,
+                                             local_keep, local_tree,
+                                             make_activation_constraint,
+                                             make_layer_param_constrainer,
+                                             make_model_axis,
+                                             opt_state_shardings,
+                                             tree_param_specs, whole_tree)
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.common import set_activation_sharder
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out = []
+    for shape in shapes:
+        m = _mesh2(*shape)
+        ext, axis = extents(m), DataAxis(m)
+        for arch, overrides, replace in cases:
+            cfg = _config(arch, overrides, replace)
+            model = build_model(cfg)
+            opt = make_optimizer("fednl", 2e-3, k_per_block=k)
+            meta = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                                  device="meta"),
+                            model_param_shapes(cfg))
+            rec = {"shape": shape, "arch": arch}
+            for name, o in (("grads", opt),
+                            ("whole", dataclasses.replace(
+                                opt, refresh_grads=None))):
+                params = model.init_params(torch.Generator().manual_seed(0),
+                                           keep=local_keep(m, ext))
+                state, state_meta = o.init(params), o.init(meta)
+                state = from_local_tree(state, m, opt_state_shardings(
+                    state_meta, meta, ext), state_meta)
+                params = from_local_tree(params, m,
+                                         tree_param_specs(meta, ext), meta)
+                step = make_train_step(model, o, refresh_every=1,
+                                       n_silos=axis.world, mesh=m)
+                rows = 8 // axis.world
+                batch = tree_map(
+                    lambda x: x[axis.rank * rows:(axis.rank + 1) * rows],
+                    TokenPipeline(vocab_size=cfg.vocab, seq_len=32,
+                                  global_batch=8, seed=0).batch(0, "cpu"))
+                set_activation_sharder(make_activation_constraint(m),
+                                       make_layer_param_constrainer(m),
+                                       make_model_axis(m))
+                try:
+                    _, new, _ = step(params, state, batch)
+                finally:
+                    set_activation_sharder(None, None, None)
+                rec[name] = {"h": whole_tree(new.h), "l": whole_tree(new.l)}
+            learner = opt.refresh_grads.__self__
+            rec["layered"] = sum(
+                learner._by_layer(h, axis.layout(p)) is not None
+                for h, p in zip(tree_leaves(local_tree(new.h)),
+                                tree_leaves(params)))
+            out.append(rec)
+    return out
+
+
+def moe_axis_all(mesh, shape, logits, observe, rest: dict):
+    """``model_axis_all(mesh, shape, **rest)`` with, first,
+    ``model_axis_logits`` of ``logits`` (cases, batch, t) and
+    ``observation_routes`` of ``observe`` (shapes, cases, k), each
+    skipped where None."""
+    out = {}
+    if logits is not None:
+        out["logits"] = model_axis_logits(mesh, shape, *logits)
+    if observe is not None:
+        out["observe"] = observation_routes(mesh, *observe)
+    out.update(model_axis_all(mesh, shape, **rest))
     return out

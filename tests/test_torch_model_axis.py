@@ -218,14 +218,17 @@ _REFERENCE_SPECS = textwrap.dedent("""
 """)
 
 
-def _start_reference():
-    """The reference's specs script in a subprocess, started."""
+def _start_reference(configs=None):
+    """The reference's specs script in a subprocess, started, for
+    ``configs`` ((name, arch, overrides, replace) each; ``CONFIGS`` by
+    default)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
     env["JAX_PLATFORMS"] = "cpu"
     env.pop("XLA_FLAGS", None)
     return subprocess.Popen([sys.executable, "-c", _REFERENCE_SPECS,
-                             json.dumps([CONFIGS, CACHE])], env=env,
+                             json.dumps([configs or CONFIGS, CACHE])],
+                            env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
 
@@ -445,18 +448,28 @@ def _fake_mesh(shape):
                                  shape=shape)
 
 
-REFUSED = [("granite-moe-1b-a400m", "moe"), ("minicpm3-4b", "mla"),
-           ("jamba-1.5-large-398b", "hybrid"), ("xlstm-350m", "ssm"),
-           ("whisper-tiny", "encdec"), ("llava-next-34b", "vlm")]
+# (arch, what the refusal names, hvp): the MoE family is laid out over
+# "model" since the dense one was; its Hutchinson curvature is not, so
+# its case is refused for hvp, which ``generate`` does not take
+REFUSED = [("granite-moe-1b-a400m", "hvp", True), ("minicpm3-4b", "mla", False),
+           ("jamba-1.5-large-398b", "hybrid", False),
+           ("xlstm-350m", "ssm", False), ("whisper-tiny", "encdec", False),
+           ("llava-next-34b", "vlm", False)]
 
 
-@pytest.mark.parametrize("arch,kind", REFUSED)
-def test_other_families_refuse_a_model_axis_before_any_work(arch, kind):
+@pytest.mark.parametrize("arch,kind,hvp", REFUSED)
+def test_other_families_refuse_a_model_axis_before_any_work(arch, kind, hvp):
     model = build_model(get_config(arch).reduced())
-    opt = make_optimizer("fednl", LR)
-    for call in (lambda: make_train_step(model, opt, mesh=_fake_mesh((1, 4))),
-                 lambda: generate(arch, device="cpu", mesh=_fake_mesh((1, 2))),
-                 lambda: train(arch, device="cpu", mesh=_fake_mesh((2, 2)))):
+    opt = make_optimizer("fednl", LR, curvature="hutchinson" if hvp
+                         else "fisher")
+    calls = [lambda: make_train_step(model, opt, hvp=hvp,
+                                     mesh=_fake_mesh((1, 4))),
+             lambda: train(arch, device="cpu", hvp=hvp, optimizer="fednl",
+                           mesh=_fake_mesh((2, 2)))]
+    if not hvp:
+        calls.append(lambda: generate(arch, device="cpu",
+                                      mesh=_fake_mesh((1, 2))))
+    for call in calls:
         with pytest.raises(NotImplementedError, match=kind):
             call()
 

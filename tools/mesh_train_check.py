@@ -8,8 +8,10 @@ Every rank trains the arch at its published width (``--smoke``: the
 reduced one) through ``launch.train.train(mesh=make_host_mesh(data,
 model))`` (fednl, 8 x 128 tokens, a refresh every 2 steps) on its own
 card, the params and the fednl state laid out by the rules: split over
-"model" the dense family computes tensor-parallel, and each index of
-"data" is one FedNL silo. ``train``'s step donates its inputs (H, the
+"model" the dense and MoE families compute tensor-parallel (an MoE
+expert parallel where its experts divide the extent, else inside each
+expert), and each index of "data" is one FedNL silo, whose observation
+goes through the per-layer gather. ``train``'s step donates its inputs (H, the
 momentum and the params are updated in place), so one copy of the state
 is alive. ``--layers N`` cuts the depth (the width stays published) and
 ``--lr`` sets the step size. Then, where one card holds the arch's
@@ -34,7 +36,13 @@ each rank's heads), the logits gathered over the vocab's shards, then
 ``generate(mesh=)`` of ``--gen`` greedy tokens after a 32-token prompt;
 rank 0 then does both on its card alone, with the same draws, and
 compares: the tokens equal and the prefill's logits within 1e-4 of the
-largest (f32: ``--serve`` runs the config in f32).
+largest (f32: ``--serve`` runs the config in f32). For an MoE, the
+prefill's routing is compared token by token: where a token's experts
+(or their order) flip at a router near tie (``NEAR_TIE``), its layer's
+output changes and attention carries it on, so the logits' gap is
+reported and the first flip must be a near tie instead. A second prefill
+on each side times the routing (``mlp.route_groups``) and gives its
+share. Each step's peak memory is recorded on both sides.
 
 Rank 0 prints one JSON line, and with ``--out DIR`` writes it to
 ``DIR/<arch>[_L<layers>][_lr<lr>]_<data>x<model>[_serve].json``: the gaps, ms a step or a
@@ -61,6 +69,7 @@ import torch.distributed as dist  # noqa: E402
 
 import repro_torch.launch.serve as serve_mod  # noqa: E402
 import repro_torch.launch.train as train_mod  # noqa: E402
+import repro_torch.models.mlp as mlp  # noqa: E402
 from repro_torch.configs import get_config, model_param_shapes  # noqa: E402
 from repro_torch.data.tokens import TokenPipeline  # noqa: E402
 from repro_torch.kernels import LAUNCHES, ROUTES, build_all  # noqa: E402
@@ -78,6 +87,7 @@ ARGS = dict(batch=8, seq=128, lr=1e-3, optimizer="fednl", refresh_every=2,
             curvature_k=2048)
 LOSS_REL = 1e-2
 LOGIT_REL = 1e-4
+NEAR_TIE = 1e-5
 SERVE_PROMPT = 32
 
 
@@ -126,10 +136,13 @@ def timed(step, dev: torch.device, rec: dict, keep_first: bool):
 
     def run(params, opt_state, batch):
         _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         params, opt_state, m = step(params, opt_state, batch)
         _sync(dev)
         rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["step_peak_gb"].append(_peak_gb(dev))
         rec["loss"].append(float(m["loss"]))
         rec["gnorm"].append(float(m["grad_norm"]))
         rec["refreshed"].append(bool(m["curv_refreshed"]))
@@ -151,7 +164,8 @@ def timed(step, dev: torch.device, rec: dict, keep_first: bool):
 def mesh_run(args, mesh, dev: torch.device, keep_first: bool) -> dict:
     """``train`` on every rank of ``mesh`` (its step donates its
     inputs)."""
-    rec = {"ms": [], "loss": [], "gnorm": [], "refreshed": []}
+    rec = {"ms": [], "loss": [], "gnorm": [], "refreshed": [],
+           "step_peak_gb": []}
     make, get = train_mod.make_train_step, train_mod.get_config
     train_mod.make_train_step = lambda *a, **kw: timed(
         make(*a, **kw), dev, rec, keep_first)
@@ -172,7 +186,8 @@ def one_process(args, n_silos: int, dev: torch.device) -> dict:
     opt = make_optimizer("fednl", args.lr, k_per_block=ARGS["curvature_k"],
                          curvature="fisher")
     state = opt.init(params)
-    rec = {"ms": [], "loss": [], "gnorm": [], "refreshed": []}
+    rec = {"ms": [], "loss": [], "gnorm": [], "refreshed": [],
+           "step_peak_gb": []}
     first = {}
 
     def keep(step):
@@ -203,9 +218,12 @@ def train_check(args, dev: torch.device) -> dict:
     with scoped_group():
         mesh = make_host_mesh(args.data, args.model, device=dev)
         data = DataAxis(mesh).world
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         rec = mesh_run(args, mesh, dev, twin)
         rank = dist.get_rank()
-        rec["peak_gb"] = _peak_gb(dev)
+        rec["peak_gb"] = (max(rec["step_peak_gb"]) if dev.type == "cuda"
+                          else None)
     if rank:
         return {}
     out = {"arch": args.arch, "smoke": args.smoke, "layers": args.layers,
@@ -213,6 +231,7 @@ def train_check(args, dev: torch.device) -> dict:
            "mesh_loss": rec["loss"],
            "mesh_gnorm": rec["gnorm"], "mesh_step_ms": rec["ms"],
            "refreshed": rec["refreshed"], "mesh_peak_gb": rec["peak_gb"],
+           "mesh_step_peak_gb": rec["step_peak_gb"],
            "local_bytes": rec["bytes"][0], "whole_bytes": rec["bytes"][1],
            "losses_finite": all(math.isfinite(x) for x in rec["loss"])}
     ok = out["losses_finite"]
@@ -233,6 +252,7 @@ def train_check(args, dev: torch.device) -> dict:
             for a, b in zip(tree_leaves(rec["h"]), tree_leaves(one["h"])))
         out.update(one_loss=one["loss"], one_step_ms=one["ms"],
                    one_peak_gb=_peak_gb(dev),
+                   one_step_peak_gb=one["step_peak_gb"],
                    loss_rel_max=_rel(rec["loss"], one["loss"]),
                    gnorm_rel_max=_rel(rec["gnorm"], one["gnorm"]))
         ok = ok and out["loss_rel_max"] <= LOSS_REL
@@ -268,6 +288,15 @@ def _prefill(arch: str, smoke: bool, t: int, dev: torch.device, mesh):
     params = model.init_params(g, keep=keep)
     tokens = torch.randint(0, cfg.vocab, (1, t), generator=g, device=dev)
     set_activation_sharder(None, None, tp)
+    routes, top = [], mlp.top_k_lower_index
+
+    def recording(x, k):
+        vals, ids = top(x, k)
+        s = torch.sort(x, dim=-1, descending=True).values[..., :k + 1]
+        routes.append((ids.cpu(), torch.amin(s[..., :-1] - s[..., 1:],
+                                              dim=-1).cpu()))
+        return vals, ids
+
     try:
         prefill = make_prefill(model)
         prefill(params, {"tokens": tokens[:, :16]})          # warm-up
@@ -277,13 +306,49 @@ def _prefill(arch: str, smoke: bool, t: int, dev: torch.device, mesh):
         logits = prefill(params, {"tokens": tokens})
         _sync(dev)
         ms = (time.perf_counter() - t0) * 1e3
+        mlp.top_k_lower_index = recording
+        prefill(params, {"tokens": tokens})
     finally:
+        mlp.top_k_lower_index = top
         set_activation_sharder(None, None, None)
     launches = LAUNCHES["flash_attention"] - before
+    route = _route_share(prefill, params, tokens, tp, dev) \
+        if cfg.moe is not None else None
     last = logits[:, -1]
-    if tp is not None:
+    if tp is not None and cfg.vocab % tp.world == 0:
         last = tp.whole(last.contiguous(), last.dim() - 1)
-    return last.float().cpu(), ms, launches
+    return last.float().cpu(), ms, launches, route, routes
+
+
+def _route_share(prefill, params, tokens, tp, dev) -> dict:
+    """The MoE routing's share of one prefill: a second prefill with
+    ``mlp.route_groups`` (the replicated router and ``_route``) timed by
+    the host clock between synchronizes, against the prefill's own ms
+    in that pass."""
+    spent = []
+    route = mlp.route_groups
+
+    def timed(*a, **kw):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = route(*a, **kw)
+        _sync(dev)
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    mlp.route_groups = timed
+    set_activation_sharder(None, None, tp)
+    try:
+        _sync(dev)
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        _sync(dev)
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        mlp.route_groups = route
+        set_activation_sharder(None, None, None)
+    return {"route_ms": sum(spent), "prefill_ms": total,
+            "share": sum(spent) / total, "routings": len(spent)}
 
 
 def _generate(arch: str, smoke: bool, gen: int, dev: torch.device, mesh):
@@ -318,11 +383,26 @@ def _generate(arch: str, smoke: bool, gen: int, dev: torch.device, mesh):
     return seqs.cpu(), times[SERVE_PROMPT:]
 
 
+def _flips(one: list, mesh: list) -> dict:
+    """Tokens whose top-k experts (or their order) differ between one
+    card's routings and rank 0's over the mesh, layer by layer: how many,
+    the first layer with any, and one card's largest top-k margin there
+    (the smallest gap between neighbours among the k + 1 largest router
+    probabilities)."""
+    tokens, first, margin = 0, None, 0.0
+    for i, ((ids, gaps), (m_ids, _)) in enumerate(zip(one, mesh)):
+        differ = (ids != m_ids).any(-1)
+        tokens += int(differ.sum())
+        if first is None and bool(differ.any()):
+            first, margin = i, float(gaps[differ].max())
+    return {"tokens": tokens, "first_layer": first, "first_margin": margin}
+
+
 def serve_check(args, dev: torch.device) -> dict:
     with scoped_group():
         mesh = make_host_mesh(args.data, args.model, device=dev)
-        logits, ms, k9 = _prefill(args.arch, args.smoke, args.prompt, dev,
-                                  mesh)
+        logits, ms, k9, route, routes = _prefill(args.arch, args.smoke,
+                                                 args.prompt, dev, mesh)
         seqs, tok_ms = _generate(args.arch, args.smoke, args.gen, dev, mesh)
         rank = dist.get_rank()
         peak = _peak_gb(dev)
@@ -332,8 +412,8 @@ def serve_check(args, dev: torch.device) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    one_logits, one_ms, one_k9 = _prefill(args.arch, args.smoke, args.prompt,
-                                          dev, None)
+    one_logits, one_ms, one_k9, one_route, one_routes = _prefill(
+        args.arch, args.smoke, args.prompt, dev, None)
     one_seqs, one_tok_ms = _generate(args.arch, args.smoke, args.gen, dev,
                                      None)
     gap = float((logits - one_logits).abs().max())
@@ -347,8 +427,16 @@ def serve_check(args, dev: torch.device) -> dict:
            "mesh_ms_per_token": tok_ms, "one_ms_per_token": one_tok_ms,
            "logit_gap": gap, "logit_max": top,
            "tokens_equal": bool(torch.equal(seqs, one_seqs)),
-           "mesh_peak_gb": peak, "one_peak_gb": _peak_gb(dev)}
-    out["ok"] = out["tokens_equal"] and gap <= LOGIT_REL * top
+           "mesh_peak_gb": peak, "one_peak_gb": _peak_gb(dev),
+           "mesh_routing_rank0": route, "one_routing": one_route,
+           "rerouted": _flips(one_routes, routes)}
+    # an MoE token whose top-k (or its order) flips at a router near tie
+    # changes its layer's output, and attention carries it on: then the
+    # first flip must be a near tie, and the logits' gap is reported
+    flipped = out["rerouted"]["tokens"] > 0
+    out["ok"] = out["tokens_equal"] and (
+        gap <= LOGIT_REL * top if not flipped
+        else out["rerouted"]["first_margin"] <= NEAR_TIE)
     return out
 
 
