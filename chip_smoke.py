@@ -6068,41 +6068,6 @@ def model_axis_starcoder2_15b(K, card: str, dev, seed: int) -> tuple:
     return launches, k9
 
 
-# phase 16b: the MoE family's "model" axis, ranks played on the card:
-# (arch, layers (None: all), played ranks); the refresh's leaves (None:
-# every split one) and depth
-MOE_AXIS_CASES = (("granite-moe-1b-a400m", None, 4), ("grok-1-314b", 2, 4),
-                  ("grok-1-314b", 2, 16))
-MOE_AXIS_REFRESH = {"granite-moe-1b-a400m": (None, 2),
-                    "grok-1-314b": (("ffn/wi", "ffn/wo"), 1)}
-
-
-def rank_shards(params, specs, world: int) -> list:
-    """Each of ``world`` ranks' shards of the whole ``params`` by its
-    ``specs`` over "model" (contiguous, as a rank holds them), made leaf
-    by leaf with each whole leaf dropped once its shards are made, so
-    the peak is the tree and one leaf, not two trees. ``params`` is
-    emptied."""
-    from repro_torch.launch.sharding import _split_dims
-    from repro_torch.tree import tree_leaves, tree_unflatten
-
-    leaves, spec_leaves = tree_leaves(params), tree_leaves(specs)
-    skeleton = tree_unflatten(params, [None] * len(leaves))
-    params.clear()
-    parts = [[] for _ in range(world)]
-    for i, spec in enumerate(spec_leaves):
-        x, leaves[i] = leaves[i], None
-        dim = _split_dims(spec).get("model")
-        for r in range(world):
-            if dim is None:
-                parts[r].append(x)
-            else:
-                size = x.shape[dim] // world
-                parts[r].append(x.narrow(dim, r * size, size).contiguous())
-        del x
-    return [tree_unflatten(skeleton, p) for p in parts]
-
-
 def top_k_margin(x, k: int):
     """The smallest gap between neighbours among the k + 1 largest of
     the last axis: the top-k pick changes at a gap at the k-th place, and
@@ -6205,27 +6170,34 @@ def teacher_forced_layers(model, shards, axis, recorded, routes, dtype):
     rerouted tokens at near ties (``MOE_NEAR_TIE``); bf16 on average
     within one bf16 step of the largest (a token whose gate weights round
     apart moves by more; the largest gap is reported). ``routes``: the
-    unsplit model's routings by layer."""
+    unsplit model's routings in layer order, one an MoE layer (layer i
+    is position i % period of segment i // period; a layer without an
+    MoE routes nothing)."""
     import torch
 
     import repro_torch.models.transformer as tf
 
     cfg, worst, worst_mean, rerouted, margin = model.cfg, 0.0, 0.0, 0, 0.0
     rel = MODEL_AXIS_F32_REL if dtype == "float32" else DECODE_TOL
+    routings = iter(routes)
     for i, (x, want) in enumerate(recorded):
+        seg, pos = divmod(i, model.period)
+        kind = model.kinds[pos]
         with routes_by_rank(axis) as played:
             outs = play_ranks(axis, lambda r: tf._layer_forward(
-                tf._layer(shards[r]["layers"][0], i), x, cfg,
-                *model.kinds[0])[0])
+                tf._layer(shards[r]["layers"][pos], seg), x, cfg,
+                *kind)[0])
         require(all(torch.equal(outs[0], o) for o in outs[1:]),
                 f"{cfg.name} layer {i}: the played ranks' outputs differ")
-        (w_ids, w_margin), = [routes[i]]
-        (p_ids, _), = played[0]
-        # one prompt: the groups' tokens in order, the last group's pads
-        # after them
-        differ = (w_ids != p_ids).any(-1).reshape(-1)
-        w_margin = w_margin.reshape(-1)[:x.shape[1]]
-        differ = differ[:x.shape[1]]
+        differ = torch.zeros(x.shape[1], dtype=torch.bool, device=x.device)
+        w_margin = torch.zeros(x.shape[1], device=x.device)
+        if kind[1] == "moe":
+            (w_ids, w_margin) = next(routings)
+            (p_ids, _), = played[0]
+            # one prompt: the groups' tokens in order, the last group's
+            # pads after them
+            differ = (w_ids != p_ids).any(-1).reshape(-1)[:x.shape[1]]
+            w_margin = w_margin.reshape(-1)[:x.shape[1]]
         keep = ~differ
         top = float(want.float().abs().max())
         err = (outs[0].float() - want.float())[0, keep].abs()
@@ -6441,6 +6413,375 @@ def model_axis_moe(K, card: str, dev, seed: int) -> tuple:
         torch.cuda.empty_cache()
     rep["s"] = time.perf_counter() - t0
     print(json.dumps({"model_axis_moe": rep}), flush=True)
+    return launches, k9
+
+
+# phase 16c: MLA's "model" axis (minicpm3-4b), ranks played on the card:
+# (layers (None: all 62), played ranks, decode == forward over the latent
+# cache split on its sequence at MLA_AXIS_DECODE_T tokens, in f32: on the
+# cut depth, since a played decode step costs a few barriers a layer); the
+# refresh played on every split tensor of MLA_AXIS_REFRESH_LAYERS layers
+MLA_AXIS_ARCH = "minicpm3-4b"
+MLA_AXIS_CASES = ((None, 4, False), (4, 4, True), (4, 16, True))
+MLA_AXIS_DECODE_T, MLA_AXIS_REFRESH_LAYERS = 32, 2
+
+
+def greedy_held(whole_last, toks: list, gap: float) -> bool:
+    """Whether the played ranks' greedy tokens ``toks`` are one token, and
+    the unsplit model's argmax of its last logits ``whole_last`` (V,) or
+    a token whose logit is within 2 ``gap`` of its max: the logits are
+    held within ``gap``, so two within 2 ``gap`` may change places."""
+    if any(t != toks[0] for t in toks):
+        return False
+    return float(whole_last.max() - whole_last[toks[0]]) <= 2 * gap
+
+
+def played_decode(model, shards, axis, tokens, ext) -> list:
+    """Greedy-free decode of ``tokens`` (1, T) on every played rank of
+    ``axis`` from its shards, over its part of the cache as
+    ``cache_specs`` lays it out (the latent cache's sequence split where
+    T divides by the ranks, marked ``latent_seq`` as ``generate`` marks
+    it): each rank's logits at every position, (T, V or V / M)."""
+    import torch
+    from repro_torch.launch.sharding import cache_specs, model_parts
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.tree import tree_map
+
+    t = tokens.shape[1]
+    serve = make_serve_step(model)
+    cache = model.init_cache(1, t, tokens.device)
+    specs = cache_specs(cache, ext)
+
+    def run(r):
+        mine = tree_map(torch.clone, model_parts(cache, specs, axis))
+        mine["latent_seq"] = t % axis.world == 0
+        out = []
+        for pos in range(t):
+            logits, mine = serve(shards[r], mine, tokens[:, pos:pos + 1],
+                                 pos)
+            out.append(logits[0].float())
+        return torch.cat(out)
+
+    return play_ranks(axis, run)
+
+
+def model_axis_mla(K, card: str, dev, seed: int) -> dict:
+    """Phase 16c: minicpm3-4b (MLA) at its published width over a "model"
+    axis of ranks played by threads on the card (``played_model_axis``):
+    all 62 layers over 4 ranks (10 of 40 heads a rank, ``wuk`` and
+    ``wuv`` gathered from their 64 latent rows a rank, the vocab of
+    73,448 split), then 4 layers over 4 and over 16 (the 40 heads do not
+    split there: every rank computes every head from ``wuq`` gathered
+    whole and takes its 160 columns into its rows of ``wo``; the vocab
+    is replicated). For each, in bf16 and in f32: the unsplit model's
+    prefill of one 4,096-token prompt, then each played rank's on its
+    shards (``rank_shards``) with the counts set to 0 just before and
+    read just after (MLA's q.k is 96 wide and v 64, so no K9: none may
+    launch), the logits against the unsplit model's (f32 within
+    ``MODEL_AXIS_F32_REL`` of the largest, bf16 within ``DECODE_TOL``;
+    where the vocab is replicated every rank's equal) and the greedy
+    token over the ranks (``greedy_held``). In f32 at 4 layers, decode
+    == forward over the latent cache split on its sequence
+    (``played_decode``, ``MLA_AXIS_DECODE_T`` tokens: each rank writes a
+    token only where its slice holds it, gathers q (over 4 ranks) and
+    combines the ranks' split softmax). Then the refresh played on every
+    split tensor at ``MLA_AXIS_REFRESH_LAYERS`` layers over 4 ranks
+    (``model_axis_refresh``). Returns the path's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import argmax_over
+    from repro_torch.launch.sharding import tree_param_specs
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    launches = {"diff_topk_payload": 0, "block_scatter_accumulate": 0}
+    rep = {"arch": MLA_AXIS_ARCH, "t": MODEL_AXIS_T, "card": card,
+           "cases": []}
+    for layers, world, decode in MLA_AXIS_CASES:
+        ext = {"data": 1, "model": world}
+        entry = {"ranks_played": world}
+        for dtype in ("bfloat16", "float32"):
+            cfg = get_config(MLA_AXIS_ARCH)
+            cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                                      dtype=dtype)
+            entry["layers"] = cfg.n_layers
+            model = build_model(cfg)
+            g = torch.Generator(device=dev).manual_seed(seed)
+            params = model.init_params(g)
+            tokens = torch.randint(0, cfg.vocab, (1, MODEL_AXIS_T),
+                                   generator=g, device=dev)
+            prefill = make_prefill(model)
+            whole_ms, whole = host_ms(
+                lambda: prefill(params, {"tokens": tokens}))
+            whole = whole[0].float()
+            dec_tokens = tokens[:, :MLA_AXIS_DECODE_T]
+            dec_want = (prefill(params, {"tokens": dec_tokens})[0].float()
+                        if decode and dtype == "float32" else None)
+            shards = rank_shards(params, tree_param_specs(params, ext), world)
+            del params
+            torch.cuda.empty_cache()
+            axis = played_model_axis(world)
+            split_vocab = cfg.vocab % world == 0
+
+            def rank_prefill(r):
+                out = prefill(shards[r], {"tokens": tokens})[0].float()
+                return out if split_vocab or r == 0 else out[-1:]
+
+            play_ranks(axis, rank_prefill)                  # warm-up
+            torch.cuda.synchronize()
+            K.reset_launches()
+            played_ms, logits = host_ms(lambda: play_ranks(axis,
+                                                           rank_prefill))
+            got = counts(K)
+            require(got["flash_attention"] == 0,
+                    f"{MLA_AXIS_ARCH} over {world} played ranks, {dtype}: "
+                    f"the MLA prefill launched K9 {got['flash_attention']} "
+                    f"times")
+            if split_vocab:
+                joined = torch.cat(logits, dim=-1)
+            else:
+                require(all(torch.equal(logits[0][-1:], x)
+                            for x in logits[1:]),
+                        f"{MLA_AXIS_ARCH}, {dtype}: the ranks' whole logits "
+                        f"differ (the vocab is replicated over 'model')")
+                joined = logits[0]
+            top = float(whole.abs().max())
+            gap = float((joined - whole).abs().max())
+            tol = (MODEL_AXIS_F32_REL if dtype == "float32"
+                   else DECODE_TOL) * top
+            want = int(torch.argmax(whole[-1]))
+            toks = play_ranks(axis, lambda r: int(argmax_over(
+                logits[r][-1:], axis if split_vocab else None)[0]))
+            agree = float((torch.argmax(joined, -1)
+                           == torch.argmax(whole, -1)).float().mean())
+            require(bool(torch.isfinite(joined).all()) and gap <= tol
+                    and greedy_held(whole[-1], toks, gap),
+                    f"{MLA_AXIS_ARCH} over {world} played ranks, {dtype}: "
+                    f"the logits are {gap} from the unsplit model's (bound "
+                    f"{tol}), greedy {toks} vs {want}")
+            entry[dtype] = {"whole_prefill_ms": whole_ms,
+                            "played_prefill_ms": played_ms,
+                            "k9_launches": got["flash_attention"],
+                            "logit_gap": gap, "logit_max": top,
+                            "bound": tol, "vocab_split": split_vocab,
+                            "greedy_token": toks[0],
+                            "greedy_equal": toks[0] == want,
+                            "argmax_agree_all_positions": agree}
+            del logits, joined, whole
+            if dec_want is not None:
+                dec_ms, dec = host_ms(lambda: played_decode(
+                    model, shards, axis, dec_tokens, ext))
+                dec_joined = torch.cat(dec, -1) if split_vocab else dec[0]
+                require(split_vocab or all(torch.equal(dec[0], x)
+                                           for x in dec[1:]),
+                        f"{MLA_AXIS_ARCH}: the ranks' decode logits differ")
+                dtop = float(dec_want.abs().max())
+                dgap = float((dec_joined - dec_want).abs().max())
+                require(dgap <= MODEL_AXIS_F32_REL * dtop,
+                        f"{MLA_AXIS_ARCH} over {world} played ranks: decode "
+                        f"over the split latent cache is {dgap} from the "
+                        f"forward (bound {MODEL_AXIS_F32_REL * dtop})")
+                entry["decode_vs_forward_f32"] = {
+                    "t": MLA_AXIS_DECODE_T, "ms": dec_ms, "gap": dgap,
+                    "logit_max": dtop,
+                    "latent_seq": MLA_AXIS_DECODE_T % world == 0}
+                del dec, dec_joined, dec_want
+            del shards, model
+            torch.cuda.empty_cache()
+        rep["cases"].append(entry)
+    cfg = dataclasses.replace(get_config(MLA_AXIS_ARCH),
+                              n_layers=MLA_AXIS_REFRESH_LAYERS,
+                              dtype="float32")
+    K.reset_launches()
+    refresh = model_axis_refresh(cfg, dev, seed, K, ranks=4)
+    for key in launches:
+        launches[key] += refresh[key]
+    rep["played_refresh"] = refresh
+    rep["s"] = time.perf_counter() - t0
+    print(json.dumps({"model_axis_mla": rep}), flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# phase 16d: the hybrid family's "model" axis (jamba-1.5-large-398b) over 4
+# ranks played on the card: its first 2 layers (Mamba + MLP, Mamba + MoE)
+# in bf16, the first alone in f32; its attention layer's mixer (64 q heads
+# over 8 KV heads, 16 over 2 a rank); the refresh of the Mamba leaves
+HYBRID_AXIS_ARCH, HYBRID_AXIS_RANKS = "jamba-1.5-large-398b", 4
+HYBRID_AXIS_LAYERS = {"bfloat16": 2, "float32": 1}
+HYBRID_AXIS_REFRESH = ("mixer/win", "mixer/conv", "mixer/wbc",
+                       "mixer/a_log", "mixer/wout")
+
+
+def hybrid_attention_axis(cfg, dev, seed: int, K, world: int) -> dict:
+    """Jamba's attention mixer (its period's last layer; no positions) at
+    full width on one (1, T) input over ``world`` played ranks: the
+    unsplit ``gqa_forward`` (K9 on all 64 heads), then each rank's on its
+    shards (K9 on its 16 q heads over 2 KV heads, a launch a rank) with
+    the counts set to 0 just before and read just after; every rank's
+    output equal, and against the unsplit one's (f32 within
+    ``MODEL_AXIS_F32_REL`` of the largest, bf16 within ``DECODE_TOL``).
+    Returns the played launches and the figures."""
+    import torch
+    from repro_torch.launch.sharding import tree_param_specs
+    from repro_torch.models import attention as attn
+
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    tree = {"mixer": attn.gqa_init(g, cfg)}
+    x = torch.randn((1, MODEL_AXIS_T, cfg.d_model), generator=g,
+                    device=dev).to(cfg.tdtype)
+    with torch.no_grad():
+        want = attn.gqa_forward(tree["mixer"], x, cfg)[0].float()
+        shards = rank_shards(tree, tree_param_specs(
+            tree, {"data": 1, "model": world}), world)
+        axis = played_model_axis(world)
+
+        def run(r):
+            return attn.gqa_forward(shards[r]["mixer"], x, cfg)[0]
+
+        torch.cuda.synchronize()
+        K.reset_launches()
+        ms, outs = host_ms(lambda: play_ranks(axis, run))
+        got = counts(K)
+    route = "wgmma" if cfg.dtype == "bfloat16" else "ffma"
+    require(got["flash_attention"] == world
+            and got[f"flash_attention:{route}"] == world,
+            f"{cfg.name} attention over {world} played ranks, {cfg.dtype}: K9 "
+            f"launched {got['flash_attention']} times, not {world}")
+    require(all(torch.equal(outs[0], o) for o in outs[1:]),
+            f"{cfg.name} attention, {cfg.dtype}: the played ranks differ")
+    top = float(want.abs().max())
+    gap = float((outs[0].float() - want).abs().max())
+    tol = (MODEL_AXIS_F32_REL if cfg.dtype == "float32" else DECODE_TOL) * top
+    require(gap <= tol, f"{cfg.name} attention over {world} played ranks, "
+                        f"{cfg.dtype}: {gap} from the unsplit mixer's (bound "
+                        f"{tol})")
+    return {"launches": {"flash_attention": got["flash_attention"],
+                         f"flash_attention:{route}": got[
+                             f"flash_attention:{route}"]},
+            "played_ms": ms, "gap": gap, "out_max": top, "bound": tol}
+
+
+def model_axis_hybrid(K, card: str, dev, seed: int) -> tuple:
+    """Phase 16d: jamba-1.5-large-398b at its published width over a
+    "model" axis of 4 ranks played by threads on the card: its first two
+    layers (a stack cut below one period: Mamba + MLP, Mamba + MoE with
+    16 experts, 4 a rank; about 24 GB in bf16) and, in f32, the first
+    alone. Each rank's Mamba mixer runs the conv and the scan on its
+    4,096 of 16,384 channels: ``win``'s shard gathered on its last dim
+    and narrowed to the rank's channels of u and z, ``wbc`` and
+    ``a_log`` gathered from their column shards, the B, C and Delta
+    projections summed over the ranks, ``wout`` row-parallel. For each
+    dtype: the unsplit model's prefill of one 4,096-token prompt (each
+    layer's input and output recorded), each played rank's on its shards
+    (``rank_shards``) with the counts set to 0 just before and read just
+    after, the routing against the unsplit model's (``route_flips``),
+    the logits (bf16: the last position's within ``DECODE_TOL`` of the
+    largest; f32: every position's within ``MODEL_AXIS_F32_REL``; the
+    greedy token by ``greedy_held``) and every layer teacher-forced on the unsplit
+    model's own input (``teacher_forced_layers``). Then the attention
+    layer's mixer over the played ranks through K9
+    (``hybrid_attention_axis``), K9 at a rank's head count alone
+    (``model_axis_k9``: 16 q heads over 2 KV heads, causal) and the
+    refresh of the Mamba leaves played on their shards
+    (``model_axis_refresh``). Returns (the path's launches, K9's
+    fields)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import argmax_over
+    from repro_torch.launch.sharding import tree_param_specs
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    world = HYBRID_AXIS_RANKS
+    ext = {"data": 1, "model": world}
+    launches = {"flash_attention": 0, "flash_attention:wgmma": 0,
+                "flash_attention:ffma": 0, "diff_topk_payload": 0,
+                "block_scatter_accumulate": 0}
+    rep = {"arch": HYBRID_AXIS_ARCH, "t": MODEL_AXIS_T, "card": card,
+           "ranks_played": world}
+    full = get_config(HYBRID_AXIS_ARCH)
+    heads = (full.n_heads // world, full.kv_heads // world, full.hd)
+    k9 = model_axis_k9(dev, seed, *heads, w=None)
+    torch.cuda.empty_cache()
+    for dtype, layers in HYBRID_AXIS_LAYERS.items():
+        cfg = dataclasses.replace(full, n_layers=layers, dtype=dtype)
+        model = build_model(cfg)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        params = model.init_params(g)
+        tokens = torch.randint(0, cfg.vocab, (1, MODEL_AXIS_T), generator=g,
+                               device=dev)
+        prefill = make_prefill(model)
+        axis = played_model_axis(world)
+        with routes_by_rank(axis) as routes, layers_recorded() as rec:
+            whole_ms, whole = host_ms(
+                lambda: prefill(params, {"tokens": tokens}))
+        whole = whole[0].float() if dtype == "float32" else \
+            whole[0, -1:].float()
+        shards = rank_shards(params, tree_param_specs(params, ext), world)
+        del params
+        torch.cuda.empty_cache()
+        last = dtype != "float32"
+
+        def rank_prefill(r):
+            out = prefill(shards[r], {"tokens": tokens})[0]
+            return (out[-1:] if last else out).float()
+
+        play_ranks(axis, rank_prefill)                      # warm-up
+        torch.cuda.synchronize()
+        K.reset_launches()
+        with routes_by_rank(axis) as played_routes:
+            played_ms, logits = host_ms(lambda: play_ranks(axis,
+                                                           rank_prefill))
+        got = counts(K)
+        require(got["flash_attention"] == 0,
+                f"{HYBRID_AXIS_ARCH}: a stack without attention launched K9")
+        flips = route_flips(routes.get(None, []), played_routes.get(0, []))
+        joined = torch.cat(logits, dim=-1)
+        top = float(whole.abs().max())
+        gap = float((joined - whole).abs().max())
+        tol = (MODEL_AXIS_F32_REL if dtype == "float32"
+               else DECODE_TOL) * top
+        want = int(torch.argmax(whole[-1]))
+        toks = play_ranks(axis, lambda r: int(argmax_over(
+            logits[r][-1:], axis)[0]))
+        forced = teacher_forced_layers(model, shards, axis, rec,
+                                       routes.get(None, []), dtype)
+        require(bool(torch.isfinite(joined).all()) and gap <= tol
+                and greedy_held(whole[-1], toks, gap),
+                f"{HYBRID_AXIS_ARCH} over {world} played ranks, {dtype}: the "
+                f"logits are {gap} from the unsplit model's (bound {tol}), "
+                f"greedy {toks} vs {want}; routing {flips}; teacher-forced "
+                f"{forced}")
+        rep[dtype] = {"layers": layers,
+                      "kinds": [list(k) for k in model.kinds],
+                      "whole_prefill_ms": whole_ms,
+                      "played_prefill_ms": played_ms, "logit_gap": gap,
+                      "logit_max": top, "bound": tol,
+                      "positions": "last" if last else "all",
+                      "greedy_token": toks[0],
+                      "greedy_equal": toks[0] == want, "routing": flips,
+                      "teacher_forced": forced}
+        del shards, whole, logits, joined, model, routes, played_routes, rec
+        torch.cuda.empty_cache()
+        attn = hybrid_attention_axis(cfg, dev, seed, K, world)
+        for key, n in attn.pop("launches").items():
+            launches[key] += n
+        rep[dtype]["attention_mixer"] = attn
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(full, n_layers=1, dtype="float32")
+    K.reset_launches()
+    refresh = model_axis_refresh(cfg, dev, seed, K, ranks=world,
+                                 only=HYBRID_AXIS_REFRESH)
+    for key in ("diff_topk_payload", "block_scatter_accumulate"):
+        launches[key] += refresh[key]
+    rep["played_refresh"] = refresh
+    rep["k9_rank_heads"] = k9
+    rep["s"] = time.perf_counter() - t0
+    print(json.dumps({"model_axis_hybrid": rep}), flush=True)
+    torch.cuda.empty_cache()
     return launches, k9
 
 
@@ -6670,6 +7011,28 @@ def main() -> int:
                 entry["moe_axis_shapes"] = k9_moe
         print(f"# MoE model axis phase in {time.perf_counter() - t0:.1f} s",
               flush=True)
+
+        # -- 16c. MLA's "model" axis: minicpm3-4b over 4 played ranks at
+        # full depth, 4 layers over 16 (the heads whole on each)
+        t0 = time.perf_counter()
+        add_path_launches(kernels, "model_axis_mla",
+                          model_axis_mla(K, card, dev, args.seed))
+        print(f"# MLA model axis phase in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        # -- 16d. the hybrid family's "model" axis: jamba's Mamba mixers,
+        # MLP, MoE and attention over 4 played ranks
+        t0 = time.perf_counter()
+        launches, k9_hybrid = model_axis_hybrid(K, card, dev, args.seed)
+        add_path_launches(kernels, "model_axis_hybrid", launches)
+        for entry in kernels:
+            if entry["name"] == "flash_attention":
+                for r in entry["launches_by_route"]:
+                    entry["launches_by_route"][r] += launches[
+                        f"flash_attention:{r}"]
+                entry["hybrid_axis_rank_heads"] = k9_hybrid
+        print(f"# hybrid model axis phase in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     except SmokeFailure as exc:
         return fail(str(exc))
     finally:

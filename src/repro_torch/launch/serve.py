@@ -73,13 +73,15 @@ def generate(arch: str, smoke: bool = True, batch: int = 4,
     every sampling draw are made for the whole batch on every rank, each
     rank keeping its rows, and the tokens are gathered at the end, so
     every rank returns what one process would (an MoE routes each rank's
-    rows as its decode group). Over a "model" axis (the dense and MoE
-    GQA families; the others raise ``NotImplementedError`` first) each
-    rank draws the weights layer by layer and keeps its shards (or takes
-    them of the handed ``params``), lays its cache out by
-    ``cache_specs`` (its KV heads, else its slice of the sequence, else
-    whole), decodes through the tensor-parallel layers (an MoE's experts,
-    or each expert's d_ff), and picks tokens over the vocab's shards
+    rows as its decode group). Over a "model" axis (the dense, MoE and
+    hybrid families, GQA or MLA; the others raise ``NotImplementedError``
+    first) each rank draws the weights layer by layer and keeps its
+    shards (or takes them of the handed ``params``), lays its cache out
+    by ``cache_specs`` (its KV heads, else its slice of the sequence,
+    else whole; MLA's latent cache its slice of the sequence, else whole;
+    a Mamba layer's conv window and state its channels), decodes through
+    the tensor-parallel layers (an MoE's experts, or each expert's d_ff),
+    and picks tokens over the vocab's shards
     (``argmax_over``; the Gumbel draws are the whole vocab's), or over
     the whole vocab where the axis does not divide it."""
     cfg = get_config(arch, smoke=smoke)
@@ -111,8 +113,11 @@ def generate(arch: str, smoke: bool = True, batch: int = 4,
     if tp is not None:
         specs = cache_specs(cache, extents(mesh))
         cache = tree_map(torch.clone, model_parts(cache, specs, tp))
-        cache["kv_seq"] = bool(cfg.kv_heads % tp.world
-                               and (prompt_len + gen) % tp.world == 0)
+        # the sequence splits where cache_specs splits it: the KV caches
+        # where their heads do not split, the latent caches always
+        split_seq = (prompt_len + gen) % tp.world == 0
+        cache["kv_seq"] = bool(cfg.kv_heads % tp.world and split_seq)
+        cache["latent_seq"] = cfg.attn_type == "mla" and split_seq
     # the vocab's shards: whole on every rank where the axis does not
     # divide it (the rules replicate the table)
     vtp = None if tp is None or cfg.vocab % tp.world else tp

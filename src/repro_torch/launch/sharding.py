@@ -38,6 +38,7 @@ from typing import Any, Optional
 import torch
 import torch.distributed as dist
 
+from ..models.transformer import layer_kinds
 from ..tree import tree_leaves, tree_map
 
 # the flat collectives, by their names since torch 2.13 where there
@@ -429,6 +430,10 @@ class ModelAxis(_Axis):
       rank's shard of the summed gradient backward (a layer that needs the
       whole of a split weight: the reference's reshard where a head count
       does not divide);
+    * ``weight_whole``: a weight whole on a dim whether the rules split
+      it (``gather_weight``) or not (``copy_in``), for a layer whose ranks
+      each use a part of it (MLA's ``wuq``/``wuk``/``wuv``, a Mamba
+      mixer's per-channel weights);
     * ``split_on`` / ``gather_on``: keep this rank's block of a dim
       forward and all-gather the gradient backward; all-gather the dim
       forward and keep the rank's block of the gradient backward.
@@ -459,6 +464,15 @@ class ModelAxis(_Axis):
 
     def gather_on(self, x, dim: int):
         return _GatherOn.apply(x, self, dim)
+
+    def weight_whole(self, w, dim: int, width: int):
+        """A weight whole on ``dim`` (``width`` wide) for a layer of which
+        each rank uses its own part: ``gather_weight`` where the rules
+        split it over "model", ``copy_in`` where they hold it whole, so
+        its gradient sums every rank's part either way."""
+        if w.shape[dim] == width:
+            return self.copy_in(w)
+        return self.gather_weight(w, dim)
 
     def split_seq(self, x):
         return self.split_on(x, 1)
@@ -715,38 +729,56 @@ def make_model_axis(mesh) -> Optional[ModelAxis]:
     return model if model.world > 1 else None
 
 
-# the families and the mixer the model axis lays out; each other raises
-TP_FAMILIES = ("dense", "moe")
+# the families the model axis lays out (GQA or MLA attention, Mamba
+# mixers in the hybrid stack); each other raises
+TP_FAMILIES = ("dense", "moe", "hybrid")
 
 
 def check_model_axis(cfg, ext: dict, hvp: bool = False) -> None:
     """Raise ``NotImplementedError`` for what a "model" axis wider than
     one rank cannot lay out, before any work: a family other than the
-    dense and MoE GQA ones (MLA, hybrid, ssm, encdec, vlm), Hutchinson
-    curvature (its double backward through the collectives), or a width
-    the axis does not divide where the rules would replicate a weight no
-    layer computes whole (the attention's q and kv columns; the dense
-    d_ff; an MoE's d_ff where its experts do not split, the reference's
-    tensor parallelism inside each expert). A vocab the axis does not
-    divide is the rules' own case: the embedding (and the lm head) are
-    replicated over "model", and every rank computes the whole lookup,
-    logits, loss and argmax, whose gradient is then the same on each."""
+    dense, MoE and hybrid ones (ssm, encdec, vlm), Hutchinson curvature
+    (its double backward through the collectives), or a width the axis
+    does not divide where the rules would replicate a weight no layer
+    computes whole: GQA's q and kv columns; MLA's ``wo`` rows (heads x
+    v_head_dim); a Mamba mixer's inner width Di (``conv``, ``wout``);
+    d_ff wherever a dense MLP runs, and an MoE's d_ff where its experts
+    do not split (the reference's tensor parallelism inside each
+    expert). A vocab the axis does not divide is the rules' own case:
+    the embedding (and the lm head) are replicated over "model", and
+    every rank computes the whole lookup, logits, loss and argmax, whose
+    gradient is then the same on each. So are MLA's and Mamba's small
+    widths (``wuq``'s columns, the latent rank, the SSM state): their
+    layers take the weights whole (``gather_weight`` where split,
+    ``copy_in`` where not)."""
+    from ..models.transformer import layer_kinds
+
     m = int(ext.get("model", 1))
     if m == 1:
         return
     kind = "mla" if cfg.attn_type == "mla" else cfg.family
-    if cfg.family not in TP_FAMILIES or cfg.attn_type != "gqa":
+    if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"{kind} ({cfg.name}) on a 'model' axis of {m} ranks: only the "
-            f"dense and MoE GQA families are laid out over 'model'")
+            f"dense, MoE and hybrid families are laid out over 'model'")
     if hvp:
         raise NotImplementedError(
             f"Hutchinson curvature (hvp) of {kind} ({cfg.name}) on a 'model' "
             f"axis of {m} ranks: the double backward through the "
             f"collectives is not laid out")
-    widths = [("heads x head_dim", cfg.n_heads * cfg.hd),
-              ("kv_heads x head_dim", cfg.kv_heads * cfg.hd)]
-    if cfg.moe is None or cfg.moe.num_experts % m:
+    kinds = layer_kinds(cfg)
+    mixers, ffns = {k[0] for k in kinds}, {k[1] for k in kinds}
+    widths = []
+    if "attn" in mixers:
+        widths += [("heads x head_dim", cfg.n_heads * cfg.hd),
+                   ("kv_heads x head_dim", cfg.kv_heads * cfg.hd)]
+    if "mla" in mixers:
+        widths.append(("heads x v_head_dim",
+                       cfg.n_heads * cfg.mla.v_head_dim))
+    if "mamba" in mixers:
+        widths.append(("Di (expand x d_model)",
+                       cfg.mamba.expand * cfg.d_model))
+    if "mlp" in ffns or ("moe" in ffns and cfg.moe.num_experts % m):
         widths.append(("d_ff", cfg.d_ff))
     for what, width in widths:
         if width % m:

@@ -23,7 +23,12 @@ only the KV heads do not split, it keeps its q heads and takes k/v
 whole. The decode cache follows ``launch.sharding.cache_specs``: this
 rank's KV heads, its slice of the sequence (each rank attends over its
 slice and the ranks' (max, sum, out) are combined as a split softmax),
-or the whole cache.
+or the whole cache. MLA over the axis (``_MLAHeads``) computes this
+rank's heads from its ``wuq`` columns (every head from ``wuq`` gathered
+whole where H does not split), with ``wuk``/``wuv`` gathered whole from
+their latent-row shards, the replicated down-projections' outputs
+through ``copy_in`` and ``wo`` row-parallel; its decode takes the latent
+cache whole or split on its sequence (``latent_seq``).
 """
 
 from __future__ import annotations
@@ -302,25 +307,34 @@ def _decode_tp(p: dict, x: torch.Tensor, cache: dict, pos: int,
 def _split_softmax(q, k, v, mask, n_rep: int, tp):
     """``_sdpa`` of every head over the whole cache when each rank holds
     a slice of its sequence (k/v (B, S / M, KV, hd), ``mask`` this slice's
-    (1, S / M)): each rank's running max, sum of exp and unnormalized
-    output, gathered and combined in rank order, the same on every rank.
-    A rank whose slice is all masked gives a sum and output of 0."""
+    (1, S / M)), through ``_split_combine``."""
     b, t, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, t, kv, n_rep, hd)
     scores = torch.einsum("btkrh,bskh->bkrts", qg, k).float() / math.sqrt(hd)
     keep = mask[:, None, None, None, :] if mask.dim() == 2 else mask
+    out = _split_combine(scores, keep, lambda e: torch.einsum(
+        "bkrts,bskh->bkrth", e, v.float()), tp)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(v.dtype)
+
+
+def _split_combine(scores, keep, weigh, tp):
+    """The softmax-weighted output of ``scores`` (..., T, S / M), this
+    rank's slice of the keys (``keep`` True where attendable), over every
+    rank's slice: each rank's running max, sum of exp and unnormalized
+    output ``weigh(e)`` (..., T, dv), gathered and combined in rank
+    order, the same on every rank. A rank whose slice is all masked
+    gives a sum and output of 0."""
     scores = torch.where(keep, scores, -1e30)
     mx = torch.amax(scores, dim=-1, keepdim=True)
     e = torch.exp(scores - mx) * keep
-    part = torch.einsum("bkrts,bskh->bkrth", e, v.float())
+    part = weigh(e)
     mxs, sums, outs = tp.gather(mx[None], e.sum(-1, keepdim=True)[None],
                                 part[None])
     top = torch.amax(mxs, dim=0)
     scale = torch.exp(mxs - top)
     total = torch.sum(scale * sums, dim=0)
-    out = torch.sum(scale * outs, dim=0) / total
-    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(v.dtype)
+    return torch.sum(scale * outs, dim=0) / total
 
 
 # ---------------------------------------------------------------------------
@@ -377,24 +391,30 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _mla_qk(p: dict, x: torch.Tensor, positions, cfg: ModelConfig):
+def _mla_qk(p: dict, x: torch.Tensor, positions, cfg: ModelConfig,
+            plan=None):
+    """q's nope and rope parts (B, T, heads, ...) and the latent keys ckv
+    (B, T, kv_lora) and krope (B, T, rope_dim). With ``plan`` (over a
+    "model" axis) the down-projections' outputs pass ``copy_in`` and q
+    has the heads ``plan.wuq`` gives."""
     m = cfg.mla
     b, t, _ = x.shape
-    q = ((x @ p["wdq"]) @ p["wuq"]).reshape(
-        b, t, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    cq, ckv, kr = x @ p["wdq"], x @ p["wdkv"], x @ p["wkrope"]
+    wuq = p["wuq"]
+    if plan is not None:
+        cq, ckv, kr = (plan.tp.copy_in(a) for a in (cq, ckv, kr))
+        wuq = plan.wuq(p)
+    q = (cq @ wuq).reshape(b, t, -1, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    ckv = x @ p["wdkv"]                                  # (b, t, kv_lora)
-    krope = apply_rope((x @ p["wkrope"])[:, :, None, :], positions,
+    krope = apply_rope(kr[:, :, None, :], positions,
                        cfg.rope_theta)[:, :, 0, :]       # (b, t, rope_dim)
     return q_nope, q_rope, ckv, krope
 
 
-def _mla_attend(p: dict, q_nope, q_rope, ckv, krope, mask,
-                cfg: ModelConfig) -> torch.Tensor:
-    """Queries (B, T, H, nope / rope) over the latent keys ckv (B, S,
-    kv_lora) and krope (B, S, rope); mask (T, S) or (B, T, S) bool.
-    Returns the output projection (B, T, d)."""
+def _mla_scores(p: dict, q_nope, q_rope, ckv, krope, cfg: ModelConfig):
+    """The scaled f32 scores (B, H, T, S) of queries (B, T, H, nope /
+    rope) over the latent keys, and v (B, S, H, v_head_dim)."""
     m = cfg.mla
     b, t, h, _ = q_nope.shape
     s = ckv.shape[1]
@@ -402,16 +422,28 @@ def _mla_attend(p: dict, q_nope, q_rope, ckv, krope, mask,
     v = (ckv @ p["wuv"]).reshape(b, s, h, m.v_head_dim)
     scores = (torch.einsum("bthd,bshd->bhts", q_nope, k_nope)
               + torch.einsum("bthd,bsd->bhts", q_rope, krope)).float()
-    scores = scores / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    return scores / math.sqrt(m.qk_nope_dim + m.qk_rope_dim), v
+
+
+def _mla_attend(p: dict, q_nope, q_rope, ckv, krope, mask,
+                cfg: ModelConfig, cols=None) -> torch.Tensor:
+    """Queries (B, T, H, nope / rope) over the latent keys ckv (B, S,
+    kv_lora) and krope (B, S, rope); mask (T, S) or (B, T, S) bool.
+    Returns the output projection (B, T, d); ``cols`` (start, size)
+    narrows the heads' output to those columns before ``wo``."""
+    b, t = q_nope.shape[:2]
+    scores, v = _mla_scores(p, q_nope, q_rope, ckv, krope, cfg)
     mask = mask[None, None] if mask.dim() == 2 else mask[:, None]
     scores = torch.where(mask, scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhts,bshd->bthd", w, v)
-    return out.reshape(b, t, h * m.v_head_dim) @ p["wo"]
+    out = torch.einsum("bhts,bshd->bthd", w, v).reshape(b, t, -1)
+    if cols is not None:
+        out = out.narrow(-1, *cols)
+    return out @ p["wo"]
 
 
 def _mla_attend_chunked(p: dict, q_nope, q_rope, ckv, krope, cfg: ModelConfig,
-                        chunk: int = SDPA_CHUNK) -> torch.Tensor:
+                        chunk: int = SDPA_CHUNK, cols=None) -> torch.Tensor:
     """``_mla_attend`` with the causal mask over query chunks, each
     recomputed in the backward (``checkpoint``), as ``_sdpa_chunked``."""
     t = q_nope.shape[1]
@@ -424,7 +456,7 @@ def _mla_attend_chunked(p: dict, q_nope, q_rope, ckv, krope, cfg: ModelConfig,
     def one_chunk(qn, qr, start: int):
         qpos = start + torch.arange(chunk, device=qn.device)
         return _mla_attend(p, qn, qr, ckv, krope, j[None, :] <= qpos[:, None],
-                           cfg)
+                           cfg, cols)
 
     out = [checkpoint(one_chunk, qn, qr, start, use_reentrant=False)
            for qn, qr, start in zip(q_nope.split(chunk, dim=1),
@@ -433,17 +465,69 @@ def _mla_attend_chunked(p: dict, q_nope, q_rope, ckv, krope, cfg: ModelConfig,
     return torch.cat(out, dim=1)[:, :t]
 
 
+class _MLAHeads:
+    """The heads one rank of a "model" axis of M ranks computes in MLA,
+    on the reference's rules: ``wuq`` split on its columns, ``wuk`` and
+    ``wuv`` on their rows (the latent rank), ``wo`` on its rows, the
+    down-projections whole.
+
+    * q: this rank's H / M heads from its ``wuq`` columns where H divides
+      by M; else (``q_whole``; or ``every_head``, a decode over a
+      sequence-split cache) ``wuq`` whole and every head;
+    * ``wuk`` / ``wuv`` whole (``weight_whole``: 1.3 MB a layer in bf16 at
+      minicpm3-4b's width, where the row-parallel alternative would sum
+      (B, S, H * nope) partials) and narrowed to the heads of q;
+    * the output: this rank's H * v_head_dim / M columns (its heads', or
+      ``cols`` of every head's) through its rows of ``wo``, summed over
+      the ranks (``reduce_out``)."""
+
+    def __init__(self, cfg: ModelConfig, tp, every_head: bool = False):
+        self.cfg, self.tp = cfg, tp
+        self.q_whole = every_head or cfg.n_heads % tp.world != 0
+        width = cfg.n_heads * cfg.mla.v_head_dim // tp.world
+        self.cols = (tp.rank * width, width) if self.q_whole else None
+
+    def wuq(self, p: dict) -> torch.Tensor:
+        m = self.cfg.mla
+        if not self.q_whole:
+            return p["wuq"]
+        return self.tp.weight_whole(p["wuq"], 1, self.cfg.n_heads * (
+            m.qk_nope_dim + m.qk_rope_dim))
+
+    def weights(self, p: dict) -> dict:
+        """``wuk``, ``wuv`` (the heads of q) and ``wo`` as ``_mla_attend``
+        takes them."""
+        cfg, tp = self.cfg, self.tp
+        out = {"wo": p["wo"]}
+        for name, hd in (("wuk", cfg.mla.qk_nope_dim),
+                         ("wuv", cfg.mla.v_head_dim)):
+            w = tp.weight_whole(p[name], 0, cfg.mla.kv_lora_rank)
+            if not self.q_whole:
+                w = tp.part(w, 1)
+            out[name] = w
+        return out
+
+
 def mla_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions=None):
+    """Over a "model" axis, on this rank's heads (``_MLAHeads``): the
+    down-projections' outputs through ``copy_in`` (their weights are
+    whole over "model", so their gradients must be every rank's heads'),
+    ``wo`` row-parallel before ``reduce_out``."""
     require_ported(cfg)
     t = x.shape[1]
     if positions is None:
         positions = torch.arange(t, device=x.device)[None, :]
-    q_nope, q_rope, ckv, krope = _mla_qk(p, x, positions, cfg)
+    tp = model_axis()
+    plan = None if tp is None else _MLAHeads(cfg, tp)
+    q_nope, q_rope, ckv, krope = _mla_qk(p, x, positions, cfg, plan)
+    w, cols = (p, None) if plan is None else (plan.weights(p), plan.cols)
     if t > 2 * SDPA_CHUNK:
-        y = _mla_attend_chunked(p, q_nope, q_rope, ckv, krope, cfg)
+        y = _mla_attend_chunked(w, q_nope, q_rope, ckv, krope, cfg, cols=cols)
     else:
         mask = causal_mask(t, cfg.sliding_window, device=x.device)
-        y = _mla_attend(p, q_nope, q_rope, ckv, krope, mask, cfg)
+        y = _mla_attend(w, q_nope, q_rope, ckv, krope, mask, cfg, cols)
+    if plan is not None:
+        y = tp.reduce_out(y)
     return shard_act(y, "btd"), {"ckv": ckv, "krope": krope}
 
 
@@ -458,13 +542,58 @@ def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
 def mla_decode(p: dict, x: torch.Tensor, cache: dict, pos: int,
                cfg: ModelConfig):
     """As ``gqa_decode``: the token's latent entries go into ``cache`` in
-    place."""
+    place. Over a "model" axis, ``_mla_decode_tp``."""
     require_ported(cfg)
     b = x.shape[0]
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    tp = model_axis()
+    if tp is not None:
+        return _mla_decode_tp(p, x, cache, pos, posv, cfg, tp)
     q_nope, q_rope, ckv, krope = _mla_qk(p, x, posv, cfg)
     cache["ckv"][:, pos:pos + 1] = ckv
     cache["krope"][:, pos:pos + 1] = krope
     mask = decode_mask(cache["ckv"].shape[1], pos, device=x.device)[None, :]
     y = _mla_attend(p, q_nope, q_rope, cache["ckv"], cache["krope"], mask, cfg)
     return y, cache
+
+
+def _mla_decode_tp(p: dict, x: torch.Tensor, cache: dict, pos: int, posv,
+                   cfg: ModelConfig, tp):
+    """``mla_decode`` over a "model" axis, on the latent cache as
+    ``launch.sharding.cache_specs`` lays it out. Where it is marked
+    ``latent_seq`` (``Model.decode_step``: the sequence splits over the
+    ranks), each rank holds S / M positions and writes the token's entry
+    only where its slice holds ``pos``; it computes its heads' q (or
+    every head where H does not split) and gathers q over the ranks (an
+    activation of B x H x (nope + rope), not ``wuq``), scores every head
+    over its slice and combines the ranks' (max, sum, out)
+    (``_split_combine``), then takes its heads' columns into its rows of
+    ``wo``. Else the cache is whole and each rank computes its heads."""
+    seq = cache.get("latent_seq", False)
+    plan = _MLAHeads(cfg, tp)
+    q_nope, q_rope, ckv, krope = _mla_qk(p, x, posv, cfg, plan)
+    if not seq:
+        cache["ckv"][:, pos:pos + 1] = ckv
+        cache["krope"][:, pos:pos + 1] = krope
+        mask = decode_mask(cache["ckv"].shape[1], pos, device=x.device)[None]
+        y = _mla_attend(plan.weights(p), q_nope, q_rope, cache["ckv"],
+                        cache["krope"], mask, cfg, plan.cols)
+        return tp.reduce_out(y), cache
+    s_loc = cache["ckv"].shape[1]
+    lo = tp.rank * s_loc
+    if lo <= pos < lo + s_loc:
+        cache["ckv"][:, pos - lo:pos - lo + 1] = ckv
+        cache["krope"][:, pos - lo:pos - lo + 1] = krope
+    if not plan.q_whole:
+        nope = q_nope.shape[-1]
+        q = tp.whole(torch.cat([q_nope, q_rope], dim=-1), 2)
+        q_nope, q_rope = q[..., :nope], q[..., nope:]
+    every = _MLAHeads(cfg, tp, every_head=True)
+    b = x.shape[0]
+    scores, v = _mla_scores(every.weights(p), q_nope, q_rope, cache["ckv"], cache["krope"],
+                            cfg)
+    mask = decode_mask(s_loc * tp.world, pos, device=x.device)[lo:lo + s_loc]
+    out = _split_combine(scores, mask[None, None, None, :], lambda e: (
+        torch.einsum("bhts,bshd->bhtd", e, v.float())), tp)
+    out = out.permute(0, 2, 1, 3).reshape(b, 1, -1).to(v.dtype)
+    return tp.reduce_out(out.narrow(-1, *every.cols) @ p["wo"]), cache

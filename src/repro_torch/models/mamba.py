@@ -14,6 +14,10 @@ takes ``jax.lax.associative_scan``; here a Hillis-Steele scan in plain
 PyTorch, whose tree differs, so the two agree to rounding, not bit for
 bit). Decode keeps (conv window, ssm state) as the layer's cache and
 updates it in place: O(1) a token.
+
+Over a "model" axis (``common.model_axis()``) each rank runs the conv
+and the scan on its Di / M channels, the reference's rules' split of
+``conv``, ``wout`` and the decode caches (``mamba_forward``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .common import dense_init, shard_act
+from .common import dense_init, model_axis, shard_act
 from .config import ModelConfig
 
 
@@ -147,29 +151,86 @@ def _ssm_scan(u, dt, b, c, a, chunk: int = SSM_CHUNK) -> torch.Tensor:
     return torch.cat(ys, dim=1)[:, :t]
 
 
-def _project(p: dict, u: torch.Tensor):
+def _project(p: dict, u: torch.Tensor, tp=None):
     """(B, C, Delta, A) of the conv's activations u: B and C in f32, Delta
-    = softplus of the rank-1 projection plus dt_bias, A = -exp(a_log)."""
-    bc = u @ p["wbc"]
+    = softplus of the rank-1 projection plus dt_bias, A = -exp(a_log).
+    Over a "model" axis ``tp``, u is this rank's channels and ``p`` its
+    rows of ``wbc``, ``wdt``, ``dt_bias`` and ``a_log`` (``_rank_weights``):
+    the projections onto B, C and Delta's rank-1 term are partial sums
+    over the channels, summed over the ranks in one ``reduce_out`` of
+    (B, T, 2 S + 1), and their gradient, which each rank's channels give
+    a part of, in the ``copy_in`` after it."""
+    if tp is None:
+        bc, low = u @ p["wbc"], u @ p["wdt"]
+    else:
+        both = tp.copy_in(tp.reduce_out(torch.cat(
+            [u @ p["wbc"], u @ p["wdt"]], dim=-1)))
+        bc, low = both[..., :-1], both[..., -1:]
     b_in, c_in = bc.float().chunk(2, dim=-1)
-    dt = F.softplus((u @ p["wdt"]).float() + p["dt_bias"])
+    dt = F.softplus(low.float() + p["dt_bias"])
     return b_in, c_in, dt, -torch.exp(p["a_log"])
+
+
+def _in_proj(p: dict, x: torch.Tensor, tp):
+    """(u, z) (B, T, Di each) of x, or over a "model" axis this rank's
+    channels c_r of each. ``win``'s shard is a contiguous block of its
+    2 Di columns (at M = 4, ranks 0-1 hold u's halves and 2-3 z's), so
+    the product of the shard is gathered whole over the ranks on its last
+    dim and narrowed to c_r of u and of z; the backward sums the ranks'
+    gradients of it and keeps this rank's block (``gather_weight`` of an
+    activation: 2 Di x B x T a layer, where gathering ``win`` would move
+    d x 2 Di)."""
+    if tp is None:
+        return (x @ p["win"]).chunk(2, dim=-1)
+    xw = tp.gather_weight(tp.copy_in(x) @ p["win"], x.dim() - 1)
+    u, z = xw.chunk(2, dim=-1)
+    return tp.part(u, -1), tp.part(z, -1)
+
+
+def _rank_weights(p: dict, cfg: ModelConfig, tp) -> dict:
+    """``p`` with the per-channel weights narrowed to this rank's channels
+    c_r over the "model" axis ``tp`` (``conv``, ``wout`` and the caches
+    are split on Di by the rules already): ``conv_b``, ``dt_bias``,
+    ``d_skip`` and ``wdt``, whole over "model", and ``wbc`` and
+    ``a_log``, split on their columns (B / C and the state) or whole
+    where those do not divide, are taken whole (``weight_whole``) and
+    narrowed to their rows c_r, so each gradient sums every rank's
+    rows."""
+    m = cfg.mamba
+    di = m.expand * cfg.d_model
+    out = dict(p)
+    for name, dim, width in (("conv_b", 0, di), ("dt_bias", 0, di),
+                             ("d_skip", 0, di), ("wdt", 1, 1),
+                             ("wbc", 1, 2 * m.d_state),
+                             ("a_log", 1, m.d_state)):
+        out[name] = tp.part(tp.weight_whole(p[name], dim, width), 0)
+    return out
 
 
 def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, T, d) -> (B, T, d). The causal depthwise conv is the
     reference's Python ``sum`` of d_conv shifted products, in its order
-    and in the model dtype."""
+    and in the model dtype. Over a "model" axis each rank runs the conv
+    and the scan on its Di / M channels (``_in_proj``, ``_rank_weights``;
+    the scan needs no collective), the projections onto B, C and Delta
+    summed over the ranks (``_project``), and ``wout`` row-parallel
+    before ``reduce_out``."""
     m = cfg.mamba
     t = x.shape[1]
-    u, z = (x @ p["win"]).chunk(2, dim=-1)                   # (B,T,Di) each
+    tp = model_axis()
+    if tp is not None:
+        p = _rank_weights(p, cfg, tp)
+    u, z = _in_proj(p, x, tp)                                # (B,T,Di) each
     u_pad = F.pad(u, (0, 0, m.d_conv - 1, 0))
     conv = sum(u_pad[:, i:i + t] * p["conv"][i] for i in range(m.d_conv))
     u = shard_act(F.silu(conv + p["conv_b"]), "btf")
-    b_in, c_in, dt, a = _project(p, u)
+    b_in, c_in, dt, a = _project(p, u, tp)
     y = _ssm_scan(u.float(), dt, b_in, c_in, a)
     y = y + p["d_skip"] * u.float()
-    return shard_act((y.to(x.dtype) * F.silu(z)) @ p["wout"], "btd")
+    y = (y.to(x.dtype) * F.silu(z)) @ p["wout"]
+    if tp is not None:
+        y = tp.reduce_out(y)
+    return shard_act(y, "btd")
 
 
 def mamba_init_cache(cfg: ModelConfig, batch: int, device) -> dict:
@@ -185,18 +246,25 @@ def mamba_init_cache(cfg: ModelConfig, batch: int, device) -> dict:
 
 def mamba_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
     """x: (B, 1, d). One recurrence step; the new conv window and state
-    are written into ``cache`` in place, which is returned."""
-    u, z = (x @ p["win"]).chunk(2, dim=-1)                   # (B,1,Di)
+    are written into ``cache`` in place, which is returned. Over a
+    "model" axis, on this rank's channels as ``mamba_forward``, with the
+    cache's conv window and state of those channels (``cache_specs``)."""
+    tp = model_axis()
+    if tp is not None:
+        p = _rank_weights(p, cfg, tp)
+    u, z = _in_proj(p, x, tp)                                # (B,1,Di)
     window = torch.cat([cache["conv"], u], dim=1)            # (B,d_conv,Di)
     conv = torch.einsum("bkd,kd->bd", window, p["conv"])[:, None]
     u_act = F.silu(conv + p["conv_b"])
-    b_in, c_in, dt, a = _project(p, u_act)
+    b_in, c_in, dt, a = _project(p, u_act, tp)
     decay = torch.exp(dt[:, 0, :, None] * a[None])           # (B,Di,S)
     inc = (dt[:, 0] * u_act[:, 0].float())[..., None] * b_in[:, 0, None, :]
     ssm = cache["ssm"] * decay + inc
     y = torch.einsum("bds,bs->bd", ssm, c_in[:, 0])[:, None]
     y = y + p["d_skip"] * u_act.float()
     y = (y.to(x.dtype) * F.silu(z)) @ p["wout"]
+    if tp is not None:
+        y = tp.reduce_out(y)
     cache["conv"].copy_(window[:, 1:])
     cache["ssm"].copy_(ssm)
     return y, cache

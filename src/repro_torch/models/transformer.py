@@ -114,12 +114,14 @@ def layer_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
 
 def period_len(cfg: ModelConfig) -> int:
     """Layers per segment: the period of ``layer_kinds`` (1 for the
-    uniform stacks)."""
+    uniform stacks). A hybrid stack cut below one period (jamba's first
+    two layers, Mamba + MLP and Mamba + MoE, which the reference's model
+    refuses) is one segment of its ``n_layers`` layers."""
     if cfg.family == "hybrid":
         p = cfg.attn_every
         if cfg.moe is not None:
             p = max(p, 2) if p % 2 == 0 else p * 2
-        return p
+        return min(p, cfg.n_layers)
     if cfg.family == "ssm":
         return cfg.xlstm.slstm_every
     return 1
@@ -216,6 +218,9 @@ def _embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
 
 
 _STACKS = ("layers", "enc_layers")
+# a cache's marks that its sequence is split over the "model" axis: GQA's
+# KV caches, MLA's latent caches
+_SEQ_MARKS = ("kv_seq", "latent_seq")
 
 
 def _kept(tree, path: str, keep, lead: tuple = ()):
@@ -417,7 +422,8 @@ class Model:
         sLSTM's (c, n, h, m); for encdec the encoder's memory ``enc``
         (B, enc_seq, d), zeros until the caller fills it. Whoever lays
         the KV caches out over a "model" axis with their sequence split
-        (``cache_specs``) sets ``kv_seq`` True beside ``blocks``."""
+        (``cache_specs``) sets ``kv_seq`` True beside ``blocks``, and
+        ``latent_seq`` for MLA's latent caches."""
         cfg = self.cfg
         dev = resolve_device(device)
         blocks = []
@@ -438,12 +444,12 @@ class Model:
         tokens of the step as one group; the aux loss is dropped, as in
         the reference. The layers run segment by segment, each position
         of the period in turn; a recurrent mixer writes its new state
-        into its slot of the stacked cache. ``kv_seq`` reaches each
-        layer's cache."""
+        into its slot of the stacked cache. The marks ``kv_seq`` and
+        ``latent_seq`` reach each layer's cache."""
         cfg = self.cfg
         x = _embed_lookup(params["embed"], token, cfg.vocab)
         memory = cache["enc"] if self.cross else None
-        mark = {"kv_seq": True} if cache.get("kv_seq", False) else {}
+        mark = {k: True for k in _SEQ_MARKS if cache.get(k, False)}
         if self.cross:
             x = x + sinusoid_at(pos, cfg.d_model, x.dtype, x.device)
         for i in range(self.n_segments):

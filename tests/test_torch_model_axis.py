@@ -448,11 +448,12 @@ def _fake_mesh(shape):
                                  shape=shape)
 
 
-# (arch, what the refusal names, hvp): the MoE family is laid out over
-# "model" since the dense one was; its Hutchinson curvature is not, so
-# its case is refused for hvp, which ``generate`` does not take
-REFUSED = [("granite-moe-1b-a400m", "hvp", True), ("minicpm3-4b", "mla", False),
-           ("jamba-1.5-large-398b", "hybrid", False),
+# (arch, what the refusal names, hvp): the MoE family, MLA and the hybrid
+# family are laid out over "model" since the dense one was; their
+# Hutchinson curvature is not, so their cases are refused for hvp, which
+# ``generate`` does not take
+REFUSED = [("granite-moe-1b-a400m", "hvp", True), ("minicpm3-4b", "hvp", True),
+           ("jamba-1.5-large-398b", "hvp", True),
            ("xlstm-350m", "ssm", False), ("whisper-tiny", "encdec", False),
            ("llava-next-34b", "vlm", False)]
 

@@ -8,13 +8,15 @@ Every rank trains the arch at its published width (``--smoke``: the
 reduced one) through ``launch.train.train(mesh=make_host_mesh(data,
 model))`` (fednl, 8 x 128 tokens, a refresh every 2 steps) on its own
 card, the params and the fednl state laid out by the rules: split over
-"model" the dense and MoE families compute tensor-parallel (an MoE
-expert parallel where its experts divide the extent, else inside each
-expert), and each index of "data" is one FedNL silo, whose observation
-goes through the per-layer gather. ``train``'s step donates its inputs (H, the
+"model" the dense, MoE and hybrid families compute tensor-parallel (an
+MoE expert parallel where its experts divide the extent, else inside
+each expert; MLA on its heads; a Mamba mixer on its channels), and each
+index of "data" is one FedNL silo, whose observation goes through the
+per-layer gather. ``train``'s step donates its inputs (H, the
 momentum and the params are updated in place), so one copy of the state
-is alive. ``--layers N`` cuts the depth (the width stays published) and
-``--lr`` sets the step size. Then, where one card holds the arch's
+is alive. ``--layers N`` cuts the depth (the width stays published; a hybrid
+stack below one period keeps its first N layers, jamba's 1 and 2 are
+Mamba + MLP and Mamba + MoE) and ``--lr`` sets the step size. Then, where one card holds the arch's
 fednl state (the weights, H and momentum are under half its memory),
 rank 0 runs the same steps without a mesh, one process with
 ``n_silos`` = the data extent, and compares: each step's loss within
@@ -27,7 +29,8 @@ product's, so H's gap is reported (the refresh itself, handed the same
 observations, is held bit for bit by ``tests/test_torch_model_axis.py``
 and ``chip_smoke.py`` phase 16). Where no card
 holds it (starcoder2-15b: 31.9 GB of weights and 127.6 GB of f32 H and
-momentum), there is no twin: every loss must be finite, and
+momentum), or where the twin runs out of memory (reported as
+``one_out_of_memory``), there is no twin: every loss must be finite, and
 ``--against FILE`` holds each step's loss within ``LOSS_REL`` of the
 run whose JSON is in FILE (another mesh's run of the same arch).
 
@@ -235,11 +238,20 @@ def train_check(args, dev: torch.device) -> dict:
            "local_bytes": rec["bytes"][0], "whole_bytes": rec["bytes"][1],
            "losses_finite": all(math.isfinite(x) for x in rec["loss"])}
     ok = out["losses_finite"]
+    one = None
     if twin:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
-        one = one_process(args, data, dev)
+        try:
+            one = one_process(args, data, dev)
+        except torch.OutOfMemoryError as exc:
+            # the twin's state is under half the card, its step's
+            # temporaries not: reported, and the run held as one no card
+            # holds
+            out["one_out_of_memory"] = str(exc).splitlines()[0]
+            torch.cuda.empty_cache()
+    if one is not None:
         out["h_bitwise"] = all(
             torch.equal(a.cpu(), b.cpu()) for a, b in
             zip(tree_leaves(rec["h"]), tree_leaves(one["h"])))
@@ -269,17 +281,12 @@ def train_check(args, dev: torch.device) -> dict:
     return out
 
 
-def _f32(arch: str, smoke: bool):
-    return dataclasses.replace(get_config(arch, smoke=smoke),
-                               dtype="float32")
-
-
-def _prefill(arch: str, smoke: bool, t: int, dev: torch.device, mesh):
+def _prefill(args, t: int, dev: torch.device, mesh):
     """``make_prefill`` of one (1, t) prompt drawn as ``generate`` draws
     it (the weights, then the prompt, from one seeded generator), on
     this rank's shards over ``mesh``'s model axis (None: on the card
     alone): the logits gathered whole, host ms, K9's launches."""
-    cfg = _f32(arch, smoke)
+    cfg = _config(args, dtype="float32")
     model = build_model(cfg)
     g = torch.Generator(device=dev).manual_seed(0)
     tp = None if mesh is None else make_model_axis(mesh)
@@ -351,11 +358,11 @@ def _route_share(prefill, params, tokens, tp, dev) -> dict:
             "share": sum(spent) / total, "routings": len(spent)}
 
 
-def _generate(arch: str, smoke: bool, gen: int, dev: torch.device, mesh):
-    """``generate`` of ``gen`` greedy tokens after a ``SERVE_PROMPT``
+def _generate(args, dev: torch.device, mesh):
+    """``generate`` of ``--gen`` greedy tokens after a ``SERVE_PROMPT``
     prompt in f32, with each serve step timed: (tokens, ms a decode
     step)."""
-    cfg = _f32(arch, smoke)
+    cfg = _config(args, dtype="float32")
     times = []
     make, get = serve_mod.make_serve_step, serve_mod.get_config
 
@@ -375,9 +382,9 @@ def _generate(arch: str, smoke: bool, gen: int, dev: torch.device, mesh):
     serve_mod.make_serve_step = timed_serve
     serve_mod.get_config = lambda a, smoke=True: cfg
     try:
-        seqs = serve_mod.generate(arch, smoke=smoke, batch=1,
-                                  prompt_len=SERVE_PROMPT, gen=gen, seed=0,
-                                  greedy=True, device=dev, mesh=mesh)
+        seqs = serve_mod.generate(args.arch, smoke=args.smoke, batch=1,
+                                  prompt_len=SERVE_PROMPT, gen=args.gen,
+                                  seed=0, greedy=True, device=dev, mesh=mesh)
     finally:
         serve_mod.make_serve_step, serve_mod.get_config = make, get
     return seqs.cpu(), times[SERVE_PROMPT:]
@@ -401,9 +408,9 @@ def _flips(one: list, mesh: list) -> dict:
 def serve_check(args, dev: torch.device) -> dict:
     with scoped_group():
         mesh = make_host_mesh(args.data, args.model, device=dev)
-        logits, ms, k9, route, routes = _prefill(args.arch, args.smoke,
-                                                 args.prompt, dev, mesh)
-        seqs, tok_ms = _generate(args.arch, args.smoke, args.gen, dev, mesh)
+        logits, ms, k9, route, routes = _prefill(args, args.prompt, dev,
+                                                 mesh)
+        seqs, tok_ms = _generate(args, dev, mesh)
         rank = dist.get_rank()
         peak = _peak_gb(dev)
         ext = extents(mesh)
@@ -413,13 +420,12 @@ def serve_check(args, dev: torch.device) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     one_logits, one_ms, one_k9, one_route, one_routes = _prefill(
-        args.arch, args.smoke, args.prompt, dev, None)
-    one_seqs, one_tok_ms = _generate(args.arch, args.smoke, args.gen, dev,
-                                     None)
+        args, args.prompt, dev, None)
+    one_seqs, one_tok_ms = _generate(args, dev, None)
     gap = float((logits - one_logits).abs().max())
     top = float(one_logits.abs().max())
-    out = {"arch": args.arch, "smoke": args.smoke, "mesh": ext,
-           "dtype": "float32", "prefill_t": args.prompt, "gen": args.gen,
+    out = {"arch": args.arch, "smoke": args.smoke, "layers": args.layers,
+           "mesh": ext, "dtype": "float32", "prefill_t": args.prompt, "gen": args.gen,
            "prompt": SERVE_PROMPT, "mesh_prefill_ms": ms,
            "one_prefill_ms": one_ms, "k9_launches_rank0": k9,
            "k9_launches_one": one_k9,
@@ -450,7 +456,7 @@ def main(argv=None) -> int:
     ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth to this many layers (training)")
+                    help="cut the depth to this many layers")
     ap.add_argument("--lr", type=float, default=ARGS["lr"])
     ap.add_argument("--against", default=None,
                     help="JSON of another run of the arch, whose losses "
