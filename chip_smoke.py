@@ -278,7 +278,19 @@ Phases, each failing the run with a non-zero exit:
      plain version with its time, bound, plain and SDPA time (the kernel
      line's ``n_rep12_window``); a refresh played on the model shards
      (each rank's K1 on its tiles, then K4) equal to the one-call refresh
-     bit for bit on every tensor split on tile bounds;
+     bit for bit on every tensor split on tile bounds; 16b-16d the same
+     for the MoE family (granite, grok-1), MLA (minicpm3-4b) and the
+     hybrid family (jamba);
+  16e. xlstm-350m over 4 played ranks whole in f32 (a head a rank), one
+     period in bf16, each layer teacher-forced, one period in f32 over 4
+     and 16 ranks with decode == forward over the laid-out caches
+     (the mLSTM's n and m equal on every rank), the refresh played on
+     one period's shards (path ``model_axis_ssm``: K1, K4);
+  16f. whisper-tiny over 2 and 4 played ranks and llava-next-34b's first
+     2 layers over 4, bf16 and f32 (K9 on each rank's heads: path
+     ``model_axis_encdec_vlm``), K9 alone at a rank's heads and the
+     decoder's length (llava 14 over 2 at 4,096, whisper 3 over 3 at
+     640), the refresh played on their shards;
   then print what the profiler failed to record (each such figure timed
   by CUDA events instead, or not measured), the kernel line (with each
   wrapper's registers and shared bytes, ``launch``, and its tuned cases,
@@ -5712,9 +5724,14 @@ def played_model_axis(world: int):
     process on one card: each thread sets its ``rank`` (thread-local) and
     the collectives meet at a barrier, each rank's tensor copied into a
     slot and the reduction made in rank order by every thread alike.
-    Forward only: the played ranks make no backward (autograd runs a
-    device's backward on one thread, where two ranks would wait on each
-    other)."""
+    The ranks run in turns (``turn``, held by a rank from its start to
+    its next collective, given up while it waits there): every torch
+    call gives up the GIL, so ranks running at once would hand it to
+    each other at every launch, and a rank's sLSTM loop of 22 launches a
+    step ran several times slower than alone. The card serializes the
+    ranks' launches on its one stream either way. Forward only: the
+    played ranks make no backward (autograd runs a device's backward on
+    one thread, where two ranks would wait on each other)."""
     import threading
 
     import torch
@@ -5726,6 +5743,7 @@ def played_model_axis(world: int):
             super().__init__(None)
             self.world = world
             self.barrier = threading.Barrier(world, timeout=600)
+            self.turn = threading.Lock()
             self._slots = [None] * world
 
         @property
@@ -5736,11 +5754,19 @@ def played_model_axis(world: int):
         def rank(self, r):
             self._local.rank = r
 
+        def _meet(self):
+            """The barrier, this rank's turn given up while it waits."""
+            self.turn.release()
+            try:
+                self.barrier.wait()
+            finally:
+                self.turn.acquire()
+
         def _exchange(self, x):
             self._slots[self.rank] = x.clone()
-            self.barrier.wait()
+            self._meet()
             parts = list(self._slots)
-            self.barrier.wait()
+            self._meet()
             return parts
 
         def _all_gather(self, x):
@@ -5760,9 +5786,10 @@ def played_model_axis(world: int):
 
 
 def play_ranks(axis, fn) -> list:
-    """``fn(rank)`` on a thread per rank of the played ``axis``, with the
-    axis installed as the models' model axis; the results in rank order.
-    A rank that raises breaks the barrier, so the others stop too."""
+    """``fn(rank)`` on a thread per rank of the played ``axis``, in
+    turns between its collectives, with the axis installed as the models'
+    model axis; the results in rank order. A rank that raises breaks the
+    barrier, so the others stop too."""
     import threading
 
     from repro_torch.models.common import set_activation_sharder
@@ -5770,12 +5797,13 @@ def play_ranks(axis, fn) -> list:
     out, errors = [None] * axis.world, []
 
     def run(r):
-        try:
-            axis.rank = r
-            out[r] = fn(r)
-        except BaseException as exc:   # re-raised below, after the join
-            errors.append(exc)
-            axis.barrier.abort()
+        with axis.turn:
+            try:
+                axis.rank = r
+                out[r] = fn(r)
+            except BaseException as exc:   # re-raised below, after the join
+                errors.append(exc)
+                axis.barrier.abort()
 
     set_activation_sharder(None, None, axis)
     try:
@@ -5792,11 +5820,56 @@ def play_ranks(axis, fn) -> list:
     return out
 
 
+# a played prefill's warm-up: each rank's prefill of its first this many
+# tokens (the kernels and the allocator's blocks are warm by then)
+PLAYED_WARMUP_T = 64
+
+
+def played_prefill(prefill, shards, axis, batch, K, last=False,
+                   watch=None) -> tuple:
+    """Each played rank's prefill of ``batch`` on its shards, after a
+    warm-up on its first ``PLAYED_WARMUP_T`` tokens, with the counts set
+    to 0 just before and read just after: (host ms, each rank's f32
+    logits, of the last position where ``last`` (a bool, or of the
+    rank) says so, else of all, the counts, what ``watch`` (a context
+    manager entered around the measured prefill alone) gave)."""
+    import torch
+
+    short = {**batch, "tokens": batch["tokens"][:, :PLAYED_WARMUP_T]}
+    play_ranks(axis, lambda r: prefill(shards[r], short))   # warm-up
+
+    def run(r):
+        out = prefill(shards[r], batch)[0]
+        keep = last(r) if callable(last) else last
+        return (out[-1:] if keep else out).float()
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with (watch if watch is not None else contextlib.nullcontext()) as seen:
+        ms, logits = host_ms(lambda: play_ranks(axis, run))
+    return ms, logits, counts(K), seen
+
+
+def joined_logits(logits: list, vocab: int, world: int, what: str):
+    """The whole logits from each played rank's: their vocab blocks side
+    by side where the axis splits the vocab, else (the rules replicate
+    the table) rank 0's, whose trailing rows every rank's must equal."""
+    import torch
+
+    if vocab % world == 0:
+        return torch.cat(logits, dim=-1)
+    require(all(torch.equal(logits[0][-len(x):], x) for x in logits[1:]),
+            f"{what}: the ranks' whole logits differ (the vocab is "
+            f"replicated over 'model')")
+    return logits[0]
+
+
 def model_axis_k9(dev, seed: int, h: int = 12, kvh: int = 1, hd: int = 128,
-                  w=4096) -> dict:
-    """K9 on one played rank's heads at T = 4,096: ``h`` q heads over
-    ``kvh`` KV heads of ``hd``, window ``w`` (None: causal); by default
-    starcoder2-15b's (12 over 1, hd 128, window 4,096). Every head
+                  w=4096, t: int = MODEL_AXIS_T) -> dict:
+    """K9 on one played rank's heads at T = ``t`` (4,096 by default):
+    ``h`` q heads over ``kvh`` KV heads of ``hd``, window ``w`` (None:
+    causal); by default starcoder2-15b's (12 over 1, hd 128, window
+    4,096). Every head
     against its plain version in bf16 and f32 (``check_flash``), then
     the bf16 call's ms, device ms, bound, plain and SDPA ms."""
     import torch
@@ -5805,7 +5878,6 @@ def model_axis_k9(dev, seed: int, h: int = 12, kvh: int = 1, hd: int = 128,
         flash_attention_ref,
     )
 
-    t = MODEL_AXIS_T
     g = torch.Generator(device=dev).manual_seed(seed)
     err = {"flash_attention": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
@@ -6334,16 +6406,9 @@ def model_axis_moe(K, card: str, dev, seed: int) -> tuple:
             del params
             torch.cuda.empty_cache()
 
-            def rank_prefill(r):
-                return prefill(shards[r], {"tokens": tokens})[0, -1:].float()
-
-            play_ranks(axis, rank_prefill)                  # warm-up
-            torch.cuda.synchronize()
-            K.reset_launches()
-            with routes_by_rank(axis) as played_routes:
-                played_ms, logits = host_ms(lambda: play_ranks(
-                    axis, rank_prefill))
-            got = counts(K)
+            played_ms, logits, got, played_routes = played_prefill(
+                prefill, shards, axis, {"tokens": tokens}, K, last=True,
+                watch=routes_by_rank(axis))
             flips = route_flips(routes[None], played_routes[0])
             n = world * cfg.n_layers
             route = "wgmma" if dtype == "bfloat16" else "ffma"
@@ -6355,13 +6420,8 @@ def model_axis_moe(K, card: str, dev, seed: int) -> tuple:
             for key in ("flash_attention", f"flash_attention:{route}"):
                 launches[key] += got[key]
             split_vocab = cfg.vocab % world == 0
-            if split_vocab:
-                joined = torch.cat(logits, dim=-1)
-            else:
-                require(all(torch.equal(logits[0], x) for x in logits[1:]),
-                        f"{arch}, {dtype}: the ranks' whole logits differ "
-                        f"(the vocab is replicated over 'model')")
-                joined = logits[0]
+            joined = joined_logits(logits, cfg.vocab, world,
+                                   f"{arch}, {dtype}")
             top = float(whole.abs().max())
             gap = float((joined - whole).abs().max())
             tol = (MODEL_AXIS_F32_REL if dtype == "float32"
@@ -6436,12 +6496,14 @@ def greedy_held(whole_last, toks: list, gap: float) -> bool:
     return float(whole_last.max() - whole_last[toks[0]]) <= 2 * gap
 
 
-def played_decode(model, shards, axis, tokens, ext) -> list:
+def played_decode(model, shards, axis, tokens, ext, caches=None) -> list:
     """Greedy-free decode of ``tokens`` (1, T) on every played rank of
     ``axis`` from its shards, over its part of the cache as
     ``cache_specs`` lays it out (the latent cache's sequence split where
     T divides by the ranks, marked ``latent_seq`` as ``generate`` marks
-    it): each rank's logits at every position, (T, V or V / M)."""
+    it): each rank's logits at every position, (T, V or V / M). Each
+    rank's cache after the last token goes into ``caches`` by rank where
+    given."""
     import torch
     from repro_torch.launch.sharding import cache_specs, model_parts
     from repro_torch.launch.steps import make_serve_step
@@ -6460,6 +6522,8 @@ def played_decode(model, shards, axis, tokens, ext) -> list:
             logits, mine = serve(shards[r], mine, tokens[:, pos:pos + 1],
                                  pos)
             out.append(logits[0].float())
+        if caches is not None:
+            caches[r] = mine
         return torch.cat(out)
 
     return play_ranks(axis, run)
@@ -6523,29 +6587,17 @@ def model_axis_mla(K, card: str, dev, seed: int) -> dict:
             torch.cuda.empty_cache()
             axis = played_model_axis(world)
             split_vocab = cfg.vocab % world == 0
-
-            def rank_prefill(r):
-                out = prefill(shards[r], {"tokens": tokens})[0].float()
-                return out if split_vocab or r == 0 else out[-1:]
-
-            play_ranks(axis, rank_prefill)                  # warm-up
-            torch.cuda.synchronize()
-            K.reset_launches()
-            played_ms, logits = host_ms(lambda: play_ranks(axis,
-                                                           rank_prefill))
-            got = counts(K)
+            # where the vocab is replicated, rank 0's logits of every
+            # position, the others' of the last
+            played_ms, logits, got, _ = played_prefill(
+                prefill, shards, axis, {"tokens": tokens}, K,
+                last=lambda r: not split_vocab and r > 0)
             require(got["flash_attention"] == 0,
                     f"{MLA_AXIS_ARCH} over {world} played ranks, {dtype}: "
                     f"the MLA prefill launched K9 {got['flash_attention']} "
                     f"times")
-            if split_vocab:
-                joined = torch.cat(logits, dim=-1)
-            else:
-                require(all(torch.equal(logits[0][-1:], x)
-                            for x in logits[1:]),
-                        f"{MLA_AXIS_ARCH}, {dtype}: the ranks' whole logits "
-                        f"differ (the vocab is replicated over 'model')")
-                joined = logits[0]
+            joined = joined_logits(logits, cfg.vocab, world,
+                                   f"{MLA_AXIS_ARCH}, {dtype}")
             top = float(whole.abs().max())
             gap = float((joined - whole).abs().max())
             tol = (MODEL_AXIS_F32_REL if dtype == "float32"
@@ -6572,10 +6624,8 @@ def model_axis_mla(K, card: str, dev, seed: int) -> dict:
             if dec_want is not None:
                 dec_ms, dec = host_ms(lambda: played_decode(
                     model, shards, axis, dec_tokens, ext))
-                dec_joined = torch.cat(dec, -1) if split_vocab else dec[0]
-                require(split_vocab or all(torch.equal(dec[0], x)
-                                           for x in dec[1:]),
-                        f"{MLA_AXIS_ARCH}: the ranks' decode logits differ")
+                dec_joined = joined_logits(dec, cfg.vocab, world,
+                                           f"{MLA_AXIS_ARCH} decode")
                 dtop = float(dec_want.abs().max())
                 dgap = float((dec_joined - dec_want).abs().max())
                 require(dgap <= MODEL_AXIS_F32_REL * dtop,
@@ -6724,22 +6774,13 @@ def model_axis_hybrid(K, card: str, dev, seed: int) -> tuple:
         del params
         torch.cuda.empty_cache()
         last = dtype != "float32"
-
-        def rank_prefill(r):
-            out = prefill(shards[r], {"tokens": tokens})[0]
-            return (out[-1:] if last else out).float()
-
-        play_ranks(axis, rank_prefill)                      # warm-up
-        torch.cuda.synchronize()
-        K.reset_launches()
-        with routes_by_rank(axis) as played_routes:
-            played_ms, logits = host_ms(lambda: play_ranks(axis,
-                                                           rank_prefill))
-        got = counts(K)
+        played_ms, logits, got, played_routes = played_prefill(
+            prefill, shards, axis, {"tokens": tokens}, K, last=last,
+            watch=routes_by_rank(axis))
         require(got["flash_attention"] == 0,
                 f"{HYBRID_AXIS_ARCH}: a stack without attention launched K9")
         flips = route_flips(routes.get(None, []), played_routes.get(0, []))
-        joined = torch.cat(logits, dim=-1)
+        joined = joined_logits(logits, cfg.vocab, world, HYBRID_AXIS_ARCH)
         top = float(whole.abs().max())
         gap = float((joined - whole).abs().max())
         tol = (MODEL_AXIS_F32_REL if dtype == "float32"
@@ -6782,6 +6823,338 @@ def model_axis_hybrid(K, card: str, dev, seed: int) -> tuple:
     rep["s"] = time.perf_counter() - t0
     print(json.dumps({"model_axis_hybrid": rep}), flush=True)
     torch.cuda.empty_cache()
+    return launches, k9
+
+
+# phase 16e: xLSTM's "model" axis (xlstm-350m), ranks played on the card:
+# (layers (None: all 24), played ranks, dtype, T, decode steps (0: none,
+# each layer teacher-forced instead)): the whole model in f32 over 4
+# ranks (a head a rank); one period (8 layers) in bf16 over 4; one period
+# in f32 over 4 and over 16 (4 heads: every rank computes every head)
+# with decode == forward over the laid-out caches. T of the one-period
+# f32 cases is 512, two mLSTM chunks: a played decode step costs a few
+# barriers a layer, and a played sLSTM step runs on every rank
+SSM_AXIS_ARCH = "xlstm-350m"
+SSM_AXIS_CASES = ((None, 4, "float32", 4096, 0),
+                  (8, 4, "bfloat16", 4096, 0),
+                  (8, 4, "float32", 512, 16),
+                  (8, 16, "float32", 512, 4))
+# xLSTM's f32 logits answer a rounding-sized change of its weights by far
+# more than 1e-4 of the largest at depth (the mLSTM's normalizer): the
+# played ranks' f32 logits are held within the larger of
+# MODEL_AXIS_F32_REL and ``tree.SPREAD_FACTOR`` times the unsplit model's
+# own spread under such a change, the largest over SPREAD_DRAWS draws
+# (``rounding_floor``), and each layer teacher-forced within
+# MODEL_AXIS_F32_REL
+SPREAD_DRAWS = 3
+
+
+def rounding_floor(prefill, params, batch, whole, seed: int) -> float:
+    """The unsplit model's own spread at its rounding: the largest gap of
+    its logits from ``whole``, its logits, when its weights are
+    ``tree.nudged``, over ``SPREAD_DRAWS`` draws, relative to the
+    largest of ``whole``."""
+    import torch
+    from repro_torch.tree import nudged
+
+    g = torch.Generator(device=whole.device).manual_seed(seed + 11)
+    gap = 0.0
+    for _ in range(SPREAD_DRAWS):
+        moved = nudged(params, g)
+        out = prefill(moved, batch)[0].float()
+        del moved
+        gap = max(gap, float((out - whole).abs().max()))
+    return gap / float(whole.abs().max())
+
+
+def model_axis_ssm(K, card: str, dev, seed: int) -> dict:
+    """Phase 16e: xlstm-350m (7 mLSTM blocks and one sLSTM a period, 4
+    heads of 256, no MLP) at its published width over a "model" axis of
+    ranks played by threads on the card (``played_model_axis``). Each
+    rank's mLSTM computes its heads from its column shards of ``wq``,
+    ``wk``, ``wv``, ``wo_gate`` and ``wif`` (over 16 ranks, where 4 heads
+    do not split, every head from those weights gathered whole, and the
+    rank's 64 columns of y * o into its rows of ``wout``); each rank's
+    sLSTM runs the whole recurrence from ``wx``, ``wr`` and ``b`` taken
+    whole, no collective inside its loop, and keeps its rows of y for
+    its rows of ``wout``. For each of ``SSM_AXIS_CASES``: the unsplit
+    model's prefill of one prompt, then each played rank's on its shards
+    (``rank_shards``, ``played_prefill``; xLSTM takes no K9: none may
+    launch), f32 logits within the larger of ``MODEL_AXIS_F32_REL`` and
+    ``tree.SPREAD_FACTOR`` times the model's own spread at f32 rounding
+    (``rounding_floor``) of the largest, and the greedy token
+    (``greedy_held``); where there is no decode, each layer
+    teacher-forced on the unsplit model's own input
+    (``teacher_forced_layers``: f32 within ``MODEL_AXIS_F32_REL``, bf16
+    every layer's largest gap within ``DECODE_TOL`` of its largest
+    output; the whole bf16 model's gap is reported, not held, since its
+    normalizer grows the rounding from segment to segment); in f32 at one
+    period, the case's decode steps on every rank over its part of the
+    caches (``cache_specs``: the mLSTM's C its heads where they
+    split, n and m whole; the sLSTM's state whole), against the unsplit
+    model's forward within the same kind of bound, and every cache leaf a
+    rank holds whole equal on every rank after them. Then the refresh played
+    on every split tensor of one period over 4 ranks
+    (``model_axis_refresh``). Returns the path's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import argmax_over
+    from repro_torch.launch.sharding import tree_param_specs
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.models import build_model
+    from repro_torch.tree import SPREAD_FACTOR
+
+    t0 = time.perf_counter()
+    launches = {"diff_topk_payload": 0, "block_scatter_accumulate": 0}
+    rep = {"arch": SSM_AXIS_ARCH, "card": card, "cases": []}
+    for layers, world, dtype, t, decode in SSM_AXIS_CASES:
+        ext = {"data": 1, "model": world}
+        cfg = get_config(SSM_AXIS_ARCH)
+        cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                                  dtype=dtype)
+        what = (f"{SSM_AXIS_ARCH} ({cfg.n_layers} layers) over {world} "
+                f"played ranks, {dtype}")
+        model = build_model(cfg)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        params = model.init_params(g)
+        tokens = torch.randint(0, cfg.vocab, (1, t), generator=g, device=dev)
+        prefill = make_prefill(model)
+        f32 = dtype == "float32"
+        forced = not decode
+        with (layers_recorded() if forced
+              else contextlib.nullcontext([])) as rec:
+            whole_ms, whole = host_ms(
+                lambda: prefill(params, {"tokens": tokens}))
+        whole = whole[0].float()
+        floor = (rounding_floor(prefill, params, {"tokens": tokens}, whole,
+                                seed) if f32 else None)
+        dec_tokens = tokens[:, :decode]
+        dec_want = dec_floor = None
+        if decode:
+            dec_want = prefill(params, {"tokens": dec_tokens})[0].float()
+            dec_floor = rounding_floor(prefill, params,
+                                       {"tokens": dec_tokens}, dec_want, seed)
+        shards = rank_shards(params, tree_param_specs(params, ext), world)
+        del params
+        torch.cuda.empty_cache()
+        axis = played_model_axis(world)
+        played_ms, logits, got, _ = played_prefill(
+            prefill, shards, axis, {"tokens": tokens}, K)
+        require(got["flash_attention"] == 0,
+                f"{what}: the xLSTM prefill launched K9")
+        joined = joined_logits(logits, cfg.vocab, world, what)
+        top = float(whole.abs().max())
+        gap = float((joined - whole).abs().max())
+        toks = play_ranks(axis, lambda r: int(argmax_over(
+            logits[r][-1:], axis if cfg.vocab % world == 0 else None)[0]))
+        entry = {"layers": cfg.n_layers, "ranks_played": world,
+                 "dtype": dtype, "t": t,
+                 "heads_split": cfg.n_heads % world == 0,
+                 "whole_prefill_ms": whole_ms,
+                 "played_prefill_ms": played_ms, "logit_gap": gap,
+                 "logit_max": top, "greedy_token": toks[0],
+                 "greedy_equal": toks[0] == int(torch.argmax(whole[-1]))}
+        require(bool(torch.isfinite(joined).all()), f"{what}: not finite")
+        del logits, joined
+        if forced:
+            entry["teacher_forced"] = teacher_forced_layers(
+                model, shards, axis, rec, [], dtype)
+            worst = entry["teacher_forced"]["max_gap_over_max"]
+            rel = MODEL_AXIS_F32_REL if f32 else DECODE_TOL
+            require(worst <= rel,
+                    f"{what}, teacher-forced: a layer's output is {worst} of "
+                    f"its largest from the unsplit layer's (bound {rel})")
+        if f32:
+            tol = max(MODEL_AXIS_F32_REL, SPREAD_FACTOR * floor) * top
+            require(gap <= tol and greedy_held(whole[-1], toks, gap),
+                    f"{what}: the logits are {gap} from the unsplit model's "
+                    f"(bound {tol}; its own spread at f32 rounding {floor} "
+                    f"of the largest), greedy {toks}")
+            entry.update(bound=tol, rounding_floor=floor)
+        else:
+            # the whole bf16 model is reported, not held (module comment)
+            entry["whole_model_gap_held"] = False
+        del rec, whole
+        if decode:
+            caches = {}
+            dec_ms, dec = host_ms(lambda: played_decode(
+                model, shards, axis, dec_tokens, ext, caches))
+            dec_joined = joined_logits(dec, cfg.vocab, world, what)
+            dtop = float(dec_want.abs().max())
+            dgap = float((dec_joined - dec_want).abs().max())
+            dtol = max(MODEL_AXIS_F32_REL, SPREAD_FACTOR * dec_floor) * dtop
+            require(dgap <= dtol,
+                    f"{what}: decode over the laid-out caches is {dgap} from "
+                    f"the forward (bound {dtol})")
+            unsplit = model.init_cache(1, decode, dev)["blocks"]
+            whole_leaves = equal_leaves = 0
+            for j, blocks in enumerate(unsplit):
+                for name, x in caches[0]["blocks"][j].items():
+                    if x.shape != blocks[name].shape:
+                        continue
+                    whole_leaves += 1
+                    equal_leaves += all(torch.equal(
+                        x, caches[r]["blocks"][j][name])
+                        for r in range(1, world))
+            del unsplit
+            require(whole_leaves > 0 and equal_leaves == whole_leaves,
+                    f"{what}: {whole_leaves - equal_leaves} of the "
+                    f"{whole_leaves} cache leaves held whole differ between "
+                    f"the ranks after the decode")
+            entry["decode_vs_forward_f32"] = {
+                "t": decode, "ms": dec_ms, "gap": dgap,
+                "logit_max": dtop, "bound": dtol,
+                "rounding_floor": dec_floor,
+                "whole_cache_leaves_equal": equal_leaves}
+            del dec, dec_joined, dec_want, caches
+        del shards, model
+        torch.cuda.empty_cache()
+        rep["cases"].append(entry)
+    cfg = dataclasses.replace(get_config(SSM_AXIS_ARCH), n_layers=8,
+                              dtype="float32")
+    K.reset_launches()
+    refresh = model_axis_refresh(cfg, dev, seed, K, ranks=4)
+    for key in launches:
+        launches[key] += refresh[key]
+    rep["played_refresh"] = refresh
+    rep["s"] = time.perf_counter() - t0
+    print(json.dumps({"model_axis_ssm": rep}), flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# phase 16f: the encoder-decoder's and the VLM's "model" axis, ranks
+# played on the card: (arch, layers (None: all), text tokens, played
+# ranks); whisper's decoder takes 640 tokens (above 2 x SDPA_CHUNK, so
+# K9) over its 1,500 frames, llava 2,880 patches and 1,216 tokens; K9
+# alone at a rank's heads and the decoder's length: llava's 14 q over 2
+# KV heads of 128 at 4,096, whisper's 3 over 3 of 64 at M = 2 and 640;
+# the refresh of whisper whole and of one llava
+# layer's q and MLP input projections
+ENCDEC_AXIS_CASES = (("whisper-tiny", None, 640, (2, 4)),
+                     ("llava-next-34b", 2, 1216, (4,)))
+ENCDEC_AXIS_REFRESH = {"whisper-tiny": (None, None),
+                       "llava-next-34b": (1, ("mixer/wq", "ffn/wi"))}
+
+
+def model_axis_encdec_vlm(K, card: str, dev, seed: int) -> tuple:
+    """Phase 16f: whisper-tiny (6 heads of 64: 3 a rank over 2 ranks;
+    over 4 every rank computes every head, ``q_whole``) whole, and
+    llava-next-34b at its published width cut to 2 of 60 layers (56 q
+    heads over 8 KV heads: 14 over 2 a rank), over a "model" axis of
+    ranks played by threads on the card. Whisper's encoder
+    self-attention and its decoder's cross-attention run on the rank's
+    heads (``_full_attention``: the memory through ``copy_in``), its
+    decoder's causal self-attention through K9 on them; its vocab of
+    51,865 is replicated, so every rank computes the whole logits.
+    llava's batch holds its patches before its tokens. For each, in bf16
+    and f32: the unsplit model's prefill, then each played rank's on its
+    shards with the counts set to 0 just before and read just after (K9
+    once a rank and decoder layer, on the dtype's route), the logits
+    against the unsplit model's (f32 within ``MODEL_AXIS_F32_REL`` of
+    the largest, bf16 within ``DECODE_TOL``) and the greedy token. Then
+    K9 alone at a rank's head count and the decoder's length
+    (``model_axis_k9``) and the refresh played on the split tensors
+    (``model_axis_refresh``). Returns (the path's launches, K9's
+    fields)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import argmax_over
+    from repro_torch.launch.sharding import tree_param_specs
+    from repro_torch.launch.steps import make_prefill
+    from repro_torch.launch.train import add_modality_inputs
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    launches = {"flash_attention": 0, "flash_attention:wgmma": 0,
+                "flash_attention:ffma": 0, "diff_topk_payload": 0,
+                "block_scatter_accumulate": 0}
+    rep = {"card": card, "cases": []}
+    k9 = {}
+    for arch, layers, text, worlds in ENCDEC_AXIS_CASES:
+        full = get_config(arch)
+        # K9 alone at the decoder's own length (patches and tokens)
+        t = text + (full.vision_tokens if full.family == "vlm" else 0)
+        for world in worlds:
+            if full.n_heads % world == 0:
+                heads = (full.n_heads // world, full.kv_heads // world,
+                         full.hd)
+                k9[f"{arch}@{world}"] = model_axis_k9(dev, seed, *heads,
+                                                      w=None, t=t)
+        torch.cuda.empty_cache()
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(full, n_layers=layers or full.n_layers,
+                                      dtype=dtype)
+            model = build_model(cfg)
+            g = torch.Generator(device=dev).manual_seed(seed)
+            params = model.init_params(g)
+            tokens = torch.randint(0, cfg.vocab, (1, text), generator=g,
+                                   device=dev)
+            batch = add_modality_inputs({"tokens": tokens}, cfg, 0)
+            prefill = make_prefill(model)
+            whole_ms, whole = host_ms(lambda: prefill(params, batch))
+            whole = whole[0].float()
+            top = float(whole.abs().max())
+            tol = (MODEL_AXIS_F32_REL if dtype == "float32"
+                   else DECODE_TOL) * top
+            route = "wgmma" if dtype == "bfloat16" else "ffma"
+            for world in worlds:
+                what = (f"{arch} ({cfg.n_layers} layers) over {world} played "
+                        f"ranks, {dtype}")
+                ext = {"data": 1, "model": world}
+                last = world == worlds[-1]
+                # the last world takes the tree itself (emptied)
+                shards = rank_shards(params if last else dict(params),
+                                     tree_param_specs(params, ext), world)
+                if last:
+                    del params
+                torch.cuda.empty_cache()
+                axis = played_model_axis(world)
+                played_ms, logits, got, _ = played_prefill(
+                    prefill, shards, axis, batch, K)
+                want_k9 = world * cfg.n_layers
+                require(got["flash_attention"] == want_k9
+                        and got[f"flash_attention:{route}"] == want_k9,
+                        f"{what}: K9 launched {got['flash_attention']} "
+                        f"times, not {want_k9} (a rank and decoder layer)")
+                for key in ("flash_attention", f"flash_attention:{route}"):
+                    launches[key] += got[key]
+                joined = joined_logits(logits, cfg.vocab, world, what)
+                gap = float((joined - whole).abs().max())
+                toks = play_ranks(axis, lambda r: int(argmax_over(
+                    logits[r][-1:],
+                    axis if cfg.vocab % world == 0 else None)[0]))
+                require(bool(torch.isfinite(joined).all()) and gap <= tol
+                        and greedy_held(whole[-1], toks, gap),
+                        f"{what}: the logits are {gap} from the unsplit "
+                        f"model's (bound {tol}), greedy {toks}")
+                rep["cases"].append({
+                    "arch": arch, "layers": cfg.n_layers, "dtype": dtype,
+                    "ranks_played": world, "t": whole.shape[0],
+                    "heads_split": cfg.n_heads % world == 0,
+                    "vocab_split": cfg.vocab % world == 0,
+                    "whole_prefill_ms": whole_ms,
+                    "played_prefill_ms": played_ms, "k9_launches": want_k9,
+                    "logit_gap": gap, "logit_max": top, "bound": tol,
+                    "greedy_token": toks[0],
+                    "greedy_equal": toks[0] == int(torch.argmax(whole[-1]))})
+                del shards, logits, joined
+                torch.cuda.empty_cache()
+            del whole, model
+            torch.cuda.empty_cache()
+        depth, only = ENCDEC_AXIS_REFRESH[arch]
+        cfg = dataclasses.replace(full, n_layers=depth or full.n_layers,
+                                  dtype="float32")
+        K.reset_launches()
+        refresh = model_axis_refresh(cfg, dev, seed, K, ranks=worlds[-1],
+                                     only=only)
+        for key in ("diff_topk_payload", "block_scatter_accumulate"):
+            launches[key] += refresh[key]
+        rep[f"played_refresh_{arch}"] = refresh
+        torch.cuda.empty_cache()
+    rep["k9_rank_heads"] = k9
+    rep["s"] = time.perf_counter() - t0
+    print(json.dumps({"model_axis_encdec_vlm": rep}), flush=True)
     return launches, k9
 
 
@@ -7032,6 +7405,29 @@ def main() -> int:
                         f"flash_attention:{r}"]
                 entry["hybrid_axis_rank_heads"] = k9_hybrid
         print(f"# hybrid model axis phase in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # -- 16e. xLSTM's "model" axis: xlstm-350m whole over 4 played
+        # ranks (a head a rank), a period over 4 in bf16 and over 16
+        t0 = time.perf_counter()
+        add_path_launches(kernels, "model_axis_ssm",
+                          model_axis_ssm(K, card, dev, args.seed))
+        print(f"# xLSTM model axis phase in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        # -- 16f. the encoder-decoder's and the VLM's "model" axis:
+        # whisper-tiny over 2 and 4 played ranks, llava-next-34b's first
+        # 2 layers over 4
+        t0 = time.perf_counter()
+        launches, k9_encdec = model_axis_encdec_vlm(K, card, dev, args.seed)
+        add_path_launches(kernels, "model_axis_encdec_vlm", launches)
+        for entry in kernels:
+            if entry["name"] == "flash_attention":
+                for r in entry["launches_by_route"]:
+                    entry["launches_by_route"][r] += launches[
+                        f"flash_attention:{r}"]
+                entry["encdec_vlm_axis_rank_heads"] = k9_encdec
+        print(f"# encoder-decoder and VLM model axis phase in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     except SmokeFailure as exc:
         return fail(str(exc))

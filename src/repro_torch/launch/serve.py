@@ -73,15 +73,17 @@ def generate(arch: str, smoke: bool = True, batch: int = 4,
     every sampling draw are made for the whole batch on every rank, each
     rank keeping its rows, and the tokens are gathered at the end, so
     every rank returns what one process would (an MoE routes each rank's
-    rows as its decode group). Over a "model" axis (the dense, MoE and
-    hybrid families, GQA or MLA; the others raise ``NotImplementedError``
-    first) each rank draws the weights layer by layer and keeps its
-    shards (or takes them of the handed ``params``), lays its cache out
-    by ``cache_specs`` (its KV heads, else its slice of the sequence,
-    else whole; MLA's latent cache its slice of the sequence, else whole;
-    a Mamba layer's conv window and state its channels), decodes through
-    the tensor-parallel layers (an MoE's experts, or each expert's d_ff),
-    and picks tokens over the vocab's shards
+    rows as its decode group). Over a "model" axis (every family; widths
+    the axis does not divide, and Hutchinson curvature in training, raise
+    ``NotImplementedError`` first) each rank draws the weights layer by
+    layer and keeps its shards (or takes them of the handed ``params``),
+    lays its cache out by ``cache_specs`` (its KV heads, else its slice
+    of the sequence, else whole; MLA's latent cache its slice of the
+    sequence, else whole; a Mamba layer's conv window and state its
+    channels; an mLSTM's C its heads where H divides, with n and m whole
+    on every rank; an sLSTM's state and the encoder's memory whole),
+    decodes through the tensor-parallel layers (an MoE's experts, or
+    each expert's d_ff), and picks tokens over the vocab's shards
     (``argmax_over``; the Gumbel draws are the whole vocab's), or over
     the whole vocab where the axis does not divide it."""
     cfg = get_config(arch, smoke=smoke)

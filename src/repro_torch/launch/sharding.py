@@ -729,30 +729,31 @@ def make_model_axis(mesh) -> Optional[ModelAxis]:
     return model if model.world > 1 else None
 
 
-# the families the model axis lays out (GQA or MLA attention, Mamba
-# mixers in the hybrid stack); each other raises
-TP_FAMILIES = ("dense", "moe", "hybrid")
+# the families the model axis lays out: GQA or MLA attention (the
+# encoder-decoder's encoder and cross-attention too), Mamba mixers in the
+# hybrid stack, xLSTM's mLSTM and sLSTM blocks
+TP_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 
 def check_model_axis(cfg, ext: dict, hvp: bool = False) -> None:
     """Raise ``NotImplementedError`` for what a "model" axis wider than
-    one rank cannot lay out, before any work: a family other than the
-    dense, MoE and hybrid ones (ssm, encdec, vlm), Hutchinson curvature
-    (its double backward through the collectives), or a width the axis
-    does not divide where the rules would replicate a weight no layer
-    computes whole: GQA's q and kv columns; MLA's ``wo`` rows (heads x
-    v_head_dim); a Mamba mixer's inner width Di (``conv``, ``wout``);
-    d_ff wherever a dense MLP runs, and an MoE's d_ff where its experts
-    do not split (the reference's tensor parallelism inside each
+    one rank cannot lay out, before any work: a family outside
+    ``TP_FAMILIES``, Hutchinson curvature (its double backward through
+    the collectives), or a width the axis does not divide where the rules
+    would replicate a weight no layer computes whole: GQA's q and kv
+    columns (the decoder's, whisper's encoder's and its cross-attention's);
+    MLA's ``wo`` rows (heads x v_head_dim); a Mamba mixer's inner width Di
+    (``conv``, ``wout``); xLSTM's d_model (the mLSTM's columns, both
+    blocks' ``wout`` rows) and 4 d_model (the sLSTM's ``wx`` and ``wr``
+    columns); d_ff wherever a dense MLP runs, and an MoE's d_ff where its
+    experts do not split (the reference's tensor parallelism inside each
     expert). A vocab the axis does not divide is the rules' own case:
     the embedding (and the lm head) are replicated over "model", and
     every rank computes the whole lookup, logits, loss and argmax, whose
-    gradient is then the same on each. So are MLA's and Mamba's small
-    widths (``wuq``'s columns, the latent rank, the SSM state): their
-    layers take the weights whole (``gather_weight`` where split,
-    ``copy_in`` where not)."""
-    from ..models.transformer import layer_kinds
-
+    gradient is then the same on each. So are the small widths that
+    layers take whole (``gather_weight`` where split, ``copy_in`` where
+    not): MLA's ``wuq`` columns and latent rank, the SSM state, the
+    mLSTM's 2 H gate columns (``wif``)."""
     m = int(ext.get("model", 1))
     if m == 1:
         return
@@ -760,7 +761,7 @@ def check_model_axis(cfg, ext: dict, hvp: bool = False) -> None:
     if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"{kind} ({cfg.name}) on a 'model' axis of {m} ranks: only the "
-            f"dense, MoE and hybrid families are laid out over 'model'")
+            f"families {TP_FAMILIES} are laid out over 'model'")
     if hvp:
         raise NotImplementedError(
             f"Hutchinson curvature (hvp) of {kind} ({cfg.name}) on a 'model' "
@@ -778,6 +779,10 @@ def check_model_axis(cfg, ext: dict, hvp: bool = False) -> None:
     if "mamba" in mixers:
         widths.append(("Di (expand x d_model)",
                        cfg.mamba.expand * cfg.d_model))
+    if mixers & {"mlstm", "slstm"}:
+        widths.append(("d_model", cfg.d_model))
+    if "slstm" in mixers:
+        widths.append(("4 x d_model", 4 * cfg.d_model))
     if "mlp" in ffns or ("moe" in ffns and cfg.moe.num_experts % m):
         widths.append(("d_ff", cfg.d_ff))
     for what, width in widths:

@@ -22,9 +22,12 @@ loop, each data rank takes its own rows of every global batch, and each
 index of the data axis plays one FedNL silo for the curvature
 observations (``n_silos`` is the data extent). ``train(mesh=...)``
 takes another mesh, such as ``make_host_mesh(data, model)`` with a
-"model" axis over which the dense, MoE and hybrid families compute
-tensor-parallel (the MoE expert parallel where its experts divide it, MLA
-on its heads, a Mamba mixer on its channels). The first rank prints.
+"model" axis over which every family computes tensor-parallel (the MoE
+expert parallel where its experts divide it, MLA on its heads, a Mamba
+mixer on its channels, an mLSTM on its heads and an sLSTM's recurrence
+on every rank, whisper's encoder and cross-attention on their heads, a
+VLM as the dense family over its patches and tokens). The first rank
+prints.
 """
 
 from __future__ import annotations

@@ -185,24 +185,30 @@ class _TPHeads:
         self.q_whole = every_head or cfg.n_heads % m != 0
         self.kv_whole = self.q_whole or cfg.kv_heads % m != 0
 
-    def qkv(self, p: dict, x: torch.Tensor):
-        """q, k, v (B, T, heads, hd) of the heads this rank computes."""
+    def qkv(self, p: dict, x: torch.Tensor, memory=None):
+        """q, k, v (B, T, heads, hd) of the heads this rank computes; k
+        and v of ``memory`` (B, S, d) where given (cross-attention), which
+        passes ``copy_in`` as x does: each rank's heads give a part of its
+        gradient, and the encoder's leaves that are whole over "model"
+        need the sum."""
         cfg, tp = self.cfg, self.tp
         b, t, _ = x.shape
         x = tp.copy_in(x)
+        mem = x if memory is None else tp.copy_in(memory)
 
         def w(name, whole, dim):
             return tp.gather_weight(p[name], dim) if whole else p[name]
 
         q = x @ w("wq", self.q_whole, 1)
-        k = x @ w("wk", self.kv_whole, 1)
-        v = x @ w("wv", self.kv_whole, 1)
+        k = mem @ w("wk", self.kv_whole, 1)
+        v = mem @ w("wv", self.kv_whole, 1)
         if cfg.qkv_bias:
             q = q + w("bq", self.q_whole, 0)
             k = k + w("bk", self.kv_whole, 0)
             v = v + w("bv", self.kv_whole, 0)
-        return (q.reshape(b, t, -1, cfg.hd), k.reshape(b, t, -1, cfg.hd),
-                v.reshape(b, t, -1, cfg.hd))
+        s = mem.shape[1]
+        return (q.reshape(b, t, -1, cfg.hd), k.reshape(b, s, -1, cfg.hd),
+                v.reshape(b, s, -1, cfg.hd))
 
     def kv_for_heads(self, k, v):
         """(k, v, n_rep) for this rank's q heads: as they are where q and
@@ -343,30 +349,42 @@ def _split_combine(scores, keep, weigh, tp):
 # ---------------------------------------------------------------------------
 
 
+def _full_attention(p: dict, x: torch.Tensor, memory, cfg: ModelConfig):
+    """Every query of x (B, T, d) over every key of ``memory`` (B, S, d),
+    or of x itself where ``memory`` is None. Over a "model" axis, on this
+    rank's heads (``_TPHeads``: every head where H does not split, with
+    ``wo`` taking the rank's columns of their output)."""
+    require_ported(cfg)
+    b, t, _ = x.shape
+    s = t if memory is None else memory.shape[1]
+    mask = torch.ones((t, s), dtype=torch.bool, device=x.device)
+    tp = model_axis()
+    if tp is not None:
+        plan = _TPHeads(cfg, tp)
+        q, k, v = plan.qkv(p, x, memory)
+        ks, vs, n_rep = plan.kv_for_heads(k, v)
+        return plan.out(_sdpa(q, ks, vs, mask, n_rep), p["wo"])
+    h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    if memory is None:
+        q, k, v = _qkv(p, x, cfg)
+    else:
+        q = (x @ p["wq"]).reshape(b, t, h, hd)
+        k = (memory @ p["wk"]).reshape(b, s, kv, hd)
+        v = (memory @ p["wv"]).reshape(b, s, kv, hd)
+    out = _sdpa(q, k, v, mask, h // kv)
+    return out.reshape(b, t, h * hd) @ p["wo"]
+
+
 def encoder_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The encoder's self-attention (``transformer.py``'s non-causal
     branch of the reference): every frame attends to every frame."""
-    require_ported(cfg)
-    b, t, _ = x.shape
-    q, k, v = _qkv(p, x, cfg)
-    mask = torch.ones((t, t), dtype=torch.bool, device=x.device)
-    out = _sdpa(q, k, v, mask, cfg.n_heads // cfg.kv_heads)
-    return out.reshape(b, t, -1) @ p["wo"]
+    return _full_attention(p, x, None, cfg)
 
 
 def cross_forward(p: dict, x: torch.Tensor, memory: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """Full attention of x (B, T, d) over the encoder's memory (B, S, d)."""
-    require_ported(cfg)
-    b, t, _ = x.shape
-    s = memory.shape[1]
-    h, kv, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(b, t, h, hd)
-    k = (memory @ p["wk"]).reshape(b, s, kv, hd)
-    v = (memory @ p["wv"]).reshape(b, s, kv, hd)
-    mask = torch.ones((t, s), dtype=torch.bool, device=x.device)
-    out = _sdpa(q, k, v, mask, h // kv)
-    return out.reshape(b, t, h * hd) @ p["wo"]
+    return _full_attention(p, x, memory, cfg)
 
 
 # ---------------------------------------------------------------------------

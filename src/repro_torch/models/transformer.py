@@ -32,9 +32,12 @@ logits are vocab-parallel (each rank its V / M rows; the loss is
 ``vocab_parallel_cross_entropy``) where the axis divides the vocab, and
 whole on every rank where the rules replicate the table
 (``common.vocab_axis``); the layers split heads and d_ff (an MoE its
-experts, or each expert's d_ff), and the residual between segments
-keeps this rank's T / M rows (the ``carry`` hint), gathered again
-inside the next layer.
+experts, or each expert's d_ff; a Mamba mixer its channels; an mLSTM
+its heads, while an sLSTM runs its recurrence whole on every rank), and
+the residual between segments keeps this rank's T / M rows (the
+``carry`` hint: a VLM's patches and tokens together, the encoder's
+frames), gathered again inside the next layer. The encoder's memory is
+whole on every rank; the cross-attention takes it through ``copy_in``.
 """
 
 from __future__ import annotations

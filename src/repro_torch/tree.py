@@ -31,3 +31,28 @@ def tree_unflatten(tree, leaves):
     in place of its own."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+# a second route to a function (ranks that split its sums, say) may move
+# its outputs by this many times the function's own spread under
+# ``nudged`` weights where its conditioning, not the route, sets how far
+# a rounding carries (xLSTM's mLSTM normalizer)
+SPREAD_FACTOR = 4
+
+
+def nudged(tree, generator):
+    """Every floating leaf of ``tree`` times 1 + u z, z ~ N(0, 1) drawn
+    from ``generator`` (on the leaves' device), u the leaf type's unit
+    roundoff (2^-24 in f32, 2^-8 in bf16): a change of one rounding's
+    size. How far a function's outputs move under it is the function's
+    own spread under rounding."""
+    import torch
+
+    def one(x):
+        if not torch.is_floating_point(x):
+            return x
+        z = torch.randn(x.shape, generator=generator, device=x.device)
+        return (x.float() * (1 + torch.finfo(x.dtype).eps / 2 * z)
+                ).to(x.dtype)
+
+    return tree_map(one, tree)

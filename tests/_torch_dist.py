@@ -36,15 +36,17 @@ def _entry(rank: int, world: int, store_path: str, out_path: str, task,
         dist.destroy_process_group()
 
 
-def start_group(task, world: int, tmp_path, *args):
+def start_group(task, world: int, tmp_path, *args,
+                seconds: float = JOIN_SECONDS):
     """``run_group``'s processes started, not waited for: a handle for
-    ``finish_group``, so several groups can run at once."""
+    ``finish_group`` (which waits ``seconds`` from now at most), so
+    several groups can run at once."""
     store_path = str(tmp_path / "store")
     out_path = str(tmp_path / "out.pt")
     ctx = mp.start_processes(_entry, args=(world, store_path, out_path, task,
                                            args),
                              nprocs=world, join=False, start_method="spawn")
-    return ctx, out_path, world, time.monotonic() + JOIN_SECONDS
+    return ctx, out_path, world, time.monotonic() + seconds
 
 
 def finish_group(handle):
@@ -53,8 +55,8 @@ def finish_group(handle):
     try:
         while not ctx.join(timeout=1):
             if time.monotonic() > deadline:
-                raise TimeoutError(f"the {world}-rank group did not finish in "
-                                   f"{JOIN_SECONDS} s")
+                raise TimeoutError(f"the {world}-rank group did not finish "
+                                   f"in time")
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
@@ -577,10 +579,12 @@ def model_axis_logits(mesh, shape, cases, batch, t):
     """On a ``shape`` mesh, each (arch, overrides, replace)'s reduced
     model drawn with ``local_keep`` over "model" (its shards of the whole
     draw from seed 0) and run forward on a (batch, t) prompt from seed 1
-    with the model axis installed: the logits whole (gathered over the
+    (with the family's frames or patches, ``add_modality_inputs`` of step
+    0) with the model axis installed: the logits whole (gathered over the
     vocab's shards where the axis splits it) and the loss."""
     from repro_torch.launch.mesh import extents
     from repro_torch.launch.sharding import local_keep, make_model_axis
+    from repro_torch.launch.train import add_modality_inputs
     from repro_torch.models import build_model
     from repro_torch.models.common import set_activation_sharder
 
@@ -595,11 +599,12 @@ def model_axis_logits(mesh, shape, cases, batch, t):
                                                    axes=("model",)))
         tokens = torch.randint(0, cfg.vocab, (batch, t),
                                generator=torch.Generator().manual_seed(1))
+        inputs = add_modality_inputs({"tokens": tokens}, cfg, 0)
         set_activation_sharder(None, None, tp)
         try:
             with torch.no_grad():
-                logits, _ = model.forward(params, {"tokens": tokens})
-                loss = model.loss_fn(params, {"tokens": tokens, "targets":
+                logits, _ = model.forward(params, inputs)
+                loss = model.loss_fn(params, {**inputs, "targets":
                                               torch.roll(tokens, -1, 1)})
         finally:
             set_activation_sharder(None, None, None)
@@ -692,4 +697,60 @@ def moe_axis_all(mesh, shape, logits, observe, rest: dict):
     if observe is not None:
         out["observe"] = observation_routes(mesh, *observe)
     out.update(model_axis_all(mesh, shape, **rest))
+    return out
+
+
+# -- xLSTM, the encoder-decoder and the VLM on the "model" axis ----------------------
+
+
+def model_axis_generate_states(mesh, shape, cases):
+    """``model_axis_generate`` of ``cases`` with each run's cache kept:
+    the tokens, and for every cache leaf this rank holds whole (its local
+    shape the whole cache's: an mLSTM's n and m, an sLSTM's state, the
+    encoder's memory, a KV cache that does not split), its path and
+    whether it is bit for bit the same on every model rank after the
+    decode."""
+    import repro_torch.launch.serve as serve_mod
+    from repro_torch.launch.sharding import DataAxis
+
+    tp = DataAxis(_mesh2(*shape)).model
+    make, caches = serve_mod.make_serve_step, []
+
+    def recording(model):
+        step = make(model)
+
+        def run(params, cache, token, pos):
+            if not caches or caches[-1][0] is not cache:
+                caches.append((cache, model))
+            return step(params, cache, token, pos)
+
+        return run
+
+    serve_mod.make_serve_step = recording
+    try:
+        tokens = model_axis_generate(mesh, shape, cases)
+    finally:
+        serve_mod.make_serve_step = make
+    out = []
+    for seqs, (cache, model), case in zip(tokens, caches, cases):
+        batch, prompt_len, gen = case[3:6]
+        whole = model.init_cache(batch, prompt_len + gen, "cpu")
+        equal = {}
+        for j, (got, want) in enumerate(zip(cache["blocks"],
+                                            whole["blocks"])):
+            for name, x in got.items():
+                if tuple(x.shape) == tuple(want[name].shape):
+                    equal[f"blocks/{j}/{name}"] = _model_rank_equal(x, tp)
+        if "enc" in cache:
+            equal["enc"] = _model_rank_equal(cache["enc"], tp)
+        out.append({"tokens": seqs, "whole_equal": equal})
+    return out
+
+
+def ssm_axis_all(mesh, shape, logits, rest: dict, gen_cases=()):
+    """``moe_axis_all(mesh, shape, logits, None, rest)``, then
+    ``model_axis_generate_states`` of ``gen_cases``."""
+    out = moe_axis_all(mesh, shape, logits, None, rest)
+    out["generate"] = (model_axis_generate_states(mesh, shape, gen_cases)
+                       if gen_cases else [])
     return out

@@ -270,11 +270,18 @@ def test_the_published_configs_are_admitted(arch, m):
     (MINICPM3, "d_ff", 250, 4, "d_ff = 250"),
     (MINICPM3, "n_heads", 5, 64, "heads x v_head_dim = 160"),
     (JAMBA, "d_model", 129, 4, "Di"),
-    (JAMBA, "d_ff", 250, 4, "d_ff = 250")])
+    (JAMBA, "d_ff", 250, 4, "d_ff = 250"),
+    ("xlstm-350m", "d_model", 130, 4, "d_model = 130"),
+    ("whisper-tiny", "d_ff", 250, 4, "d_ff = 250"),
+    ("whisper-tiny", "head_dim", 30, 16, "heads x head_dim = 120"),
+    ("llava-next-34b", "kv_heads", 3, 64, "kv_heads x head_dim = 96")])
 def test_a_width_that_does_not_split_is_refused(arch, field, value, m, what):
     """A width the rules would replicate although no layer computes it
     whole: MLA's ``wo`` rows and d_ff; the Mamba mixer's Di, and jamba's
-    d_ff, which its dense MLP layers split even where its 4 experts do."""
+    d_ff, which its dense MLP layers split even where its 4 experts do;
+    xLSTM's d_model (the mLSTM's columns, both blocks' ``wout`` rows);
+    the dense widths of whisper's encoder, decoder and cross-attention and
+    of llava."""
     cfg = dataclasses.replace(_cfg(arch, NARROW, None), **{field: value})
     with pytest.raises(NotImplementedError, match=what):
         check_model_axis(cfg, {"data": 1, "model": m})

@@ -448,14 +448,14 @@ def _fake_mesh(shape):
                                  shape=shape)
 
 
-# (arch, what the refusal names, hvp): the MoE family, MLA and the hybrid
-# family are laid out over "model" since the dense one was; their
-# Hutchinson curvature is not, so their cases are refused for hvp, which
-# ``generate`` does not take
+# (arch, what the refusal names, hvp): every family is laid out over
+# "model" (the dense one first, then the MoE, MLA, hybrid, ssm, encdec and
+# vlm ones); their Hutchinson curvature is not, so each case is refused
+# for hvp, which ``generate`` does not take
 REFUSED = [("granite-moe-1b-a400m", "hvp", True), ("minicpm3-4b", "hvp", True),
            ("jamba-1.5-large-398b", "hvp", True),
-           ("xlstm-350m", "ssm", False), ("whisper-tiny", "encdec", False),
-           ("llava-next-34b", "vlm", False)]
+           ("xlstm-350m", "hvp", True), ("whisper-tiny", "hvp", True),
+           ("llava-next-34b", "hvp", True)]
 
 
 @pytest.mark.parametrize("arch,kind,hvp", REFUSED)
