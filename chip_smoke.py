@@ -291,6 +291,21 @@ Phases, each failing the run with a non-zero exit:
      ``model_axis_encdec_vlm``), K9 alone at a rank's heads and the
      decoder's length (llava 14 over 2 at 4,096, whisper 3 over 3 at
      640), the refresh played on their shards;
+  16g. Hutchinson curvature over the "model" axis, the double backward
+     on each rank: 4 rank processes spawned on the card, joined by a gloo
+     group whose collectives copy through the host (``host_model_axis``);
+     qwen2-0.5B at its published width cut to 4 of 24 layers, f32, 2 x
+     128 tokens, over all 4 (every head on every rank: 14 and 2 do not
+     divide 4) and over 2 of them (7 heads a rank): each rank's probe its
+     block of one process's z bit for bit, its Hz within 1e-4 of each
+     leaf's largest |Hz| of one process on the card, the refresh from its
+     observations z * Hz (K1 and K4 on its shards: path
+     ``model_axis_hvp``, one of each a rank and tensor) equal to the
+     one-call refresh of every rank's observations bit for bit; then the
+     MoE, MLA, hybrid, ssm, encoder-decoder and VLM families' reduced
+     configs over 2 processes, Hz against one process (the MoE up to a
+     first router flip, which must be a near tie; xLSTM within 4 times
+     its own spread under a rounding of its weights where that is wider);
   then print what the profiler failed to record (each such figure timed
   by CUDA events instead, or not measured), the kernel line (with each
   wrapper's registers and shared bytes, ``launch``, and its tuned cases,
@@ -5731,7 +5746,8 @@ def played_model_axis(world: int):
     step ran several times slower than alone. The card serializes the
     ranks' launches on its one stream either way. Forward only: the
     played ranks make no backward (autograd runs a device's backward on
-    one thread, where two ranks would wait on each other)."""
+    one thread, where two ranks would wait on each other); phase 16g runs
+    its backward on model ranks as processes (``model_axis_hvp``)."""
     import threading
 
     import torch
@@ -7158,6 +7174,401 @@ def model_axis_encdec_vlm(K, card: str, dev, seed: int) -> tuple:
     return launches, k9
 
 
+# phase 16g: Hutchinson curvature over the "model" axis. The double
+# backward runs on each rank, so the ranks are processes (a thread-played
+# rank cannot run a backward: autograd runs a device's backward on one
+# thread, where two ranks would wait on each other), all on the one card
+# (NCCL takes no two ranks on one card), joined by a gloo group whose
+# collectives go through the host (``host_model_axis``). qwen2-0.5B at
+# its published width cut to 4 of 24 layers, f32, 2 x 128 tokens, over 4
+# rank processes (14 heads over 2 KV heads do not split: every rank
+# computes every head) and over 2 (7 heads a rank); then each other
+# family's reduced config over 2
+HVP_AXIS_ARCH, HVP_AXIS_LAYERS = "qwen2-0.5b", 4
+HVP_AXIS_B, HVP_AXIS_T, HVP_FAMILY_T, HVP_WARMUP_T = 2, 128, 64, 16
+HVP_AXIS_RANKS = 4
+# the families run by ranks 0-1 and by ranks 2-3, two at a time
+HVP_AXIS_FAMILIES = (("granite-moe-1b-a400m", "minicpm3-4b",
+                      "jamba-1.5-large-398b"),
+                     ("xlstm-350m", "whisper-tiny", "llava-next-34b"))
+# each leaf's Hz over the ranks within this of its largest |Hz| of one
+# process (f32: the row-parallel partial products are summed over the
+# ranks where one process takes one product; 5e-6 on the CPU tests)
+HVP_AXIS_REL = 1e-4
+# the gloo group's timeout and the rank processes' deadline
+HVP_AXIS_SECONDS = 300
+
+
+def host_model_axis(group, ranks: list):
+    """A ``ModelAxis`` over the rank processes ``ranks`` (global ranks in
+    axis order) of the gloo ``group`` (None: the default group) for
+    tensors on the card: each of the three primitives copies its tensor
+    to the host, runs the gloo collective there and copies the result
+    back to the card; every other operation stays on the card. A tensor
+    that is not contiguous is refused, as NCCL refuses it (gloo would
+    take it)."""
+    import torch.distributed as dist
+    from repro_torch.launch.sharding import ModelAxis
+
+    def host(x):
+        if not x.is_contiguous():
+            raise ValueError(f"a collective's tensor {tuple(x.shape)} is "
+                             f"not contiguous (NCCL refuses it)")
+        return x.cpu()
+
+    class HostGloo(ModelAxis):
+        def __init__(self):
+            super().__init__(None)
+            self.world, self.group = len(ranks), group
+            self.rank = ranks.index(dist.get_rank())
+
+        def _all_gather(self, x):
+            return ModelAxis._all_gather(self, host(x)).to(x.device)
+
+        def _all_reduce(self, x, op="sum"):
+            return x.copy_(ModelAxis._all_reduce(self, host(x), op))
+
+        def _reduce_scatter(self, x):
+            return ModelAxis._reduce_scatter(self, host(x)).to(x.device)
+
+    return HostGloo()
+
+
+@contextlib.contextmanager
+def routings_recorded():
+    """While the block runs, every MoE routing's gate ids and top-k
+    margins (``top_k_margin`` of the router probabilities), in order."""
+    import repro_torch.models.mlp as mlp
+
+    out, top = [], mlp.top_k_lower_index
+
+    def recording(x, k):
+        vals, ids = top(x, k)
+        out.append((ids.detach(), top_k_margin(x.detach(), k)))
+        return vals, ids
+
+    mlp.top_k_lower_index = recording
+    try:
+        yield out
+    finally:
+        mlp.top_k_lower_index = top
+
+
+def hvp_axis_case(cfg, axis, dev, seed: int, K, t: int,
+                  refresh: bool) -> dict:
+    """One rank's part of Hutchinson curvature over ``axis``: the
+    config's whole tree drawn from ``seed`` (alike on every rank) and a
+    (B, ``t``) batch with the family's frames or patches; this rank's
+    shards by the rules, their probe (``RademacherProbes`` with the
+    layouts: the rank's block of one process's z) and the double backward
+    (``grad_and_hvp``) with the axis installed, then (``refresh``) the
+    observations z * Hz and ``optimizer.refresh(..., layout=)`` from H = 0
+    on the shards, K1 and K4 counted from 0 just before the probe and read
+    just after the refresh (a warm-up double backward on the batch's first
+    tokens before). Then on this rank alone, one process: z and
+    Hz of the whole tree, the rank's blocks held to them (z bit for bit,
+    Hz within ``HVP_AXIS_REL`` of each leaf's largest |Hz|; an MoE up to
+    its first router flip, which must be a near tie; xLSTM within
+    ``tree.SPREAD_FACTOR`` times the leaf's own spread when the weights
+    move by a rounding, if that is larger), and the one-call refresh of
+    every rank's observations gathered whole, held bit for bit."""
+    import torch
+    from repro_torch.launch.sharding import (DataAxis, LeafLayout,
+                                             _split_dims, check_model_axis,
+                                             model_parts, tree_param_specs)
+    from repro_torch.launch.steps import (RademacherProbes, grad_and_hvp,
+                                          make_optimizer)
+    from repro_torch.launch.train import add_modality_inputs
+    from repro_torch.models import build_model
+    from repro_torch.models.common import set_activation_sharder
+    from repro_torch.second_order.fednl_precond import (FedNLPrecondState,
+                                                        _tile_grid)
+    from repro_torch.tree import (SPREAD_FACTOR, nudged, tree_leaves,
+                                  tree_map, tree_unflatten)
+
+    ext = {"data": 1, "model": axis.world}
+    check_model_axis(cfg, ext)
+    model = build_model(cfg, use_remat=True)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = model.init_params(g)
+    tokens = torch.randint(0, cfg.vocab, (HVP_AXIS_B, t), generator=g,
+                           device=dev)
+    batch = add_modality_inputs({"tokens": tokens,
+                                 "targets": torch.roll(tokens, -1, 1)},
+                                cfg, 0)
+    specs = tree_param_specs(params, ext)
+    mdims = [_split_dims(s).get("model") for s in tree_leaves(specs)]
+    data = DataAxis(None, model=axis)
+    lays = tree_unflatten(params, [LeafLayout(None, data, d) for d in mdims])
+    shards = tree_map(lambda x: x.contiguous(),
+                      model_parts(params, specs, axis))
+    probes = RademacherProbes(seed)
+    opt = make_optimizer("fednl", 1e-3, k_per_block=MODEL_AXIS_K,
+                         curvature="hutchinson")
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "ranks": axis.world,
+           "rank": axis.rank, "t": int(batch["tokens"].shape[1]),
+           "heads_split": cfg.n_heads % axis.world == 0,
+           "tensors": len(mdims),
+           "tensors_split": sum(d is not None for d in mdims)}
+
+    # warm-up: a double backward over the axis on the batch's first
+    # HVP_WARMUP_T tokens (the first call in a process pays the card's
+    # and the group's set-up)
+    short = {k: v[:, :HVP_WARMUP_T] if k in ("tokens", "targets") else v
+             for k, v in batch.items()}
+    set_activation_sharder(None, None, axis)
+    try:
+        grad_and_hvp(model, shards, short, tree_map(torch.ones_like, shards))
+    finally:
+        set_activation_sharder(None, None, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    z = probes(0, 0, shards, lays)
+    torch.cuda.synchronize()
+    rec["probe_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with routings_recorded() as routes:
+        set_activation_sharder(None, None, axis)
+        try:
+            grads, hz = grad_and_hvp(model, shards, batch, z)
+        finally:
+            set_activation_sharder(None, None, None)
+    torch.cuda.synchronize()
+    rec["hz_ms"] = (time.perf_counter() - t0) * 1e3
+    if refresh:
+        t0 = time.perf_counter()
+        obs = opt.observe(grads, shards, hvp=(z, hz))
+        state = FedNLPrecondState(0, tree_map(lambda x: torch.zeros(
+            x.shape, dtype=torch.float32, device=dev), shards), None, None)
+        new = opt.refresh(state, tree_map(lambda o: o[None].contiguous(),
+                                          obs), layout=lays)
+        torch.cuda.synchronize()
+        rec["refresh_ms"] = (time.perf_counter() - t0) * 1e3
+    got = counts(K)
+    rec["launches"] = {k: got[k] for k in ("diff_topk_payload",
+                                           "block_scatter_accumulate",
+                                           "flash_attention")}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del grads
+
+    # one process, on this rank alone
+    zw = probes(0, 0, params)
+    grad_and_hvp(model, params, short, zw)           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with routings_recorded() as whole_routes:
+        _, hzw = grad_and_hvp(model, params, batch, zw)
+    torch.cuda.synchronize()
+    rec["one_hz_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def block(x, mdim):
+        return x if mdim is None else axis.part(x, mdim)
+
+    rec["z_bitwise"] = all(
+        torch.equal(a, block(b, d))
+        for a, b, d in zip(tree_leaves(z), tree_leaves(zw), mdims))
+    gaps = [float((a - block(b, d)).abs().max()) / float(b.abs().max())
+            for a, b, d in zip(tree_leaves(hz), tree_leaves(hzw), mdims)]
+    rec["hz_rel_max"] = max(gaps)
+    bounds = [HVP_AXIS_REL] * len(gaps)
+    if cfg.family == "ssm":
+        moved = nudged(params, torch.Generator(device=dev).manual_seed(
+            seed + 11))
+        _, hzn = grad_and_hvp(model, moved, batch, zw)
+        spread = [float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(tree_leaves(hzn), tree_leaves(hzw))]
+        rec["spread_rel_max"] = max(spread)
+        bounds = [max(b, SPREAD_FACTOR * s) for b, s in zip(bounds, spread)]
+        del moved, hzn
+    held = all(gap <= b for gap, b in zip(gaps, bounds))
+    rec["why"] = "" if held else (
+        f"Hz {max(gaps)} of its leaf's largest from one process's "
+        f"(leaf {gaps.index(max(gaps))})")
+    if cfg.moe is not None:
+        flips = route_flips(whole_routes, routes)
+        rec["route_flips"] = flips
+        if flips["first_layer"] is not None:
+            # past a flip the routes differ: held to its being a near tie
+            held = flips["max_margin_first_layer"] <= MOE_NEAR_TIE
+            rec["why"] = "" if held else f"a router flip off a near tie: " \
+                f"{flips}"
+    rec["ok"] = rec["z_bitwise"] and held
+    if not rec["z_bitwise"]:
+        rec["why"] += "; z is not the rank's block of one process's"
+
+    if refresh:
+        whole_obs = [axis.whole(o, d) if d is not None else o
+                     for o, d in zip(tree_leaves(obs), mdims)]
+        one = opt.refresh(FedNLPrecondState(0, tree_map(
+            lambda x: torch.zeros(x.shape, dtype=torch.float32, device=dev),
+            params), None, None),
+            tree_unflatten(params, [o[None].contiguous() for o in whole_obs]))
+        rec["refresh_bitwise"] = all(
+            torch.equal(a, block(b, d)) for a, b, d in
+            zip(tree_leaves(new.h), tree_leaves(one.h), mdims)) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(new.l),
+                                               tree_leaves(one.l)))
+        tile = opt.refresh.__self__.block
+        rec["tensors_on_tile_bounds"] = sum(
+            d is not None and _tile_grid(x.shape, d, tile) is not None
+            for x, d in zip(tree_leaves(shards), mdims))
+        rec["ok"] = rec["ok"] and rec["refresh_bitwise"]
+        if not rec["refresh_bitwise"]:
+            rec["why"] += "; the refresh differs from the one-call refresh"
+        del obs, new, one, whole_obs
+    del params, shards, z, hz, zw, hzw
+    torch.cuda.empty_cache()
+    return rec
+
+
+def hvp_axis_rank(rank: int, world: int, store_path: str, out_path: str,
+                  seed: int, device: str) -> None:
+    """A rank process of phase 16g (``torch.multiprocessing`` spawns
+    ``world`` of them on ``device``, the card): a gloo group over a
+    ``FileStore``; qwen2-0.5B's cut depth over every rank, then over ranks
+    0-1 while ranks 2-3 take their families, then ranks 0-1 theirs
+    (``hvp_axis_case``). Every rank's records gathered, rank 0 writes
+    them to ``out_path`` as JSON."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        K.build_all()            # loads the libraries the parent built
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store_path, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=HVP_AXIS_SECONDS))
+    try:
+        pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        full = dataclasses.replace(get_config(HVP_AXIS_ARCH),
+                                   n_layers=HVP_AXIS_LAYERS, dtype="float32")
+        cases = [hvp_axis_case(full, host_model_axis(None, list(range(world))),
+                               dev, seed, K, HVP_AXIS_T, refresh=True)]
+        pair = rank // 2
+        axis = host_model_axis(pairs[pair], [2 * pair, 2 * pair + 1])
+        if pair == 0:
+            cases.append(hvp_axis_case(full, axis, dev, seed, K, HVP_AXIS_T,
+                                       refresh=True))
+        for arch in HVP_AXIS_FAMILIES[pair]:
+            cases.append(hvp_axis_case(get_config(arch, smoke=True), axis,
+                                       dev, seed, K, HVP_FAMILY_T,
+                                       refresh=False))
+        everyone = [None] * world
+        dist.all_gather_object(everyone, cases)
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(everyone, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def merged_hvp_cases(by_rank: list) -> list:
+    """The rank processes' records of each (arch, layers, ranks) case
+    merged: launches summed over its ranks, the largest gap, every
+    rank's host ms and peak memory, ok where every rank's is."""
+    merged = {}
+    for cases in by_rank:
+        for c in cases:
+            key = (c["arch"], c["layers"], c["ranks"])
+            m = merged.setdefault(key, {
+                **{k: c[k] for k in ("arch", "layers", "ranks", "t",
+                                     "heads_split", "tensors",
+                                     "tensors_split")},
+                "launches": {k: 0 for k in c["launches"]},
+                "hz_rel_max": 0.0, "ok": True, "why": [],
+                "probe_ms": [], "hz_ms": [], "one_hz_ms": [],
+                "peak_gb": []})
+            for k, n in c["launches"].items():
+                m["launches"][k] += n
+            m["hz_rel_max"] = max(m["hz_rel_max"], c["hz_rel_max"])
+            for k in ("probe_ms", "hz_ms", "one_hz_ms", "peak_gb"):
+                m[k].append(c[k])
+            for k in ("refresh_ms",):
+                if k in c:
+                    m.setdefault(k, []).append(c[k])
+            for k in ("refresh_bitwise", "z_bitwise"):
+                if k in c:
+                    m[k] = m.get(k, True) and c[k]
+            for k in ("tensors_on_tile_bounds", "spread_rel_max",
+                      "route_flips"):
+                if k in c:
+                    m[k] = c[k]
+            m["ok"] = m["ok"] and c["ok"]
+            if c["why"]:
+                m["why"].append(f"rank {c['rank']}: {c['why']}")
+    return list(merged.values())
+
+
+def model_axis_hvp(K, card: str, dev, seed: int) -> dict:
+    """Phase 16g: ``HVP_AXIS_RANKS`` rank processes spawned on the card
+    (``hvp_axis_rank``), joined within ``HVP_AXIS_SECONDS``; every case's
+    records merged (``merged_hvp_cases``) and held: each rank's z its
+    block of one process's, Hz within its bound, the refresh bit for bit,
+    and on qwen2-0.5B's cut depth one K1 and one K4 a rank and tensor.
+    Returns the path's launches (qwen2's cases)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "out.json")
+        ctx = mp.start_processes(
+            hvp_axis_rank, args=(HVP_AXIS_RANKS, os.path.join(tmp, "store"),
+                                 out_path, seed, str(dev)),
+            nprocs=HVP_AXIS_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + HVP_AXIS_SECONDS
+        try:
+            while not ctx.join(timeout=1):
+                require(time.monotonic() < deadline,
+                        f"16g: the {HVP_AXIS_RANKS} rank processes did not "
+                        f"finish in {HVP_AXIS_SECONDS} s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
+            raise SmokeFailure(f"16g: a rank process failed: {exc}") from exc
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join()
+        with open(out_path) as f:
+            cases = merged_hvp_cases(json.load(f))
+    launches = {"diff_topk_payload": 0, "block_scatter_accumulate": 0}
+    for c in cases:
+        what = (f"16g: {c['arch']} ({c['layers']} layers) over "
+                f"{c['ranks']} ranks")
+        require(c["ok"], f"{what}: {c['why']}")
+        if c["arch"] == HVP_AXIS_ARCH:
+            want = c["ranks"] * c["tensors"]
+            got = c["launches"]
+            require(got["diff_topk_payload"] == want
+                    and got["block_scatter_accumulate"] == want,
+                    f"{what}: the refresh launched K1 "
+                    f"{got['diff_topk_payload']} and K4 "
+                    f"{got['block_scatter_accumulate']} times, not {want} "
+                    f"(one a rank and tensor)")
+            for k in launches:
+                launches[k] += got[k]
+    require(sum(c["arch"] == HVP_AXIS_ARCH for c in cases) == 2
+            and len(cases) == 2 + sum(map(len, HVP_AXIS_FAMILIES)),
+            f"16g: {len(cases)} cases came back")
+    rep = {"card": card, "rank_processes": HVP_AXIS_RANKS, "cases": cases,
+           "s": time.perf_counter() - t0}
+    print(json.dumps({"model_axis_hvp": rep}), flush=True)
+    return launches
+
+
 def add_path_launches(kernels: list, path: str, launches: dict) -> None:
     """``path``'s launches added to each kernel line entry it launched."""
     for entry in kernels:
@@ -7428,6 +7839,15 @@ def main() -> int:
                         f"flash_attention:{r}"]
                 entry["encdec_vlm_axis_rank_heads"] = k9_encdec
         print(f"# encoder-decoder and VLM model axis phase in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # -- 16g. Hutchinson curvature over the "model" axis: 4 rank
+        # processes on the card joined by gloo, qwen2-0.5B's width over 4
+        # and 2 of them, each other family's reduced config over 2
+        t0 = time.perf_counter()
+        add_path_launches(kernels, "model_axis_hvp",
+                          model_axis_hvp(K, card, dev, args.seed))
+        print(f"# Hutchinson model axis phase in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     except SmokeFailure as exc:
         return fail(str(exc))

@@ -324,13 +324,19 @@ def whole_tree(tree):
     return _over(lambda x: x.full_tensor() if _is_dtensor(x) else x, tree)
 
 
+def _sum_type(dtype: torch.dtype) -> torch.dtype:
+    """The type a sum over the ranks runs in: f32, or f64 for f64."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 class _Axis:
     """One axis of a mesh: its process group, extent and this rank's place
-    on it, and the collectives over it. Sums run in f32 on the calling
-    stream. A mesh without the axis gives an axis of one rank. The three
-    primitives are the only calls that cross ranks (``chip_smoke.py``
-    plays the ranks of one card in turn through a subclass that replaces
-    them)."""
+    on it, and the collectives over it. Sums run in f32 (f64 stays f64,
+    ``_sum_type``) on the calling stream. A mesh without the axis gives
+    an axis of one rank. The three primitives are the only calls that
+    cross ranks (``chip_smoke.py`` plays the ranks of one card in turn
+    through a subclass that replaces them, and in its phase 16g runs
+    them through the host for rank processes on one card)."""
 
     def __init__(self, mesh, name: str):
         names = mesh.mesh_dim_names if mesh is not None else ()
@@ -379,7 +385,8 @@ class _Axis:
         chosen = [t for t, p in zip(tensors, pick) if p]
         if not chosen or self.world == 1:
             return list(tensors)
-        flat = torch.cat([t.to(torch.float32).reshape(-1) for t in chosen])
+        flat = torch.cat([t.to(_sum_type(t.dtype)).reshape(-1)
+                          for t in chosen])
         self._all_reduce(flat)
         out, at = [], 0
         for t, p in zip(tensors, pick):
@@ -405,17 +412,22 @@ class _Axis:
     def sum_part(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's shard on ``dim`` of the sum over the ranks of a
         whole tensor each rank has its own of (reduce-scatter, in f32)."""
-        y = x.movedim(dim, 0).to(torch.float32).contiguous()
+        y = x.movedim(dim, 0).to(_sum_type(x.dtype)).contiguous()
         return self._reduce_scatter(y).movedim(0, dim).to(x.dtype).contiguous()
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """A new tensor: ``x`` reduced over the ranks in f32 (the max in
-        ``x``'s own type), cast back to its type."""
+        """A new contiguous tensor: ``x`` reduced over the ranks in f32
+        (the max in ``x``'s own type), cast back to its type. ``x`` may
+        have any strides (a gradient in a double backward can be a
+        transposed view; NCCL takes contiguous tensors only)."""
         if self.world == 1:
             return x
         if op == "max":
-            return self._all_reduce(x.clone(), "max")
-        return self._all_reduce(x.to(torch.float32, copy=True)).to(x.dtype)
+            return self._all_reduce(
+                x.clone(memory_format=torch.contiguous_format), "max")
+        return self._all_reduce(x.to(
+            _sum_type(x.dtype), memory_format=torch.contiguous_format,
+            copy=True)).to(x.dtype)
 
 
 class ModelAxis(_Axis):
@@ -445,6 +457,14 @@ class ModelAxis(_Axis):
       parallelism: each rank weighs its own experts' outputs, and the
       backward gathers the other ranks' columns, so the router's
       gradient is whole on every rank.
+
+    Each operator is linear, so the backward of its backward is its
+    forward: each backward is the ``apply`` of its dual (``copy_in`` <->
+    ``reduce_out``, ``gather_weight`` <-> ``_SumPart``, the
+    reduce-scatter, ``split_on`` <-> ``gather_on``), which autograd
+    differentiates again under ``create_graph``. So a double backward
+    (Hutchinson's Hz, ``launch.steps.grad_and_hvp``) runs through the
+    same collectives, transposed.
     """
 
     def __init__(self, mesh=None):
@@ -489,17 +509,18 @@ class _CopyIn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.axis.all_reduce(grad), None
+        return _ReduceOut.apply(grad, ctx.axis), None
 
 
 class _ReduceOut(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
+        ctx.axis = axis
         return axis.all_reduce(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return _CopyIn.apply(grad, ctx.axis), None
 
 
 class _GatherWeight(torch.autograd.Function):
@@ -510,7 +531,22 @@ class _GatherWeight(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.axis.sum_part(grad, ctx.dim), None, None
+        return _SumPart.apply(grad, ctx.axis, ctx.dim), None, None
+
+
+class _SumPart(torch.autograd.Function):
+    """This rank's shard on ``dim`` of the sum over the ranks (reduce-
+    scatter, ``ModelAxis.sum_part``): ``_GatherWeight``'s backward, whose
+    own backward gathers the shards whole again."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return axis.sum_part(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherWeight.apply(grad, ctx.axis, ctx.dim), None, None
 
 
 class _SplitOn(torch.autograd.Function):
@@ -521,7 +557,7 @@ class _SplitOn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.axis.whole(grad, ctx.dim), None, None
+        return _GatherOn.apply(grad, ctx.axis, ctx.dim), None, None
 
 
 class _GatherOn(torch.autograd.Function):
@@ -532,7 +568,7 @@ class _GatherOn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return ctx.axis.part(grad, ctx.dim).contiguous(), None, None
+        return _SplitOn.apply(grad, ctx.axis, ctx.dim), None, None
 
 
 class DataAxis(_Axis):
@@ -613,7 +649,9 @@ class LeafLayout:
 class _Gathered(torch.autograd.Function):
     """A shard gathered whole over "data" for the forward; the backward
     gives this rank's shard of the sum over the data ranks of the
-    gradient."""
+    gradient. First-order only: Hutchinson's double backward never
+    reaches it, since its route gathers every leaf whole over "data"
+    before the model runs (``launch.steps.make_train_step``)."""
 
     @staticmethod
     def forward(ctx, local, lay):
@@ -629,7 +667,8 @@ class _Observed(torch.autograd.Function):
     """A shard gathered whole over "data" for the forward, as
     ``_Gathered``; the backward stores this rank's own gradient of the
     whole slice (one silo's, not summed over the data ranks) in
-    ``sink[key]`` and gives the shard none."""
+    ``sink[key]`` and gives the shard none. First-order only, as
+    ``_Gathered``: the Fisher observation's route."""
 
     @staticmethod
     def forward(ctx, local, lay, sink, key):
@@ -735,11 +774,10 @@ def make_model_axis(mesh) -> Optional[ModelAxis]:
 TP_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 
-def check_model_axis(cfg, ext: dict, hvp: bool = False) -> None:
+def check_model_axis(cfg, ext: dict) -> None:
     """Raise ``NotImplementedError`` for what a "model" axis wider than
     one rank cannot lay out, before any work: a family outside
-    ``TP_FAMILIES``, Hutchinson curvature (its double backward through
-    the collectives), or a width the axis does not divide where the rules
+    ``TP_FAMILIES``, or a width the axis does not divide where the rules
     would replicate a weight no layer computes whole: GQA's q and kv
     columns (the decoder's, whisper's encoder's and its cross-attention's);
     MLA's ``wo`` rows (heads x v_head_dim); a Mamba mixer's inner width Di
@@ -753,7 +791,9 @@ def check_model_axis(cfg, ext: dict, hvp: bool = False) -> None:
     gradient is then the same on each. So are the small widths that
     layers take whole (``gather_weight`` where split, ``copy_in`` where
     not): MLA's ``wuq`` columns and latent rank, the SSM state, the
-    mLSTM's 2 H gate columns (``wif``)."""
+    mLSTM's 2 H gate columns (``wif``). Hutchinson curvature is laid
+    out wherever the first-order step is: the operators' backwards are
+    differentiable again."""
     m = int(ext.get("model", 1))
     if m == 1:
         return
@@ -762,11 +802,6 @@ def check_model_axis(cfg, ext: dict, hvp: bool = False) -> None:
         raise NotImplementedError(
             f"{kind} ({cfg.name}) on a 'model' axis of {m} ranks: only the "
             f"families {TP_FAMILIES} are laid out over 'model'")
-    if hvp:
-        raise NotImplementedError(
-            f"Hutchinson curvature (hvp) of {kind} ({cfg.name}) on a 'model' "
-            f"axis of {m} ranks: the double backward through the "
-            f"collectives is not laid out")
     kinds = layer_kinds(cfg)
     mixers, ffns = {k[0] for k in kinds}, {k[1] for k in kinds}
     widths = []

@@ -38,26 +38,41 @@ def make_optimizer(name: str, lr: float, moment_dtype=None, **kw):
 
 
 class RademacherProbes:
-    """Hutchinson probes as a draw source: ``(step, silo, params) -> z``,
-    a tree like ``params`` of +-1 in each leaf's dtype and on its device,
-    drawn leaf by leaf from a CPU ``torch.Generator`` seeded from
-    (seed, step, silo). The reference draws from ``jax.random`` keys
-    folded the same way; torch cannot reproduce those draws."""
+    """Hutchinson probes as a draw source: ``(step, silo, params[,
+    lays]) -> z``, a tree like ``params`` of +-1 in each leaf's dtype and
+    on its device, drawn leaf by leaf from a CPU ``torch.Generator``
+    seeded from (seed, step, silo). The reference draws from
+    ``jax.random`` keys folded the same way; torch cannot reproduce those
+    draws. ``lays`` (each leaf's ``LeafLayout``, on a "model" axis): a
+    leaf split over "model" (``mdim``) is this rank's shard, so it is
+    drawn at its whole shape, M times the shard's on ``mdim``, and this
+    rank keeps its block. Every leaf is then drawn as one process draws
+    it, in the same order, so a rank's z is its block of one process's
+    z bit for bit, and a leaf held whole has the same z on every rank."""
 
     def __init__(self, seed: int = 0):
         self.seed = int(seed)
 
-    def __call__(self, step: int, silo: int, params):
+    def __call__(self, step: int, silo: int, params, lays=None):
         mixed = np.random.SeedSequence([self.seed, int(step), int(silo)])
         gen = torch.Generator().manual_seed(
             int(mixed.generate_state(1, np.uint64)[0]) >> 1)
 
-        def one(p):
-            bits = torch.randint(0, 2, tuple(p.shape), generator=gen,
+        def one(p, lay=None):
+            shape = list(p.shape)
+            split = lay is not None and lay.mdim is not None \
+                and lay.model.world > 1
+            if split:
+                shape[lay.mdim] *= lay.model.world
+            bits = torch.randint(0, 2, tuple(shape), generator=gen,
                                  dtype=torch.int8)
+            if split:
+                bits = lay.model.part(bits, lay.mdim)
             return (2 * bits - 1).to(device=p.device, dtype=p.dtype)
 
-        return tree_map(one, params)
+        if lays is None:
+            return tree_map(one, params)
+        return tree_map(one, params, lays)
 
 
 def value_and_grad(model: Model, params, batch, create_graph: bool = False,
@@ -180,11 +195,16 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
     over "data" as a tree; H and l equal the whole-tree route's bit for
     bit. Hutchinson curvature (``hvp``) keeps that route: its probes and
     double backward run on the weights gathered whole over "data", the
-    observations stacked, then ``optimizer.refresh``. On one rank this
-    is the step without a mesh, bit for bit, and on a model axis of one
-    rank the data-axis step. A family or ``hvp`` the model axis does not
-    lay out raises ``NotImplementedError`` here, before any work
-    (``sharding.check_model_axis``).
+    observations stacked, then ``optimizer.refresh(..., layout=)``. Over
+    a "model" axis the double backward runs through the tensor-parallel
+    layers (each operator's backward is differentiable again), each
+    rank's probe is its block of one process's (``RademacherProbes`` with
+    the layouts), so Hz and z * Hz are this rank's model shards, and the
+    refresh runs K1 on a shard that lies on 128-wide tile bounds, then
+    K4. On one rank this is the step without a mesh, bit for bit, and on
+    a model axis of one rank the data-axis step. A family or width the
+    model axis does not lay out raises ``NotImplementedError`` here,
+    before any work (``sharding.check_model_axis``).
 
     ``donate``: the step may overwrite the tensors of ``params`` and
     ``opt_state`` (the caller drops them, as JAX's ``donate_argnums``):
@@ -194,7 +214,7 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
                     and refresh_every >= 1)
     probes = RademacherProbes(probe_seed) if probes is None else probes
     if mesh is not None:
-        check_model_axis(model.cfg, extents(mesh), hvp=hvp)
+        check_model_axis(model.cfg, extents(mesh))
     axis = None if mesh is None else DataAxis(mesh)
     world, rank = (1, 0) if axis is None else (axis.world, axis.rank)
     tp = None if axis is None or axis.model.world == 1 else axis.model
@@ -228,7 +248,8 @@ def make_train_step(model: Model, optimizer, microbatches: int = 1,
             silo = rank * local_silos + i
             b_i = split(batch, local_silos, i)
             if hvp:
-                z = probes(state.step, silo, whole)
+                z = (probes(state.step, silo, whole) if tp is None
+                     else probes(state.step, silo, whole, lays))
                 g_i, hz = grad_and_hvp(model, whole, b_i, z)
                 obs = optimizer.observe(g_i, whole, hvp=(z, hz))
                 del z, hz

@@ -91,7 +91,7 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
     cfg = get_config(arch, smoke=smoke)
     mesh = make_host_mesh(device=dev) if mesh is None else mesh
     ext = extents(mesh)
-    check_model_axis(cfg, ext, hvp=hvp)
+    check_model_axis(cfg, ext)
     axis = DataAxis(mesh)
     world, rank = axis.world, axis.rank
     first = rank == 0 and axis.model.rank == 0

@@ -190,8 +190,9 @@ def decode_mask(cache_len: int, pos: int, window: Optional[int] = None,
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy; logits (..., V), targets (...) int."""
-    logits = logits.float()
+    """Mean token cross-entropy; logits (..., V), targets (...) int. In
+    f32 (f64 logits stay f64)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return torch.mean(logz - gold)
@@ -204,8 +205,8 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     over the ranks, then the sum of exp and the gold logit (from the rank
     that owns the target; 0 elsewhere), each summed over the ranks. Every
     rank returns the same loss; its gradient reaches this rank's block
-    only."""
-    logits = logits.float()
+    only. In f32, as ``cross_entropy`` (f64 logits stay f64)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     v = logits.shape[-1]
     lo = axis.rank * v
     with torch.no_grad():

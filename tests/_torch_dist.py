@@ -754,3 +754,162 @@ def ssm_axis_all(mesh, shape, logits, rest: dict, gen_cases=()):
     out["generate"] = (model_axis_generate_states(mesh, shape, gen_cases)
                        if gen_cases else [])
     return out
+
+
+# -- Hutchinson curvature over the "model" axis ------------------------------------
+
+
+@contextlib.contextmanager
+def contiguous_collectives():
+    """While the block runs, every axis primitive refuses a tensor that is
+    not contiguous, as NCCL does (gloo on the host takes any dense one)."""
+    from repro_torch.launch import sharding
+
+    names = ("_all_gather", "_all_reduce", "_reduce_scatter")
+    saved = {n: getattr(sharding._Axis, n) for n in names}
+
+    def checked(fn):
+        def call(self, x, *args):
+            if not x.is_contiguous():
+                raise ValueError("Tensors must be contiguous")
+            return fn(self, x, *args)
+        return call
+
+    for n in names:
+        setattr(sharding._Axis, n, checked(saved[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(sharding._Axis, n, saved[n])
+
+
+def _rank_stack(axis, x):
+    """Every rank's ``x`` stacked (data, model, *x.shape) in rank order."""
+    over_model, = axis.model.gather(x.detach().contiguous()[None])
+    over_data, = axis.gather(over_model[None])
+    return over_data
+
+
+def hvp_axis_train(mesh, shape, runs, tool=None):
+    """On a ``shape`` mesh, for each (arch, overrides, replace, argv) in
+    ``runs`` (argv with ``--hvp``), under "runs": ``driver_run``'s records of
+    ``launch.train.main(argv)``, and of the first refresh's double
+    backward (``launch.steps.grad_and_hvp``, one silo a data rank) every
+    rank's z, Hz and z * Hz of each leaf stacked (data, model, *the
+    rank's shape) in rank order (``_rank_stack``), each leaf's "model"
+    dim (None: held whole), and whether each leaf held whole over
+    "model" has the same Hz on every model rank (the primitives refuse a
+    tensor that is not contiguous, as NCCL does:
+    ``contiguous_collectives``); then under "tool",
+    ``model_axis_tool`` of ``tool`` (argv, workdir), None without."""
+    import repro_torch.launch.train as train_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.sharding import DataAxis
+    from repro_torch.tree import tree_leaves
+
+    mesh = _mesh2(*shape)
+    axis = DataAxis(mesh)
+    make_mesh, hvp = train_mod.make_host_mesh, steps_mod.grad_and_hvp
+    out = []
+    for arch, overrides, replace, argv in runs:
+        seen = {}
+
+        def recording(model, params, batch, z):
+            g, hz = hvp(model, params, batch, z)
+            if "hz" not in seen:
+                seen["z"], seen["hz"] = tree_leaves(z), tree_leaves(hz)
+            return g, hz
+
+        train_mod.make_host_mesh = lambda device=None: mesh
+        steps_mod.grad_and_hvp = recording
+        try:
+            with contiguous_collectives():
+                rec = driver_run(mesh, arch, overrides, argv,
+                                 config=_config(arch, overrides, replace))
+        finally:
+            train_mod.make_host_mesh = make_mesh
+            steps_mod.grad_and_hvp = hvp
+        lays = [axis.layout(x) for x in tree_leaves(rec.pop("first_params"))]
+        rec.pop("final_local")
+        rec["mdims"] = [lay.mdim for lay in lays]
+        rec["z"] = [_rank_stack(axis, x) for x in seen["z"]]
+        rec["hz"] = [_rank_stack(axis, x) for x in seen["hz"]]
+        rec["obs"] = [_rank_stack(axis, z.float() * h.float())
+                      for z, h in zip(seen["z"], seen["hz"])]
+        rec["whole_hz_equal"] = all(
+            _model_rank_equal(h, axis.model)
+            for h, lay in zip(seen["hz"], lays) if lay.mdim is None)
+        out.append(rec)
+    return {"runs": out,
+            "tool": None if tool is None else model_axis_tool(*tool)}
+
+
+def hvp_op_function(tp, name: str, targets=None):
+    """The ``name`` case of ``HVP_OP_CASES`` as this rank computes it over
+    the model axis ``tp``: a function of tensors held whole on every rank
+    to a tensor held whole on every rank, through the operators the case
+    names (each rank's own constant ``c``, 0.7 or -1.3 and on, where its
+    ranks compute apart)."""
+    import torch
+    from repro_torch.launch.sharding import _SumPart
+    from repro_torch.models.common import vocab_parallel_cross_entropy
+
+    c = (0.7, -1.3, 0.4, 1.1)[tp.rank]
+    if name == "copy_in_reduce_out":
+        return lambda x, w1, w2: tp.reduce_out(torch.tanh(
+            tp.copy_in(x) @ tp.split_on(w1, 1)) @ tp.split_on(w2, 0))
+    if name == "split_on_gather_on":
+        return lambda x, w: tp.gather_on(torch.tanh(
+            tp.copy_in(x) @ tp.split_on(w, 1)), 1)
+    if name == "gather_weight":
+        return lambda x, w: tp.gather_on(torch.tanh(
+            tp.split_on(x, 0) @ tp.gather_weight(tp.split_on(w, 1), 1)), 0)
+    if name == "sum_part":
+        return lambda x: tp.gather_on(_SumPart.apply(
+            torch.tanh(c * tp.copy_in(x)), tp, 0), 0)
+    if name == "vocab_parallel_cross_entropy":
+        return lambda logits: vocab_parallel_cross_entropy(
+            tp.split_on(logits, -1), targets, tp)
+    raise ValueError(name)
+
+
+def hvp_ops(mesh, cases):
+    """For each (name, inputs, u, v, targets) in ``cases`` (numpy f64),
+    on the model axis of this group's ranks as a (1, W) mesh:
+    ``torch.autograd.gradgradcheck`` of ``hvp_op_function`` at
+    ``inputs`` with the output gradient ``u`` (the same on every rank),
+    and its value, its gradient g (the vector-Jacobian product with
+    ``u``) and the double backward of g's product with ``v``; whether
+    each of those is the same on every rank. The primitives refuse a
+    tensor that is not contiguous, as NCCL does
+    (``contiguous_collectives``)."""
+    from repro_torch.launch.sharding import DataAxis
+
+    tp = DataAxis(_mesh2(1, dist.get_world_size())).model
+    out = {}
+    with contiguous_collectives():
+        for name, inputs, u, v, targets in cases:
+            out[name] = _hvp_op_case(tp, name, inputs, u, v, targets)
+    return out
+
+
+def _hvp_op_case(tp, name, inputs, u, v, targets) -> dict:
+    """One case of ``hvp_ops``."""
+    import torch
+
+    fn = hvp_op_function(tp, name, None if targets is None
+                         else torch.from_numpy(targets))
+    xs = [torch.from_numpy(x).requires_grad_(True) for x in inputs]
+    u_t = torch.from_numpy(u)
+    ok = torch.autograd.gradgradcheck(fn, xs, grad_outputs=[u_t])
+    y = fn(*xs)
+    g = torch.autograd.grad(y, xs, grad_outputs=u_t, create_graph=True)
+    hv = torch.autograd.grad(g, xs, grad_outputs=[torch.from_numpy(w)
+                                                  for w in v])
+    rec = {"gradgradcheck": ok, "y": y.detach(),
+           "g": [x.detach() for x in g], "hv": list(hv)}
+    rec["ranks_equal"] = all(
+        _model_rank_equal(x, tp)
+        for x in [rec["y"].reshape(-1)] + rec["g"] + rec["hv"])
+    return rec

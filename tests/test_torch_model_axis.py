@@ -35,7 +35,6 @@ import os
 import subprocess
 import sys
 import textwrap
-import types
 
 import numpy as np
 import pytest
@@ -412,7 +411,7 @@ def test_the_mesh_check_tool_runs_on_four_ranks(g14):
     assert out["local_bytes"] < out["whole_bytes"] / 2
 
 
-# -- one-rank model axes and refusals ---------------------------------------------------
+# -- one-rank model axes ---------------------------------------------------
 
 
 def test_a_model_axis_of_one_rank_installs_nothing(g12, g14):
@@ -441,45 +440,3 @@ def test_a_one_by_one_mesh_is_the_step_without_a_mesh():
     finally:
         train_mod.get_config = get
     assert hist == _one_process(QWEN, {}, None, 1)["loss"]
-
-
-def _fake_mesh(shape):
-    return types.SimpleNamespace(mesh_dim_names=("data", "model"),
-                                 shape=shape)
-
-
-# (arch, what the refusal names, hvp): every family is laid out over
-# "model" (the dense one first, then the MoE, MLA, hybrid, ssm, encdec and
-# vlm ones); their Hutchinson curvature is not, so each case is refused
-# for hvp, which ``generate`` does not take
-REFUSED = [("granite-moe-1b-a400m", "hvp", True), ("minicpm3-4b", "hvp", True),
-           ("jamba-1.5-large-398b", "hvp", True),
-           ("xlstm-350m", "hvp", True), ("whisper-tiny", "hvp", True),
-           ("llava-next-34b", "hvp", True)]
-
-
-@pytest.mark.parametrize("arch,kind,hvp", REFUSED)
-def test_other_families_refuse_a_model_axis_before_any_work(arch, kind, hvp):
-    model = build_model(get_config(arch).reduced())
-    opt = make_optimizer("fednl", LR, curvature="hutchinson" if hvp
-                         else "fisher")
-    calls = [lambda: make_train_step(model, opt, hvp=hvp,
-                                     mesh=_fake_mesh((1, 4))),
-             lambda: train(arch, device="cpu", hvp=hvp, optimizer="fednl",
-                           mesh=_fake_mesh((2, 2)))]
-    if not hvp:
-        calls.append(lambda: generate(arch, device="cpu",
-                                      mesh=_fake_mesh((1, 2))))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=kind):
-            call()
-
-
-def test_hutchinson_refuses_a_model_axis_before_any_work():
-    model = build_model(get_config(SC15).reduced())
-    opt = make_optimizer("fednl", LR, curvature="hutchinson")
-    with pytest.raises(NotImplementedError, match="hvp"):
-        make_train_step(model, opt, hvp=True, mesh=_fake_mesh((1, 4)))
-    with pytest.raises(NotImplementedError, match="hvp"):
-        train(SC15, device="cpu", hvp=True, optimizer="fednl",
-              mesh=_fake_mesh((2, 2)))

@@ -68,6 +68,11 @@ Rank 0 prints one JSON line, and with ``--out DIR`` writes it to
 the gaps, ms a step or a token on both sides (host clock to a synchronize), peak memory, this
 rank's bytes of params and state against the whole, and the card.
 ``--device cpu --smoke`` runs on gloo ranks.
+
+``--hvp``: the fednl steps take Hutchinson curvature (z * Hz, a double
+backward through the tensor-parallel layers on each model rank) instead
+of the empirical Fisher's, on both sides, with the same probes (one
+process's z, each rank its block of it).
 """
 
 from __future__ import annotations
@@ -152,7 +157,7 @@ def _train_args(args) -> dict:
     ``ARGS``'s text tokens."""
     cfg = _config(args)
     extra = cfg.vision_tokens if cfg.family == "vlm" else 0
-    return dict(ARGS, lr=args.lr, seq=ARGS["seq"] + extra)
+    return dict(ARGS, lr=args.lr, seq=ARGS["seq"] + extra, hvp=args.hvp)
 
 
 def _state_bytes(args) -> int:
@@ -220,7 +225,7 @@ def one_process(args, n_silos: int, dev: torch.device,
     if nudge:
         params = nudged(params, torch.Generator(device=dev).manual_seed(11))
     opt = make_optimizer("fednl", args.lr, k_per_block=ARGS["curvature_k"],
-                         curvature="fisher")
+                         curvature="hutchinson" if args.hvp else "fisher")
     state = opt.init(params)
     rec = {"ms": [], "loss": [], "gnorm": [], "refreshed": [],
            "step_peak_gb": []}
@@ -235,7 +240,8 @@ def one_process(args, n_silos: int, dev: torch.device,
 
     step = keep(timed(make_train_step(model, opt,
                                       refresh_every=ARGS["refresh_every"],
-                                      n_silos=n_silos), dev, rec, False))
+                                      n_silos=n_silos, hvp=args.hvp),
+                      dev, rec, False))
     pipe = TokenPipeline(vocab_size=cfg.vocab, seq_len=ARGS["seq"],
                          global_batch=ARGS["batch"], seed=0)
     for i in range(args.steps):
@@ -562,6 +568,9 @@ def main(argv=None) -> int:
                     help="a third run on rank 0 from the weights changed by "
                          "one rounding: the one card's own spread of the "
                          "losses and grad norms (training)")
+    ap.add_argument("--hvp", action="store_true",
+                    help="Hutchinson curvature (z * Hz) in the fednl steps "
+                         "(training)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None,
                     help="a directory for the JSON line (default: print only)")
@@ -584,6 +593,7 @@ def main(argv=None) -> int:
         name = (f"{args.arch}{f'_L{args.layers}' if args.layers else ''}"
                 f"{f'_lr{args.lr:g}' if args.lr != ARGS['lr'] else ''}"
                 f"{f'_{args.dtype}' if args.dtype else ''}"
+                f"{'_hvp' if args.hvp else ''}"
                 f"_{mesh['data']}x{mesh['model']}"
                 f"{'_serve' if args.serve else ''}.json")
         with open(os.path.join(args.out, name), "w") as f:

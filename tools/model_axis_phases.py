@@ -1,12 +1,13 @@
 """``chip_smoke.py``'s model-axis phases alone, on one card.
 
-    python3 tools/model_axis_phases.py [--phases 16,16b,16c,16d,16e,16f] \\
+    python3 tools/model_axis_phases.py [--phases 16,16b,16c,16d,16e,16f,16g] \\
         [--seed 0] [--out FILE]
 
 builds the kernels from ``src/repro_torch/csrc`` as the smoke run does,
 then runs the named phases of ``chip_smoke.py`` (16: starcoder2-15b, 16b:
 the MoE family, 16c: MLA, 16d: the hybrid family, 16e: xLSTM, 16f:
-whisper and llava; ranks played by threads on the card), each with the
+whisper and llava, ranks played by threads on the card; 16g: Hutchinson
+curvature, rank processes on the card joined by gloo), each with the
 checks it makes in the smoke run, and prints each phase's JSON line, its
 launches and its seconds. For iterating on one phase without the whole
 run of about 17 minutes; the smoke run stays the check. ``--out FILE``
@@ -32,7 +33,8 @@ import chip_smoke as smoke  # noqa: E402
 
 PHASES = {"16": smoke.model_axis_starcoder2_15b, "16b": smoke.model_axis_moe,
           "16c": smoke.model_axis_mla, "16d": smoke.model_axis_hybrid,
-          "16e": smoke.model_axis_ssm, "16f": smoke.model_axis_encdec_vlm}
+          "16e": smoke.model_axis_ssm, "16f": smoke.model_axis_encdec_vlm,
+          "16g": smoke.model_axis_hvp}
 
 
 def main(argv=None) -> int:
